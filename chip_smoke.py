@@ -19,8 +19,22 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            must have launched (4 fetches, 2 GN rounds); ATE against ground
            truth and against the serial NumPy oracle (tests/oracle.py) on 8
            scans, which must be <= 1e-3 m;
+  phase 4  the resident-fetch kernel against its plain version on phase 1's
+           queries routed through the resident tables' rows_index: bitwise;
+           and against the raw-table fetch: d2 bitwise, candidates bitwise
+           wherever the compact row is not the sentinel;
+  phase 5  the main path on resident tables (build_map_planar_tables with
+           resident=True, batch_register_fused), counted: 4 resident
+           fetches, 0 raw fetches, 2 GN rounds; poses within 1e-6 of phase
+           3's; ATE against the oracle <= 1e-3 m;
+  phase 6  the rounds-structured solver batch_register_pallas on the
+           resident tables, counted: 4 resident fetches, 0 GN rounds; ATE
+           against the oracle <= 1e-3 m; batch_register_blocks (plain fetch,
+           same solver) on the first 32 scans within 1e-4 of it;
   timing   CUDA events: each kernel beside its plain version at these
-           shapes, frontend and solve ms/scan, end-to-end scans/s.
+           shapes, with its bound (bytes over 3.35 TB/s or operations over
+           67 TFLOP/s fp32, whichever is larger); frontend and solve
+           ms/scan, end-to-end scans/s.
 
 Any failure raises (exit code 1).  Prints the card's name and power limit
 early, a JSON line of per-kernel results second to last, and as the last
@@ -46,6 +60,16 @@ K = 8
 ITERS = 15
 N_ORACLE = 8
 PARITY_BUDGET = 1e-3     # m, bench.py's BENCH_PARITY_BUDGET
+N_BLOCKS = 32            # scans of phase 6's plain-fetch comparison
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
+# operations per slot of a live query's row: 3 sub, 3 mul, 2 add for d2 and
+# at least one compare to select from it
+FETCH_OPS_PER_SLOT = 9
+# operations per valid feature and GN iteration, counted from the plain
+# version (ops/gn_round.py) at K=8: transform 18, d2 64, 5-of-K selection
+# 120, J row and J*J^T 120, plus the fit (line ~270, Householder plane ~560)
+GN_OPS_PER_POINT = {"corner": 600, "surf": 900}
 
 
 def tpu_kernel_line(file_name, kernel):
@@ -74,6 +98,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the fp32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fetch_bound(table, bcell, K):
+    """Bound of one fetch call: inputs (table, bcell, q) read once, d2 and
+    candidates written once; 9 operations per slot of each live row."""
+    Q = bcell.shape[0]
+    W = table.shape[1] // 3
+    live = int((bcell != table.shape[0] - 1).sum())
+    nbytes = table.numel() * 4 + Q * 16 + Q * K * 16
+    return bound(nbytes, live * W * FETCH_OPS_PER_SLOT)
+
+
 def main():
     import torch
 
@@ -86,7 +128,8 @@ def main():
     from feature_base_pointcloud_registration_tpu_torch.ops.features import (
         extract_features)
     from feature_base_pointcloud_registration_tpu_torch.ops.fetch import (
-        block_fetch, block_fetch_reference)
+        PlanarTable, block_fetch, block_fetch_reference, resident_fetch,
+        resident_fetch_reference)
     from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
         gn_round, gn_round_reference)
     from feature_base_pointcloud_registration_tpu_torch.ops.hashgrid import (
@@ -94,7 +137,8 @@ def main():
     from feature_base_pointcloud_registration_tpu_torch.ops.projection import (
         project_scan)
     from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
-        batch_register_fused, build_map_planar_tables, feature_planes,
+        batch_register_blocks, batch_register_fused, batch_register_pallas,
+        build_map_block_tables, build_map_planar_tables, feature_planes,
         fetch_queries, initial_state)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
         FeatureMap, RawScan)
@@ -113,6 +157,12 @@ def main():
     t0 = time.perf_counter()
     kernels.library()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for log in sorted(glob.glob(os.path.join(kernels.BUILD_DIR,
+                                             "libfbpr_resident_fetch-*.log"))):
+        with open(log) as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas resident_fetch: {line.strip()}", flush=True)
 
     # ---- setup: bench.py's scans, guesses and map, from seeds ----
     params = Params(map_corner_cap=16384, map_surf_cap=65536)
@@ -145,10 +195,10 @@ def main():
         return downsample_features(
             params, extract_features(params, project_scan(params, r)))
 
-    def tables():
+    def tables(resident=False):
         return build_map_planar_tables(fmap, center, half,
                                        corner_cell_cap=CCAP,
-                                       surf_cell_cap=SCAP)
+                                       surf_cell_cap=SCAP, resident=resident)
 
     def solve(feats, tabs):
         ctab, stab, origin, dims = tabs
@@ -188,7 +238,7 @@ def main():
     }
 
     # ---- phase 1: fetch kernel vs plain version, bitwise ----
-    cands, fetch_err = {}, 0.0
+    cands, raw_d2, fetch_err = {}, {}, 0.0
     for kind, (tab, q) in queries.items():
         d2k, ck = block_fetch(tab, *q, K=K)
         torch.cuda.synchronize()
@@ -202,6 +252,7 @@ def main():
         if not (torch.equal(d2k, d2r) and torch.equal(ck, cr)):
             raise AssertionError(f"fetch kernel != plain version ({kind})")
         cands[kind] = ck
+        raw_d2[kind] = d2k
         fetch_err = max(fetch_err, err)
 
     # ---- phase 2: GN kernel vs plain version on those candidates ----
@@ -220,17 +271,27 @@ def main():
         raise AssertionError(f"GN kernel vs plain version: {gn_err} > 1e-3")
 
     # ---- phase 3: the slice end to end, counted ----
-    torch.cuda.synchronize()
-    block_fetch.launches = 0
-    gn_round.launches = 0
+    wrappers = {"block_fetch": block_fetch, "resident_fetch": resident_fetch,
+                "gn_round": gn_round}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts(phase, want):
+        torch.cuda.synchronize()
+        got = {name: w.launches for name, w in wrappers.items()}
+        print(f"phase {phase} launches: {got}", flush=True)
+        if got != want:
+            raise AssertionError(f"phase {phase} launches {got}, want {want}")
+        return got
+
+    zero_counts()
     feats3 = frontend(raw)
     res = solve(feats3, tables())
-    torch.cuda.synchronize()
-    launches = {"block_fetch": block_fetch.launches,
-                "gn_round": gn_round.launches}
-    print(f"phase 3 launches: {launches}", flush=True)
-    if launches != {"block_fetch": 4, "gn_round": 2}:
-        raise AssertionError(f"main path launches {launches}, want 4 + 2")
+    launches = read_counts(3, {"block_fetch": 4, "resident_fetch": 0,
+                               "gn_round": 2})
 
     pose = res.pose6.cpu().numpy()
     if not (np.isfinite(pose).all() and pose.shape == (B, 6)):
@@ -260,48 +321,168 @@ def main():
         raise AssertionError(f"ate_vs_oracle_m {ate_oracle} > "
                              f"{PARITY_BUDGET}")
 
+    def ate_oracle_of(poses):
+        d = poses[:n_or, 3:] - oracle_poses[:, 3:]
+        return float(np.sqrt((d ** 2).sum(-1).mean()))
+
+    # ---- phase 4: resident fetch kernel vs plain version, bitwise ----
+    rtabs = tables(resident=True)
+    if not all(isinstance(t, PlanarTable) for t in rtabs[:2]):
+        raise AssertionError("resident=True did not compact both tables")
+    rqueries, res_err = {}, 0.0
+    for kind, rtab in (("corner", rtabs[0]), ("surf", rtabs[1])):
+        tab, q = queries[kind]
+        rows = rtab.rows_index[q[0].long()]
+        rq = rqueries[kind] = (rtab.table, (rows, *q[1:]))
+        d2k, ck = resident_fetch(rq[0], *rq[1], K=K)
+        torch.cuda.synchronize()
+        d2r, cr = resident_fetch_reference(rq[0], *rq[1], K=K)
+        err = max((d2k - d2r).abs().max().item(),
+                  (ck - cr).abs().max().item())
+        res_err = max(res_err, err)
+        Rp = rtab.table.shape[0] - 1
+        found = rows != Rp
+        print(f"phase 4 resident {kind}: Q={rows.shape[0]} "
+              f"W={rtab.table.shape[1] // 3} live {found.float().mean().item():.3f}"
+              f" compact rows {Rp} ({rtab.table.numel() * 4} B) raw rows "
+              f"{tab.shape[0] - 1} ({tab.numel() * 4} B); d2 equal "
+              f"{torch.equal(d2k, d2r)} cand equal {torch.equal(ck, cr)} "
+              f"max_abs_err {err}; vs raw fetch: d2 equal "
+              f"{torch.equal(d2k, raw_d2[kind])}, cand equal where found "
+              f"{torch.equal(ck[:, found], cands[kind][:, found])}",
+              flush=True)
+        if not (torch.equal(d2k, d2r) and torch.equal(ck, cr)):
+            raise AssertionError(f"resident kernel != plain version ({kind})")
+        if not (torch.equal(d2k, raw_d2[kind])
+                and torch.equal(ck[:, found], cands[kind][:, found])):
+            raise AssertionError(f"resident fetch != raw fetch ({kind})")
+
+    # ---- phase 5: the main path on resident tables, counted ----
+    def solve_resident(feats, tabs_):
+        ctab_, stab_, origin_, dims_ = tabs_
+        return batch_register_fused(
+            feats, ctab_, stab_, origin_, guesses_t, grid_dims=dims_,
+            iters_per_round=ITERS, num_candidates=K,
+            round1_surf_stride=R1S, round1_corner_stride=R1C)
+
+    zero_counts()
+    res5 = solve_resident(feats3, tables(resident=True))
+    launches5 = read_counts(5, {"block_fetch": 0, "resident_fetch": 4,
+                                "gn_round": 2})
+    pose5 = res5.pose6.cpu().numpy()
+    d5 = float(np.abs(pose5 - pose).max())
+    ate5 = ate_oracle_of(pose5)
+    print(f"phase 5: pose |diff| vs phase 3 max {d5}; n_converged "
+          f"{int(res5.converged.sum())}/{B} ate_vs_oracle_m {ate5}",
+          flush=True)
+    if not (np.isfinite(pose5).all() and d5 <= 1e-6):
+        raise AssertionError(f"resident main path moved poses by {d5}")
+    if not ate5 <= PARITY_BUDGET:
+        raise AssertionError(f"phase 5 ate_vs_oracle_m {ate5}")
+
+    # ---- phase 6: the rounds-structured solver, counted ----
+    def solve_rounds(feats, tabs_, n=B):
+        ctab_, stab_, origin_, dims_ = tabs_
+        return batch_register_pallas(
+            feats, ctab_, stab_, origin_, guesses_t[:n], grid_dims=dims_,
+            corner_cell_cap=CCAP, surf_cell_cap=SCAP, num_rounds=2,
+            iters_per_round=ITERS, num_candidates=K)
+
+    zero_counts()
+    res6 = solve_rounds(feats3, rtabs)
+    read_counts(6, {"block_fetch": 0, "resident_fetch": 4,
+                  "gn_round": 0})
+    pose6 = res6.pose6.cpu().numpy()
+    err6 = np.linalg.norm(pose6[:, 3:] - gt[:, 3:], axis=1)
+    ate6_gt = float(np.sqrt((err6 ** 2).mean()))
+    ate6 = ate_oracle_of(pose6)
+    btabs = build_map_block_tables(fmap, center, half, corner_cell_cap=CCAP,
+                                   surf_cell_cap=SCAP)
+    sub = type(feats3)(*(a[:N_BLOCKS] for a in feats3))
+    res_b = batch_register_blocks(
+        sub, btabs[0], btabs[1], btabs[2], guesses_t[:N_BLOCKS],
+        grid_dims=btabs[3], corner_cell_cap=CCAP, surf_cell_cap=SCAP,
+        num_rounds=2, iters_per_round=ITERS, num_candidates=K)
+    d6 = float(np.abs(res_b.pose6.cpu().numpy() - pose6[:N_BLOCKS]).max())
+    print(f"phase 6: n_converged {int(res6.converged.sum())}/{B} degenerate "
+          f"{int(res6.is_degenerate.sum())} mean iterations "
+          f"{res6.iterations.float().mean().item():.2f} ate_vs_gt_m {ate6_gt}"
+          f" ate_vs_oracle_m {ate6}; batch_register_blocks on {N_BLOCKS} "
+          f"scans: pose |diff| max {d6}", flush=True)
+    if not (np.isfinite(pose6).all() and ate6 <= PARITY_BUDGET):
+        raise AssertionError(f"phase 6 ate_vs_oracle_m {ate6}")
+    if not d6 <= 1e-4:
+        raise AssertionError(f"batch_register_blocks vs pallas: {d6}")
+
     # ---- timing (CUDA events; not counted as main-path launches) ----
-    stab_q = queries["surf"]
-    ctab_q = queries["corner"]
+    def fetch_times(fn, plain, tab_q):
+        return (cuda_ms(lambda: fn(tab_q[0], *tab_q[1], K=K), 20),
+                cuda_ms(lambda: plain(tab_q[0], *tab_q[1], K=K), 2))
+
     kt = {
-        "fetch_surf": (cuda_ms(lambda: block_fetch(stab_q[0], *stab_q[1],
-                                                   K=K), 20),
-                       cuda_ms(lambda: block_fetch_reference(
-                           stab_q[0], *stab_q[1], K=K), 2)),
-        "fetch_corner": (cuda_ms(lambda: block_fetch(ctab_q[0], *ctab_q[1],
-                                                     K=K), 20),
-                         cuda_ms(lambda: block_fetch_reference(
-                             ctab_q[0], *ctab_q[1], K=K), 2)),
+        "fetch_surf": fetch_times(block_fetch, block_fetch_reference,
+                                  queries["surf"]),
+        "fetch_corner": fetch_times(block_fetch, block_fetch_reference,
+                                    queries["corner"]),
+        "resident_surf": fetch_times(resident_fetch, resident_fetch_reference,
+                                     rqueries["surf"]),
+        "resident_corner": fetch_times(resident_fetch,
+                                       resident_fetch_reference,
+                                       rqueries["corner"]),
         "gn_round": (cuda_ms(lambda: gn_round(*gn_args, K=K, iters=ITERS),
                              10),
                      cuda_ms(lambda: gn_round_reference(*gn_args, K=K,
                                                         iters=ITERS), 2)),
     }
+    bounds = {name: fetch_bound(tq[0], tq[1][0], K) for name, tq in (
+        ("fetch_surf", queries["surf"]), ("fetch_corner", queries["corner"]),
+        ("resident_surf", rqueries["surf"]),
+        ("resident_corner", rqueries["corner"]))}
+    # GN round 1: features and candidates read once, stat/matP read and
+    # written; operations for the lane-iterations this run's data took
+    n_pts = fc.shape[2] + fs.shape[2]
+    lane_iters = (sk[:, 6] - stat[:, 6]).clamp(min=0)
+    gn_ops = sum(float((lane_iters * f[:, 3].sum(1)).sum())
+                 * GN_OPS_PER_POINT[kind]
+                 for kind, f in (("corner", fc), ("surf", fs)))
+    bounds["gn_round"] = bound(B * n_pts * (4 + 3 * K) * 4
+                               + B * (16 + 36) * 4 * 2, gn_ops)
     for name, (ms_k, ms_p) in kt.items():
-        print(f"time {name}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms",
+        print(f"time {name}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})",
               flush=True)
     t_front = cuda_ms(lambda: frontend(raw), 3)
     t_tables = cuda_ms(tables, 3)
     t_solve = cuda_ms(lambda: solve(feats3, tabs), 5)
+    t_solve5 = cuda_ms(lambda: solve_resident(feats3, rtabs), 5)
+    t_solve6 = cuda_ms(lambda: solve_rounds(feats3, rtabs), 1)
     t_e2e = cuda_ms(lambda: solve(frontend(raw), tables()), 3)
     print(f"time: frontend {t_front / B:.4f} ms/scan, tables {t_tables:.2f} "
           f"ms, solve {t_solve / B:.4f} ms/scan ({B * 1e3 / t_solve:.1f} "
-          f"scans/s), e2e {B * 1e3 / t_e2e:.1f} scans/s (tables included)",
+          f"scans/s), e2e {B * 1e3 / t_e2e:.1f} scans/s (tables included); "
+          f"phase 5 solve (resident tables) {t_solve5 / B:.4f} ms/scan, "
+          f"phase 6 solve (batch_register_pallas) {t_solve6 / B:.4f} ms/scan",
           flush=True)
 
+    def entry(name, source, replaces, launches_, err, timed):
+        return {"name": name, "route": "cuda",
+                "source": "feature_base_pointcloud_registration_tpu_torch/"
+                          f"csrc/{source}",
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": err, "ms": kt[timed][0],
+                "plain_ms": kt[timed][1], "bound_ms": bounds[timed][0],
+                "bound_by": bounds[timed][1], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "block_fetch", "route": "cuda",
-         "source": "feature_base_pointcloud_registration_tpu_torch/csrc/"
-                   "block_fetch.cu",
-         "replaces": tpu_kernel_line("pallas_fetch.py", "_fetch_kernel"),
-         "launches": launches["block_fetch"], "max_abs_err": fetch_err,
-         "ms": kt["fetch_surf"][0], "plain_ms": kt["fetch_surf"][1]},
-        {"name": "gn_round", "route": "cuda",
-         "source": "feature_base_pointcloud_registration_tpu_torch/csrc/"
-                   "gn_round.cu",
-         "replaces": tpu_kernel_line("pallas_gn.py", "_gn_round_kernel"),
-         "launches": launches["gn_round"], "max_abs_err": gn_err,
-         "ms": kt["gn_round"][0], "plain_ms": kt["gn_round"][1]},
+        entry("block_fetch", "block_fetch.cu",
+              tpu_kernel_line("pallas_fetch.py", "_fetch_kernel"),
+              launches["block_fetch"], fetch_err, "fetch_surf"),
+        entry("gn_round", "gn_round.cu",
+              tpu_kernel_line("pallas_gn.py", "_gn_round_kernel"),
+              launches["gn_round"], gn_err, "gn_round"),
+        entry("resident_fetch", "resident_fetch.cu",
+              tpu_kernel_line("pallas_fetch.py", "_resident_kernel"),
+              launches5["resident_fetch"], res_err, "resident_surf"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

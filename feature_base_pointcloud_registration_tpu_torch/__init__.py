@@ -6,10 +6,12 @@ imports no JAX and none of the JAX package's modules.  Module paths
 mirror the JAX package's so each counterpart is easy to find.
 
 Ported so far: the batched scan-to-map main path (projection, fast feature
-picking, feature downsampling, hash-grid map tables, and the fused solve
-`parallel.batch.batch_register_fused`).  The two TPU kernels on that path are
-hand-written CUDA in `csrc/` (see `kernels.py`).  Functions take a leading
-batch dimension where the JAX package vmaps over scans.
+picking, feature downsampling, hash-grid map tables raw or row-compacted,
+and the fused solve `parallel.batch.batch_register_fused`), and the
+rounds-structured solver (`ops.register.register_rounds_core`) behind
+`batch_register_pallas` and `batch_register_blocks`.  The three TPU kernels
+are hand-written CUDA in `csrc/` (see `kernels.py`).  Functions take a
+leading batch dimension where the JAX package vmaps over scans.
 """
 
 from . import device  # noqa: F401  (sets the TF32 guards)

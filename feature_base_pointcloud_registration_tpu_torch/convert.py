@@ -1,12 +1,13 @@
 """Carry state between the JAX package and the port, through numpy.
 
 `to_torch` turns a tree of numpy arrays — the JAX package's NamedTuples
-(`RawScan`, `ScanFeatures`, `FeatureMap`, `RegisterResult`, ...) after
-`jax.tree.map(np.asarray, ...)` — into the port's NamedTuples of tensors,
-matched by class name.  `to_numpy` goes the other way.  Here the map and the
-tables built from it stand where a model's weights would: the tests use these
-functions to give both packages identical state.  Neither function imports
-JAX.
+(`RawScan`, `ScanFeatures`, `FeatureMap`, `RegisterResult`, `GNState`, ...)
+after `jax.tree.map(np.asarray, ...)` — into the port's NamedTuples of
+tensors, matched by class name.  `to_numpy` goes the other way.
+`planar_table_to_torch` carries a planar block table or a `PlanarTable`.
+Here the map and the tables built from it stand where a model's weights
+would: the tests use these functions to give both packages identical state.
+No function imports JAX, and none picks a device: the caller names it.
 """
 
 from __future__ import annotations
@@ -15,25 +16,28 @@ import numpy as np
 import torch
 
 from .config import Params
+from .ops.fetch import PlanarTable
 from .ops.register import RegisterResult
+from .ops.solver import GNState
 from .pipeline.cloud_info import CloudInfo, FeatureMap, RawScan, ScanFeatures
 
 _TUPLES = {cls.__name__: cls for cls in
-           (RawScan, CloudInfo, ScanFeatures, FeatureMap, RegisterResult)}
+           (RawScan, CloudInfo, ScanFeatures, FeatureMap, RegisterResult,
+            GNState)}
 
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def to_torch(tree, device="cpu"):
+def to_torch(tree, *, device):
     """numpy arrays -> tensors on `device`, NamedTuples -> the port's class
     of the same name (others keep their class), recursively."""
     if _is_namedtuple(tree):
         cls = _TUPLES.get(type(tree).__name__, type(tree))
-        return cls(*(to_torch(v, device) for v in tree))
+        return cls(*(to_torch(v, device=device) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_torch(v, device) for v in tree)
+        return type(tree)(to_torch(v, device=device) for v in tree)
     if isinstance(tree, (np.ndarray, np.generic)):
         return torch.from_numpy(np.array(tree)).to(device)
     return tree
@@ -50,9 +54,14 @@ def to_numpy(tree):
     return tree
 
 
-def planar_table_to_torch(table, device="cpu"):
+def planar_table_to_torch(table, *, device):
     """JAX planar block table [R, 3*W/128, 128] (the TPU's 128-lane tiling
-    of [R, 3*W]) -> the port's [R, 3*W] table."""
+    of [R, 3*W]) -> the port's [R, 3*W] table.  A JAX `PlanarTable` becomes
+    the port's: its table reshaped so, its rows_index carried as is."""
+    if _is_namedtuple(table) and hasattr(table, "rows_index"):
+        return PlanarTable(
+            planar_table_to_torch(table.table, device=device),
+            torch.from_numpy(np.array(table.rows_index, np.int32)).to(device))
     table = np.asarray(table, np.float32)
     return torch.from_numpy(table.reshape(table.shape[0], -1).copy()).to(
         device)

@@ -1,13 +1,14 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-The sources compile with `nvcc` into one shared library with a plain C
-interface, bound with ctypes (no PyTorch headers, so a build takes seconds):
+Each source compiles with `nvcc` into its own shared library with a plain C
+interface, bound with ctypes (no PyTorch headers, so a build takes seconds;
+the nvcc processes of all sources run at once):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/libfbpr_kernels-<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -o build/libfbpr_<source>-<hash>.so csrc/<source>.cu
 
 The build runs at first use, into `build/` beside the package (the file name
-carries a hash of the sources and flags, so an edited source rebuilds).
+carries a hash of the source and flags, so an edited source rebuilds).
 Importing this module builds nothing: the CPU tests import every module.
 
 Each C entry point launches on the stream it is given (PyTorch's current
@@ -26,12 +27,14 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SUPPORTED_K = (6, 8, 16)  # template instances in csrc/*.cu
+RESIDENT_MAX_W = 512      # csrc/resident_fetch.cu: W = 128 * (1..4)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +45,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # table, rows, W, bcell, qx, qy, qz, Q, K, d2, cand, stream
     "fbpr_block_fetch": [_P, _L, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P],
+    # the same arguments, the table a compact one (ops/fetch.PlanarTable)
+    "fbpr_resident_fetch": [_P, _L, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P],
     # stat, matP, featc, feats, candc, cands, B, Pc, Ps, K, iters,
     # min_corr, eig_thresh, conv_rot_deg, conv_trans_cm, jacobi_sweeps,
     # min_plane_spread, stream
@@ -61,33 +66,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """Build the kernels (first call per source hash) and load them."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    sources = sorted(CSRC.glob("*.cu"))
+def _build(sources) -> list:
+    """One shared library per source, all nvcc processes started together;
+    returns their paths (existing ones are reused)."""
+    jobs, sos = [], []
     for src in sources:
-        h.update(src.name.encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         h.update(src.read_bytes())
-    so = BUILD_DIR / f"libfbpr_kernels-{h.hexdigest()[:16]}.so"
-    if not so.exists():
+        so = BUILD_DIR / f"libfbpr_{src.stem}-{h.hexdigest()[:16]}.so"
+        sos.append(so)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        jobs.append((so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for so, tmp, proc in jobs:
+        out = proc.communicate()[0]
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        (BUILD_DIR / (so.stem + ".log")).write_text(proc.stdout + proc.stderr)
+            failed.append(f"{so.name}: nvcc failed ({proc.returncode}):\n{out}")
+            continue
+        (BUILD_DIR / (so.stem + ".log")).write_text(out)
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return sos
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> SimpleNamespace:
+    """Build the kernels (first call per source hash) and load them: one
+    attribute per C entry point of `_SIGNATURES`."""
+    libs = [ctypes.CDLL(str(so))
+            for so in _build(sorted(CSRC.glob("*.cu")))]
+    fns = {}
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return SimpleNamespace(**fns)
 
 
 def _check_k(K: int):
@@ -116,6 +139,25 @@ def launch_block_fetch(table, bcell, qx, qy, qz, d2, cand, *, K: int):
             bcell.shape[0], K, d2.data_ptr(), cand.data_ptr(),
             _stream(table))
     _check_rc("fbpr_block_fetch", rc)
+
+
+def launch_resident_fetch(table, bcell, qx, qy, qz, d2, cand, *, K: int):
+    """csrc/resident_fetch.cu on validated CUDA tensors (see ops/fetch.py);
+    the kernel reads rows with 16-byte loads, so W is a multiple of 128."""
+    _check_k(K)
+    W = table.shape[1] // 3
+    if W % 128 or not 128 <= W <= RESIDENT_MAX_W:
+        raise ValueError(f"W={W}: the resident kernel takes W in "
+                         f"{tuple(range(128, RESIDENT_MAX_W + 1, 128))}")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    lib = library()
+    with torch.cuda.device(table.device):
+        rc = lib.fbpr_resident_fetch(
+            table.data_ptr(), table.shape[0], W, bcell.data_ptr(),
+            qx.data_ptr(), qy.data_ptr(), qz.data_ptr(), bcell.shape[0], K,
+            d2.data_ptr(), cand.data_ptr(), _stream(table))
+    _check_rc("fbpr_resident_fetch", rc)
 
 
 def launch_gn_round(stat, matP, featc, feats, candc, cands, *, K: int,

@@ -1,22 +1,29 @@
-"""Candidate fetch for the hash-grid hot path: block tables + top-K kernel.
+"""Candidate fetch for the hash-grid hot path: block tables + top-K kernels.
 
-Port of the JAX package's `ops/pallas_fetch.py` (the TPU kernel
-`_fetch_kernel` behind `fused_block_fetch`).  Replaces the reference's
-per-query kdtree->nearestKSearch calls (ref: src/mapOptmization.h:1020,1143)
-on the batched path.
+Port of the JAX package's `ops/pallas_fetch.py` (the TPU kernels
+`_fetch_kernel` behind `fused_block_fetch` and `_resident_kernel` behind
+`fused_resident_fetch`).  Replaces the reference's per-query
+kdtree->nearestKSearch calls (ref: src/mapOptmization.h:1020,1143) on the
+batched path.
 
 Table layout: one PLANE-MAJOR block row per 2x2x2 cell block, [R, 3*W] with
 row = [ x(W slots) | y | z ]; the last row is the all-FAR sentinel.  The JAX
 table is the same rows reshaped to [R, 3*W/128, 128] (TPU lane tiling).
 Empty slots hold FAR=1e9 m, so no validity plane is needed: their d2 is
 ~3e18, reported as 3e38 (downstream gates treat d2 > 1e17 as "no
-candidate").
+candidate").  A `PlanarTable` keeps only the populated rows of such a table
+plus an index from raw block ids to compact rows.
 
-`block_fetch` launches the CUDA kernel `csrc/block_fetch.cu` on CUDA tensors
-and runs `block_fetch_reference` on CPU tensors.
+`block_fetch` (raw table) and `resident_fetch` (compact table) launch the
+CUDA kernels `csrc/block_fetch.cu` and `csrc/resident_fetch.cu` on CUDA
+tensors and run their plain versions on CPU tensors.  Both keep one
+contract: a sentinel query reads no row and gets d2 = 3e38 and zero
+coordinates.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -137,6 +144,23 @@ def block_fetch_reference(table, bcell, qx, qy, qz, *, K: int):
     return d2_out, cand.view(3 * K, Q)
 
 
+def _fetch(launch, plain, table, bcell, qx, qy, qz, K, planes_out):
+    """Shared wrapper: CPU tensors run `plain`, CUDA tensors `launch`."""
+    W, Q = _check(table, bcell, qx, qy, qz, K)
+    if table.device.type == "cpu":
+        d2, cand = plain(table, bcell, qx, qy, qz, K=K)
+    elif table.device.type == "cuda":
+        d2 = torch.empty(Q, K, dtype=torch.float32, device=table.device)
+        cand = torch.empty(3 * K, Q, dtype=torch.float32,
+                           device=table.device)
+        launch(table, bcell, qx, qy, qz, d2, cand, K=K)
+    else:
+        raise ValueError(f"unsupported device {table.device}")
+    if planes_out:
+        return d2, cand
+    return d2, cand.view(3, K, Q).permute(2, 1, 0)
+
+
 def block_fetch(table, bcell, qx, qy, qz, *, K: int = 8,
                 planes_out: bool = True):
     """Exact top-K of each query's block row: (d2 [Q,K], candidates).
@@ -148,22 +172,116 @@ def block_fetch(table, bcell, qx, qy, qz, *, K: int = 8,
     plane-major as one [3K, Q] tensor (x rows 0..K-1, then y, then z) — the
     layout `gn_round` reads; planes_out=False returns nn [Q, K, 3].
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    `csrc/block_fetch.cu`.
     """
-    W, Q = _check(table, bcell, qx, qy, qz, K)
-    if table.device.type == "cpu":
-        d2, cand = block_fetch_reference(table, bcell, qx, qy, qz, K=K)
-    elif table.device.type == "cuda":
-        d2 = torch.empty(Q, K, dtype=torch.float32, device=table.device)
-        cand = torch.empty(3 * K, Q, dtype=torch.float32,
-                           device=table.device)
-        kernels.launch_block_fetch(table, bcell, qx, qy, qz, d2, cand, K=K)
+    def launch(*args, K):
+        kernels.launch_block_fetch(*args, K=K)
         block_fetch.launches += 1
-    else:
-        raise ValueError(f"unsupported device {table.device}")
-    if planes_out:
-        return d2, cand
-    return d2, cand.view(3, K, Q).permute(2, 1, 0)
+
+    return _fetch(launch, block_fetch_reference, table, bcell, qx, qy, qz,
+                  K, planes_out)
 
 
 block_fetch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Resident-table fetch: the same function against a row-compacted table.
+# ---------------------------------------------------------------------------
+
+RESIDENT_TABLE_CAP = 10 * 1024 * 1024   # bytes; the JAX package's rule
+
+
+class PlanarTable(NamedTuple):
+    """Row-compacted planar block table for the resident fetch.
+
+    table: [Rp+1, 3*W] — populated block rows only, the all-FAR sentinel
+    last.  rows_index: [n_cells+1] int32 — raw block-cell id -> compact row
+    (unpopulated and sentinel cells -> Rp).
+    """
+    table: torch.Tensor
+    rows_index: torch.Tensor
+
+
+def compact_row_space(table_planar) -> PlanarTable:
+    """Drop unpopulated block rows: [R, 3*W] -> PlanarTable.
+
+    A row is populated when any of its x slots is valid (< 1e8); the old
+    sentinel row R-1 drops and an all-FAR row is appended.  Most of a map
+    grid's cells are empty (the grid covers the bounding box, the cloud
+    covers surfaces), so the compact table is a fraction of the raw one.
+    """
+    R, W3 = table_planar.shape
+    pop = (table_planar[:, :W3 // 3] < 1e8).any(1)
+    pop[R - 1] = False
+    idx = torch.nonzero(pop)[:, 0]
+    Rp = idx.shape[0]
+    rows_index = torch.full((R,), Rp, dtype=torch.int32,
+                            device=table_planar.device)
+    rows_index[idx] = torch.arange(Rp, dtype=torch.int32,
+                                   device=table_planar.device)
+    sent = torch.full((1, W3), _FAR, dtype=table_planar.dtype,
+                      device=table_planar.device)
+    return PlanarTable(torch.cat([table_planar[idx], sent], 0), rows_index)
+
+
+def resident_fetch_reference(table, bcell, qx, qy, qz, *, K: int):
+    """Plain PyTorch version of the resident fetch: `block_fetch_reference`
+    on the compact table (gather the compact rows, stable sort, sentinel
+    row Rp -> d2 3e38 and zero coordinates), chunked the same way."""
+    return block_fetch_reference(table, bcell, qx, qy, qz, K=K)
+
+
+def resident_fetch(table, bcell, qx, qy, qz, *, K: int = 8,
+                   planes_out: bool = True):
+    """`block_fetch`'s contract against a compact table: table [Rp+1, 3*W]
+    (`PlanarTable.table`), bcell [Q] COMPACT row ids (route raw block ids
+    through `PlanarTable.rows_index`; Rp is the sentinel).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    `csrc/resident_fetch.cu` (W a multiple of 128, at most 512)."""
+    def launch(*args, K):
+        kernels.launch_resident_fetch(*args, K=K)
+        resident_fetch.launches += 1
+
+    return _fetch(launch, resident_fetch_reference, table, bcell, qx, qy,
+                  qz, K, planes_out)
+
+
+resident_fetch.launches = 0
+
+
+def block_cell_of(query, origin, cell_size, *, dims):
+    """Block-corner row id per query [..., 3] (octant rule; out-of-grid ->
+    the sentinel row n_cells)."""
+    return block_cell_of_xyz(query[..., 0], query[..., 1], query[..., 2],
+                             origin, cell_size, dims=dims)
+
+
+def fetch_rows(table, bcell, qx, qy, qz, *, K: int, planes_out: bool = True):
+    """The fetch of either table kind on RAW block ids: a raw planar table
+    runs `block_fetch`; a `PlanarTable` routes the ids through its
+    rows_index and runs `resident_fetch`."""
+    if isinstance(table, PlanarTable):
+        rows = table.rows_index[bcell.long()]
+        return resident_fetch(table.table, rows, qx, qy, qz, K=K,
+                              planes_out=planes_out)
+    return block_fetch(table, bcell, qx, qy, qz, K=K, planes_out=planes_out)
+
+
+def make_pallas_block_knn(table_planar, origin, cell_size, *, dims, cell_cap,
+                          k: int = 8):
+    """Fetch closure (query [Q,3] -> (d2 [Q,k], nn [Q,k,3])) on the fetch
+    kernels (`fetch_rows`); same contract as
+    ops.hashgrid.make_block_grid_knn.  cell_cap is the JAX signature's; the
+    width comes with the table."""
+    del cell_cap
+
+    def f(q):
+        bcell = block_cell_of(q, origin, cell_size, dims=dims)
+        return fetch_rows(table_planar, bcell,
+                          *[q[:, i].contiguous() for i in range(3)], K=k,
+                          planes_out=False)
+
+    return f

@@ -1,44 +1,92 @@
-"""Batched scan-to-map registration: map tables + the fused solve.
+"""Batched scan-to-map registration: map tables + the batched solvers.
 
-Port of the main-path part of the JAX package's `parallel/batch.py`:
-`build_map_planar_tables` and `batch_register_fused`.  The reference scales
-with OpenMP threads inside one scan (ref: src/mapOptmization.h:1007,1130);
-here the batch of scans is the parallel axis.  Each solve round is two
-kernel launches per feature kind and one GN launch: the candidate fetch
-(`ops.fetch.block_fetch`) at the lanes' current poses, then a whole GN round
-per lane (`ops.gn_round.gn_round`) with per-lane early exit.
+Port of the JAX package's `parallel/batch.py` batched solvers.  The
+reference scales with OpenMP threads inside one scan (ref:
+src/mapOptmization.h:1007,1130); here the batch of scans is the parallel
+axis.
+
+  * `batch_register_fused` — the main path: each solve round is one
+    candidate fetch per feature kind at the lanes' current poses
+    (`ops.fetch.block_fetch`, or `resident_fetch` on a `PlanarTable`), then
+    a whole GN round per lane (`ops.gn_round.gn_round`) with per-lane early
+    exit.
+  * `batch_register_pallas` — the same fetch kernels feeding the
+    rounds-structured solver `ops.register.register_rounds_core`.
+  * `batch_register_blocks` — that solver on the plain block-table fetch
+    (`ops.hashgrid.grid_knn_block`), kernel-free.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..geom.se3 import euler_to_rot
-from ..ops.fetch import (block_cell_of_xyz, block_fetch,
-                         build_block_table_planar)
+from ..ops.fetch import (RESIDENT_TABLE_CAP, PlanarTable, block_cell_of_xyz,
+                         build_block_table_planar, compact_row_space,
+                         fetch_rows, make_pallas_block_knn)
 from ..ops.gn_round import STAT, gn_round
-from ..ops.hashgrid import build_grid_sentinel, default_grid_spec, grid_origin
-from ..ops.register import RegisterResult
+from ..ops.hashgrid import (build_block_table, build_grid_sentinel,
+                            default_grid_spec, grid_origin,
+                            make_block_grid_knn)
+from ..ops.register import (RegisterResult, register_rounds_core,
+                            world_components)
 from ..pipeline.cloud_info import FeatureMap, ScanFeatures
+
+
+def _sentinel_tables(local_map: FeatureMap, center, half_extent, cell_size,
+                     corner_cell_cap, surf_cell_cap, margin):
+    dims = default_grid_spec(half_extent, cell_size, margin)
+    origin = grid_origin(center, half_extent, margin,
+                         device=local_map.corner_xyz.device)
+    tables = [build_grid_sentinel(xyz, mask, origin, cell_size, dims=dims,
+                                  cell_cap=cap)
+              for xyz, mask, cap in (
+                  (local_map.corner_xyz, local_map.corner_mask,
+                   corner_cell_cap),
+                  (local_map.surf_xyz, local_map.surf_mask, surf_cell_cap))]
+    return tables, origin, dims
 
 
 def build_map_planar_tables(local_map: FeatureMap, center, half_extent,
                             cell_size: float = 2.0, corner_cell_cap: int = 16,
-                            surf_cell_cap: int = 64, margin: float = 2.0):
-    """Plane-major block tables for the fused fetch, on the map's device.
-    Returns (corner_table, surf_table, origin, dims)."""
-    dims = default_grid_spec(half_extent, cell_size, margin)
-    origin = grid_origin(center, half_extent, margin,
-                         device=local_map.corner_xyz.device)
-    tables = []
-    for xyz, mask, cap in ((local_map.corner_xyz, local_map.corner_mask,
-                            corner_cell_cap),
-                           (local_map.surf_xyz, local_map.surf_mask,
-                            surf_cell_cap)):
-        st = build_grid_sentinel(xyz, mask, origin, cell_size, dims=dims,
-                                 cell_cap=cap)
-        tables.append(build_block_table_planar(st, dims=dims))
+                            surf_cell_cap: int = 64, margin: float = 2.0,
+                            resident: bool = False):
+    """Plane-major block tables for the fetch kernels, on the map's device.
+    Returns (corner_table, surf_table, origin, dims).
+
+    resident=True row-compacts each table into a `PlanarTable` for
+    `resident_fetch` when the compact table takes at most
+    RESIDENT_TABLE_CAP bytes (the JAX package's rule and value); a larger
+    one stays a raw table for `block_fetch`."""
+    (cst, sst), origin, dims = _sentinel_tables(
+        local_map, center, half_extent, cell_size, corner_cell_cap,
+        surf_cell_cap, margin)
+    tables = [build_block_table_planar(st, dims=dims) for st in (cst, sst)]
+    if resident:
+        compact = [compact_row_space(t) for t in tables]
+        tables = [c if c.table.numel() * 4 <= RESIDENT_TABLE_CAP else t
+                  for c, t in zip(compact, tables)]
     return tables[0], tables[1], origin, dims
+
+
+def build_map_block_tables(local_map: FeatureMap, center, half_extent,
+                           cell_size: float = 2.0, corner_cell_cap: int = 16,
+                           surf_cell_cap: int = 64, margin: float = 2.0):
+    """Cell-major block tables for `batch_register_blocks` (one row per
+    2x2x2 block, 8x the sentinel table).  Returns (corner_table,
+    surf_table, origin, dims)."""
+    (cst, sst), origin, dims = _sentinel_tables(
+        local_map, center, half_extent, cell_size, corner_cell_cap,
+        surf_cell_cap, margin)
+    return (build_block_table(cst, dims=dims, cell_cap=corner_cell_cap),
+            build_block_table(sst, dims=dims, cell_cap=surf_cell_cap),
+            origin, dims)
+
+
+def sentinel_of(table) -> int:
+    """Raw block id that reads no row: n_cells for either table kind."""
+    if isinstance(table, PlanarTable):
+        return table.rows_index.shape[0] - 1
+    return table.shape[0] - 1
 
 
 def feature_planes(xyz, mask):
@@ -69,30 +117,29 @@ def initial_state(features: ScanFeatures, init_poses, *,
 def fetch_queries(pose, xyz, mask, table, origin, cell_size, dims,
                   skip_lane=None):
     """Fetch queries of features xyz [B,P,3] at poses [B,6]: (bcell, qx, qy,
-    qz), each [B*P], in the world frame.
+    qz), each [B*P], in the world frame; bcell holds raw block ids.
 
     Invalid features, and every feature of a lane in `skip_lane`, go to the
     sentinel row: the fetch reads no row for them."""
     B, P, _ = xyz.shape
-    R = euler_to_rot(pose[:, 0], pose[:, 1], pose[:, 2])
-    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
-    w = [R[:, i, 0:1] * x + R[:, i, 1:2] * y + R[:, i, 2:3] * z
-         + pose[:, 3 + i, None] for i in range(3)]
+    w = world_components(pose, xyz)
     bcell = block_cell_of_xyz(w[0], w[1], w[2], origin, cell_size, dims=dims)
     live = mask
     if skip_lane is not None:
         live = live & ~skip_lane[:, None]
-    bcell = torch.where(live, bcell, table.shape[0] - 1).to(torch.int32)
+    bcell = torch.where(live, bcell, sentinel_of(table)).to(torch.int32)
     return (bcell.reshape(B * P),
             *[c.reshape(B * P).contiguous() for c in w])
 
 
 def fetch_candidates(pose, xyz, mask, table, origin, cell_size, dims, *,
                      K: int, skip_lane=None):
-    """Candidates [3K, B*P] of features xyz [B,P,3] at poses [B,6]."""
+    """Candidates [3K, B*P] of features xyz [B,P,3] at poses [B,6], from
+    `block_fetch` on a raw table or `resident_fetch` on a `PlanarTable`
+    (raw block ids routed through its rows_index)."""
     queries = fetch_queries(pose, xyz, mask, table, origin, cell_size, dims,
                             skip_lane=skip_lane)
-    return block_fetch(table, *queries, K=K, planes_out=True)[1]
+    return fetch_rows(table, *queries, K=K)[1]
 
 
 def batch_register_fused(features: ScanFeatures, corner_planar, surf_planar,
@@ -106,9 +153,10 @@ def batch_register_fused(features: ScanFeatures, corner_planar, surf_planar,
                          round1_surf_stride: int = 1,
                          round1_corner_stride: int = 1,
                          min_plane_spread: float = 0.0) -> RegisterResult:
-    """Fused-kernel batched solve: block fetch + GN-round kernel per round.
+    """Fused-kernel batched solve: fetch kernel + GN-round kernel per round.
 
-    features [B, ...] with tables from `build_map_planar_tables`.
+    features [B, ...] with tables from `build_map_planar_tables` (raw
+    tables or `PlanarTable`s).
     iters_per_round: an int (same budget every round) or one budget per
     round.  shared_fetch: False = refetch every round; True = one fetch at
     the initial pose shared by all rounds; "tail" = refetch at round 1, then
@@ -179,3 +227,49 @@ def batch_register_fused(features: ScanFeatures, corner_planar, surf_planar,
         is_degenerate=stat[:, 8] > 0,
         valid=stat[:, 9] > 0,
     )
+
+
+def batch_register_pallas(features: ScanFeatures, corner_planar, surf_planar,
+                          origin, init_poses, *, grid_dims,
+                          cell_size: float = 2.0, corner_cell_cap: int = 16,
+                          surf_cell_cap: int = 64, num_rounds: int = 2,
+                          iters_per_round: int = 15,
+                          num_candidates: int = 8, edge_min_valid: int = 10,
+                          surf_min_valid: int = 100) -> RegisterResult:
+    """The CUDA fetch kernels + the rounds-structured solve.
+
+    Tables from `build_map_planar_tables`: a raw table runs
+    `csrc/block_fetch.cu`, a `PlanarTable` `csrc/resident_fetch.cu`, both
+    through `ops.fetch.make_pallas_block_knn` (the name is the JAX
+    package's; its Pallas kernels' query-tile multiple does not carry over:
+    any feature caps work).  The solve is `register_rounds_core`."""
+    knn = {kind: make_pallas_block_knn(tab, origin, cell_size,
+                                       dims=grid_dims, cell_cap=cap,
+                                       k=num_candidates)
+           for kind, tab, cap in (("corner", corner_planar, corner_cell_cap),
+                                  ("surf", surf_planar, surf_cell_cap))}
+    return register_rounds_core(
+        features, knn["corner"], knn["surf"], init_poses,
+        num_rounds=num_rounds, iters_per_round=iters_per_round,
+        edge_min_valid=edge_min_valid, surf_min_valid=surf_min_valid)
+
+
+def batch_register_blocks(features: ScanFeatures, corner_block, surf_block,
+                          origin, init_poses, *, grid_dims,
+                          cell_size: float = 2.0, corner_cell_cap: int = 16,
+                          surf_cell_cap: int = 64, num_rounds: int = 2,
+                          iters_per_round: int = 15,
+                          num_candidates: int = 8, edge_min_valid: int = 10,
+                          surf_min_valid: int = 100,
+                          min_plane_spread: float = 0.0) -> RegisterResult:
+    """Plain block-table fetch + the rounds-structured solve (no kernel).
+    Tables from `build_map_block_tables`."""
+    knn = {kind: make_block_grid_knn(tab, origin, cell_size, dims=grid_dims,
+                                      cell_cap=cap, k=num_candidates)
+           for kind, tab, cap in (("corner", corner_block, corner_cell_cap),
+                                  ("surf", surf_block, surf_cell_cap))}
+    return register_rounds_core(
+        features, knn["corner"], knn["surf"], init_poses,
+        num_rounds=num_rounds, iters_per_round=iters_per_round,
+        edge_min_valid=edge_min_valid, surf_min_valid=surf_min_valid,
+        min_plane_spread=min_plane_spread)

@@ -31,6 +31,19 @@ from feature_base_pointcloud_registration_tpu_torch.parallel import (
 CAP = 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tests run their torch ops on one thread.  The suite
+    runs several pytest workers on a few cores, and a torch intra-op pool
+    in each worker oversubscribes them (the port's test files plus two JAX
+    ones under 6 workers on an 8-core host: 118 s with torch's default
+    pool, 70 s with this fixture).  The other port test files import it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dense_setup(pc=1024, ps=4096, mc=4096, ms=16384):
     """tests/test_pallas_gn.py::_setup at larger feature/map counts."""
     r = np.random.RandomState(3)
@@ -75,11 +88,12 @@ def solved():
             feats, cbt, sbt, origin, guesses, grid_dims=dims,
             corner_cell_cap=CAP, surf_cell_cap=CAP, num_rounds=2,
             iters_per_round=15)
-        tmap = to_torch(jax.tree.map(np.asarray, fmap))
+        tmap = to_torch(jax.tree.map(np.asarray, fmap), device="cpu")
         ct, st, torigin, tdims = tbatch.build_map_planar_tables(
             tmap, center, half, corner_cell_cap=CAP, surf_cell_cap=CAP)
         assert tdims == dims
-        inputs = (to_torch(jax.tree.map(np.asarray, feats)), ct, st, torigin,
+        inputs = (to_torch(jax.tree.map(np.asarray, feats), device="cpu"),
+                  ct, st, torigin,
                   torch.from_numpy(np.array(guesses)))
         out[name] = (inputs, jax.tree.map(np.asarray, ref), gt, dims)
     return out

@@ -19,6 +19,7 @@ import torch
 from feature_base_pointcloud_registration_tpu.ops import hashgrid as jhg
 from feature_base_pointcloud_registration_tpu_torch.ops import (
     fetch as tfetch, hashgrid as thg)
+from test_torch_batch import one_torch_thread  # noqa: F401
 
 CELL = 2.0
 DIMS = (8, 8, 4)

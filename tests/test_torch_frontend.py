@@ -35,6 +35,7 @@ from feature_base_pointcloud_registration_tpu_torch.ops import (
     features as tfeat, projection as tproj, voxel as tvox)
 from feature_base_pointcloud_registration_tpu_torch.pipeline import (
     frontend as tfront)
+from test_torch_batch import one_torch_thread  # noqa: F401
 
 PARAMS = Params()
 
@@ -52,7 +53,7 @@ def scans():
         jraws.append(raw._replace(valid=jnp.asarray(s["valid"])))
     batch = jax.tree.map(lambda *a: np.stack([np.asarray(x) for x in a]),
                          *jraws)
-    return jraws, to_torch(batch)
+    return jraws, to_torch(batch, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from feature_base_pointcloud_registration_tpu.ops.register import (
 from feature_base_pointcloud_registration_tpu.pipeline.cloud_info import (
     ScanFeatures)
 from feature_base_pointcloud_registration_tpu_torch.ops import gn_round as tgn
+from test_torch_batch import one_torch_thread  # noqa: F401
 
 B, PC, PS, K, ITERS = 2, 128, 128, 6, 5
 

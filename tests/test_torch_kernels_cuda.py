@@ -5,10 +5,12 @@ Imports no JAX, so it runs on a GPU machine without it:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 (`--noconftest` because tests/conftest.py imports JAX).  Without a GPU every
-test skips.  Tolerances: the fetch kernel is bitwise equal to its plain
-version (explicit round-to-nearest arithmetic, same tie rule); the GN kernel
-within 1e-4 of its plain version in pose (FMA contraction and reduction
-order; both use the library acos) with equal n_corr and flags.
+test skips.  Tolerances: both fetch kernels are bitwise equal to their
+plain versions (explicit round-to-nearest arithmetic, same tie rule); the
+GN kernel within 1e-4 of its plain version in pose (FMA contraction and
+reduction order; both use the library acos) with equal n_corr and flags;
+the solvers on the GPU within 1e-4 of the same solvers on the CPU (the
+GN kernel's arithmetic, and `torch.linalg.eigh` on the card).
 """
 
 import numpy as np
@@ -68,11 +70,40 @@ def test_fetch_kernel_bitwise(cuda, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [6, 8, 16])
+@pytest.mark.parametrize("W", [128, 256, 384, 512])
+def test_resident_kernel_bitwise(cuda, K, W):
+    tab, bc, q = _fetch_inputs(K + W, W=W, Q=5000)   # Q % 32 == 8
+    bc[64:96] = tab.shape[0] - 1                      # a dead group
+    args = [torch.from_numpy(a).to(cuda) for a in (tab, bc, *q)]
+    before = tfetch.resident_fetch.launches
+    for planes_out in (True, False):
+        d2, cand = tfetch.resident_fetch(*args, K=K, planes_out=planes_out)
+        torch.cuda.synchronize()
+        d2r, candr = tfetch.resident_fetch_reference(*args, K=K)
+        if not planes_out:
+            candr = candr.view(3, K, -1).permute(2, 1, 0)
+        assert torch.equal(d2, d2r)
+        assert torch.equal(cand, candr)
+    assert tfetch.resident_fetch.launches == before + 2
+    assert (d2[64:96] == np.float32(3e38)).all() and (cand[64:96] == 0).all()
+    # the same function as the raw-table kernel on the same rows
+    d2b, candb = tfetch.block_fetch(*args, K=K, planes_out=False)
+    assert torch.equal(d2, d2b) and torch.equal(cand, candb)
+
+
+@pytest.mark.cuda
 def test_kernels_reject_unsupported_k(cuda):
     tab, bc, q = _fetch_inputs(0)
     args = [torch.from_numpy(a).to(cuda) for a in (tab, bc, *q)]
     with pytest.raises(ValueError):
         tfetch.block_fetch(*args, K=7)
+    with pytest.raises(ValueError):
+        tfetch.resident_fetch(*args, K=7)
+    tab, bc, q = _fetch_inputs(0, W=640)
+    args = [torch.from_numpy(a).to(cuda) for a in (tab, bc, *q)]
+    with pytest.raises(ValueError):                   # W over 512
+        tfetch.resident_fetch(*args, K=8)
 
 
 def _lines_planes(r, n_corner, n_surf):
@@ -164,6 +195,33 @@ def test_fused_solve_on_gpu_matches_cpu(cuda):
         out[dev.type] = tbatch.batch_register_fused(
             f, ct, st, origin, guess.to(dev), grid_dims=dims,
             round1_surf_stride=8, round1_corner_stride=4)
+    got, want = out["cuda"], out["cpu"]
+    assert want.converged.all() and not want.is_degenerate.any()
+    torch.testing.assert_close(got.pose6.cpu(), want.pose6, rtol=0,
+                               atol=1e-4)
+    assert torch.equal(got.converged.cpu(), want.converged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resident", [False, True])
+def test_rounds_solve_on_gpu_matches_cpu(cuda, resident):
+    feats, fmap, guess = _scene(cuda, B=8, Pc=1000, Ps=6000, seed=2)
+    out, launches = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        f = ScanFeatures(*(a.to(dev) for a in feats))
+        m = FeatureMap(*(a.to(dev) for a in fmap))
+        ct, st, origin, dims = tbatch.build_map_planar_tables(
+            m, np.zeros(3), np.array([8.0, 8.0, 4.0]), corner_cell_cap=48,
+            surf_cell_cap=48, resident=resident)
+        assert isinstance(ct, tfetch.PlanarTable) == resident
+        before = (tfetch.block_fetch.launches, tfetch.resident_fetch.launches)
+        out[dev.type] = tbatch.batch_register_pallas(
+            f, ct, st, origin, guess.to(dev), grid_dims=dims,
+            corner_cell_cap=48, surf_cell_cap=48)
+        launches[dev.type] = (tfetch.block_fetch.launches - before[0],
+                              tfetch.resident_fetch.launches - before[1])
+    assert launches == {"cuda": (0, 4) if resident else (4, 0),
+                        "cpu": (0, 0)}
     got, want = out["cuda"], out["cpu"]
     assert want.converged.all() and not want.is_degenerate.any()
     torch.testing.assert_close(got.pose6.cpu(), want.pose6, rtol=0,

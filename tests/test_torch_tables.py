@@ -18,6 +18,7 @@ from feature_base_pointcloud_registration_tpu_torch.convert import (
     planar_table_to_torch, to_numpy, to_torch)
 from feature_base_pointcloud_registration_tpu_torch.ops import (
     fetch as tfetch, hashgrid as thg)
+from test_torch_batch import one_torch_thread  # noqa: F401
 
 CELL = 2.0
 HALF = (7.0, 7.0, 3.0)
@@ -44,7 +45,7 @@ def test_grid_spec_and_origin():
     assert thg.default_grid_spec(HALF, CELL) == jhg.default_grid_spec(
         HALF, CELL)
     np.testing.assert_array_equal(
-        thg.grid_origin(CENTER, HALF).numpy(),
+        thg.grid_origin(CENTER, HALF, device="cpu").numpy(),
         np.asarray(jhg.grid_origin(CENTER, HALF)))
 
 
@@ -53,7 +54,7 @@ def test_sentinel_and_planar_tables(seed, cap):
     pts, mask = _cloud(seed)
     dims = jhg.default_grid_spec(HALF, CELL)
     jorigin = jhg.grid_origin(CENTER, HALF)
-    torigin = thg.grid_origin(CENTER, HALF)
+    torigin = thg.grid_origin(CENTER, HALF, device="cpu")
     jst = jhg.build_grid_sentinel(jnp.asarray(pts), jnp.asarray(mask),
                                   jorigin, CELL, dims=dims, cell_cap=cap)
     tst = thg.build_grid_sentinel(torch.from_numpy(pts),
@@ -61,7 +62,8 @@ def test_sentinel_and_planar_tables(seed, cap):
                                   dims=dims, cell_cap=cap)
     np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))
 
-    jpt = planar_table_to_torch(jpf.build_block_table_planar(jst, dims=dims))
+    jpt = planar_table_to_torch(jpf.build_block_table_planar(jst, dims=dims),
+                                device="cpu")
     tpt = tfetch.build_block_table_planar(tst, dims=dims)
     assert tpt.shape == jpt.shape
     W = tpt.shape[1] // 3
@@ -90,7 +92,7 @@ def test_block_cell_of_xyz():
         jhg.grid_origin(CENTER, HALF), CELL, dims=dims))
     tq = torch.from_numpy(q)
     got = tfetch.block_cell_of_xyz(tq[..., 0], tq[..., 1], tq[..., 2],
-                                   thg.grid_origin(CENTER, HALF), CELL,
+                                   thg.grid_origin(CENTER, HALF, device="cpu"), CELL,
                                    dims=dims)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
@@ -104,7 +106,7 @@ def test_convert_round_trip():
         cloud_info)
     pts, mask = _cloud(5, m=64)
     jm = FeatureMap(pts, mask, pts[:32], mask[:32])
-    tm = to_torch(jm)
+    tm = to_torch(jm, device="cpu")
     assert type(tm) is cloud_info.FeatureMap
     assert tm.corner_xyz.dtype == torch.float32
     assert tm.corner_mask.dtype == torch.bool

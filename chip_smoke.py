@@ -34,7 +34,14 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
   timing   CUDA events: each kernel beside its plain version at these
            shapes, with its bound (bytes over 3.35 TB/s or operations over
            67 TFLOP/s fp32, whichever is larger); frontend and solve
-           ms/scan, end-to-end scans/s.
+           ms/scan, end-to-end scans/s;
+  probes   both fetch kernels at phase 4's round-1 surf queries: (a) as
+           they are, (b) after a per-lane sort by row (presort_by_row,
+           the order of JAX presort_rows), (c) every query at
+           the sentinel (the writes alone), (d) every live query on one
+           row (the cached ceiling), and K = 6/8/16 on (a); with the live
+           queries, the distinct (tile, row) pairs of the kernels' query
+           tiles and the row bytes each pattern reads.
 
 Any failure raises (exit code 1).  Prints the card's name and power limit
 early, a JSON line of per-kernel results second to last, and as the last
@@ -116,6 +123,55 @@ def fetch_bound(table, bcell, K):
     return bound(nbytes, live * W * FETCH_OPS_PER_SLOT)
 
 
+def tile_rows(bcell, sentinel, tile):
+    """(live queries, distinct (tile, row) pairs) of a query set cut into
+    tiles of `tile` consecutive queries."""
+    import torch
+    q = torch.nonzero(bcell != sentinel)[:, 0]
+    pairs = torch.unique((q // tile) * (sentinel + 1) + bcell[q].long())
+    return q.numel(), pairs.numel()
+
+
+def fetch_probes(raw_tq, rtab, presorted, queries_of):
+    """Probe lines for both fetch kernels at one query set (CUDA events):
+    (a) the queries as they are, (b) the same features presorted per lane,
+    (c) every query at the sentinel, (d) every live query on one row; then
+    K = 6/8/16 on (a).  raw_tq = (raw table, queries on raw block ids);
+    rtab the same map's PlanarTable; presorted = presort_by_row's output;
+    queries_of(xyz, mask) -> the queries of those features at (a)'s
+    poses."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.ops.fetch import (
+        block_fetch, resident_fetch)
+    tab, (bc, qx, qy, qz) = raw_tq
+    bcb, *qb = queries_of(*presorted[:2])
+    tile = kernels.FETCH_TILE
+    for name, fn, table, route in (
+            ("block_fetch", block_fetch, tab, lambda b: b),
+            ("resident_fetch", resident_fetch, rtab.table,
+             lambda b: rtab.rows_index[b.long()])):
+        W = table.shape[1] // 3
+        sent = table.shape[0] - 1
+        a = route(bc)
+        live = a != sent
+        one_row = torch.where(live, a[live][0], sent).to(torch.int32)
+        patterns = {"a": (a, qx, qy, qz), "b": (route(bcb), *qb),
+                    "c": (torch.full_like(a, sent), qx, qy, qz),
+                    "d": (one_row.contiguous(), qx, qy, qz)}
+        for p, q in patterns.items():
+            n_live, pairs = tile_rows(q[0], sent, tile)
+            ms = cuda_ms(lambda: fn(table, *q, K=K), 20)
+            print(f"probe {name} ({p}) K={K}: {ms:.4f} ms; Q {q[0].shape[0]}"
+                  f" live {n_live} W {W}; tile-row pairs {pairs} (tile "
+                  f"{tile}): row bytes {pairs * 12 * W} once per tile-row vs"
+                  f" {n_live * 12 * W} once per query", flush=True)
+        for k in (6, 8, 16):
+            ms = cuda_ms(lambda: fn(table, *patterns["a"], K=k), 20)
+            print(f"probe {name} (a) K={k}: {ms:.4f} ms", flush=True)
+
+
 def main():
     import torch
 
@@ -139,7 +195,7 @@ def main():
     from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
         batch_register_blocks, batch_register_fused, batch_register_pallas,
         build_map_block_tables, build_map_planar_tables, feature_planes,
-        fetch_queries, initial_state)
+        fetch_queries, initial_state, presort_by_row)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
         FeatureMap, RawScan)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
@@ -158,11 +214,12 @@ def main():
     kernels.library()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for log in sorted(glob.glob(os.path.join(kernels.BUILD_DIR,
-                                             "libfbpr_resident_fetch-*.log"))):
+                                             "libfbpr_*fetch-*.log"))):
+        src = os.path.basename(log).split("-")[0][len("libfbpr_"):]
         with open(log) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
-                    print(f"ptxas resident_fetch: {line.strip()}", flush=True)
+                    print(f"ptxas {src}: {line.strip()}", flush=True)
 
     # ---- setup: bench.py's scans, guesses and map, from seeds ----
     params = Params(map_corner_cap=16384, map_surf_cap=65536)
@@ -358,15 +415,8 @@ def main():
             raise AssertionError(f"resident fetch != raw fetch ({kind})")
 
     # ---- phase 5: the main path on resident tables, counted ----
-    def solve_resident(feats, tabs_):
-        ctab_, stab_, origin_, dims_ = tabs_
-        return batch_register_fused(
-            feats, ctab_, stab_, origin_, guesses_t, grid_dims=dims_,
-            iters_per_round=ITERS, num_candidates=K,
-            round1_surf_stride=R1S, round1_corner_stride=R1C)
-
     zero_counts()
-    res5 = solve_resident(feats3, tables(resident=True))
+    res5 = solve(feats3, tables(resident=True))
     launches5 = read_counts(5, {"block_fetch": 0, "resident_fetch": 4,
                                 "gn_round": 2})
     pose5 = res5.pose6.cpu().numpy()
@@ -454,7 +504,7 @@ def main():
     t_front = cuda_ms(lambda: frontend(raw), 3)
     t_tables = cuda_ms(tables, 3)
     t_solve = cuda_ms(lambda: solve(feats3, tabs), 5)
-    t_solve5 = cuda_ms(lambda: solve_resident(feats3, rtabs), 5)
+    t_solve5 = cuda_ms(lambda: solve(feats3, rtabs), 5)
     t_solve6 = cuda_ms(lambda: solve_rounds(feats3, rtabs), 1)
     t_e2e = cuda_ms(lambda: solve(frontend(raw), tables()), 3)
     print(f"time: frontend {t_front / B:.4f} ms/scan, tables {t_tables:.2f} "
@@ -463,6 +513,11 @@ def main():
           f"phase 5 solve (resident tables) {t_solve5 / B:.4f} ms/scan, "
           f"phase 6 solve (batch_register_pallas) {t_solve6 / B:.4f} ms/scan",
           flush=True)
+    fetch_probes(queries["surf"], rtabs[1],
+                 presort_by_row(guesses_t, feats.surf_xyz, feats.surf_mask,
+                                stab, origin, 2.0, dims),
+                 lambda xyz, m: fetch_queries(stat[:, :6], xyz, m, stab,
+                                              origin, 2.0, dims))
 
     def entry(name, source, replaces, launches_, err, timed):
         return {"name": name, "route": "cuda",

@@ -1,177 +1,30 @@
-// Candidate fetch: exact top-K of each query's hash-grid block row.
+// Candidate fetch: exact top-K of each query's hash-grid block row, on a
+// raw block table (any W).
 //
 // Replaces the TPU kernel `_fetch_kernel` behind `fused_block_fetch` (the
 // JAX package's ops/pallas_fetch.py), which DMA'd each query's row into
-// VMEM in double-buffered waves.  None of that machinery carries over: here
-// a warp owns a query, reads the row straight from global memory (L2), and
-// keeps everything else in registers.
+// VMEM in double-buffered waves.  Its FBPR_FETCH_DEDUP option skipped a
+// DMA when consecutive queries shared a row; here a tile of queries always
+// reads each distinct row once (csrc/fetch_tile.cuh holds the design and
+// the contract, shared with resident_fetch.cu).
 //
-// Contract (ops/fetch.py::block_fetch_reference is the plain version):
-//   table [R, 3*W] plane-major rows [x(W) | y(W) | z(W)], FAR=1e9 padding,
-//   row R-1 the all-FAR sentinel; bcell [Q] int32; qx/qy/qz [Q].
-//   d2 [Q, K] ascending, ties -> lowest slot, d2 > 1e17 reported as 3e38;
-//   cand [3K, Q] plane-major (x rows 0..K-1, then y, then z).
-//   A sentinel query reads no row: d2 = 3e38 and zero coordinates.
-//   d2 = (dx*dx + dy*dy) + dz*dz with explicit round-to-nearest intrinsics,
-//   so no FMA contraction: bitwise equal to the eager PyTorch version.
-//
-// Design and bound.  Each warp reads its query's row coalesced (lane l
-// takes slots l, l+32, ...) and keeps a sorted per-lane top-K list in
-// registers; K rounds of a warp (d2, slot) arg-min over the lanes' list
-// heads merge them into the exact row top-K.  On the main path a row is a
-// few hundred slots per plane (1.5-3 KB per row) and the tables are 10 MB
-// (corner) and 19 MB (surf), inside the H100's 50 MB L2: the kernel is
-// bound by row reads from L2 and by the per-slot insertion into the K list,
-// not by HBM.  A block stages the results of its 32 queries in shared
-// memory so the [K, Q] and [Q, K] writes go out in contiguous runs.
+// What bounds it on the H100.  The per-query kernel this replaces (a warp
+// per query reading its row from L2, per-lane insertion lists merged by K
+// warp arg-mins) read ~4.7 GB of rows for the round-1 surf queries, but
+// took the same time with every live query on one cached row, and its
+// time grew with K: the selection bound it.  The tile reads each distinct
+// (tile, row) pair's row once and selects with K register passes on
+// warp reductions; the K passes still bound it (PERF.md, probe split).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Contract: fetch_tile.cuh (ops/fetch.py::block_fetch_reference is the
+// plain version).
 
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQueriesPerBlock = 32;
-constexpr float kBig = 3.0e38f;
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-block_fetch_kernel(const float* __restrict__ table, int64_t rows, int W,
-                   const int* __restrict__ bcell,
-                   const float* __restrict__ qx,
-                   const float* __restrict__ qy,
-                   const float* __restrict__ qz, int64_t Q,
-                   float* __restrict__ d2_out, float* __restrict__ cand) {
-  __shared__ float s_d2[kQueriesPerBlock][K];
-  __shared__ float s_nn[3][K][kQueriesPerBlock];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t q0 = (int64_t)blockIdx.x * kQueriesPerBlock;
-
-  for (int j = warp; j < kQueriesPerBlock; j += kWarps) {
-    const int64_t q = q0 + j;
-    if (q >= Q) break;
-    const int64_t row = bcell[q];
-    if (row == rows - 1 || row < 0 || row >= rows) {
-      // sentinel: no row read.  An out-of-range id is a caller bug and
-      // poisons the result with NaN instead of reading out of bounds.
-      const bool bad = row != rows - 1;
-      if (lane < K) {
-        s_d2[j][lane] = bad ? NAN : kBig;
-        for (int p = 0; p < 3; ++p) s_nn[p][lane][j] = bad ? NAN : 0.0f;
-      }
-      continue;
-    }
-    const float* X = table + row * 3 * (int64_t)W;
-    const float* Y = X + W;
-    const float* Z = Y + W;
-    const float x = qx[q], y = qy[q], z = qz[q];
-
-    float bd[K];
-    int bs[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      bd[i] = INFINITY;
-      bs[i] = 0x7fffffff;
-    }
-    for (int s = lane; s < W; s += 32) {
-      const float dx = __fsub_rn(X[s], x);
-      const float dy = __fsub_rn(Y[s], y);
-      const float dz = __fsub_rn(Z[s], z);
-      float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                          __fmul_rn(dz, dz));
-      if (d < bd[K - 1]) {  // insert; slots arrive ascending, so on a tie
-        bool placed = false;  // the new slot stays behind the earlier one
-#pragma unroll
-        for (int i = K - 1; i >= 0; --i) {
-          if (!placed) {
-            if (i > 0 && d < bd[i - 1]) {
-              bd[i] = bd[i - 1];
-              bs[i] = bs[i - 1];
-            } else {
-              bd[i] = d;
-              bs[i] = s;
-              placed = true;
-            }
-          }
-        }
-      }
-    }
-    // merge: K rounds of a warp arg-min over the list heads
-    float my_d = 0.0f;
-    int my_s = 0;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float md = bd[0];
-      int ms = bs[0];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, md, off);
-        const int os = __shfl_xor_sync(0xffffffffu, ms, off);
-        if (od < md || (od == md && os < ms)) {
-          md = od;
-          ms = os;
-        }
-      }
-      if (bs[0] == ms) {  // slot ids are lane-unique: one lane pops
-#pragma unroll
-        for (int i = 0; i < K - 1; ++i) {
-          bd[i] = bd[i + 1];
-          bs[i] = bs[i + 1];
-        }
-        bd[K - 1] = INFINITY;
-        bs[K - 1] = 0x7fffffff;
-      }
-      if (lane == k) {
-        my_d = md;
-        my_s = ms;
-      }
-    }
-    if (lane < K) {
-      s_d2[j][lane] = my_d > 1e17f ? kBig : my_d;
-      s_nn[0][lane][j] = X[my_s];
-      s_nn[1][lane][j] = Y[my_s];
-      s_nn[2][lane][j] = Z[my_s];
-    }
-  }
-  __syncthreads();
-
-  const int nq = (int)min((int64_t)kQueriesPerBlock, Q - q0);
-  for (int t = threadIdx.x; t < kQueriesPerBlock * K; t += kThreads) {
-    const int j = t / K, k = t % K;
-    if (j < nq) d2_out[(q0 + j) * K + k] = s_d2[j][k];
-  }
-  for (int t = threadIdx.x; t < 3 * K * kQueriesPerBlock; t += kThreads) {
-    const int r = t / kQueriesPerBlock, j = t % kQueriesPerBlock;
-    if (j < nq) cand[(int64_t)r * Q + q0 + j] = s_nn[r / K][r % K][j];
-  }
-}
-
-template <int K>
-void launch(const float* table, int64_t rows, int W, const int* bcell,
-            const float* qx, const float* qy, const float* qz, int64_t Q,
-            float* d2, float* cand, cudaStream_t stream) {
-  const int64_t blocks = (Q + kQueriesPerBlock - 1) / kQueriesPerBlock;
-  block_fetch_kernel<K><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      table, rows, W, bcell, qx, qy, qz, Q, d2, cand);
-}
-
-}  // namespace
+#include "fetch_tile.cuh"
 
 extern "C" int fbpr_block_fetch(const float* table, int64_t rows, int W,
                                 const int* bcell, const float* qx,
                                 const float* qy, const float* qz, int64_t Q,
                                 int K, float* d2, float* cand, void* stream) {
-  if (Q <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 6: launch<6>(table, rows, W, bcell, qx, qy, qz, Q, d2, cand, s); break;
-    case 8: launch<8>(table, rows, W, bcell, qx, qy, qz, Q, d2, cand, s); break;
-    case 16: launch<16>(table, rows, W, bcell, qx, qy, qz, Q, d2, cand, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return fbpr::fetch_tile(table, rows, W, bcell, qx, qy, qz, Q, K, d2, cand,
+                          stream);
 }

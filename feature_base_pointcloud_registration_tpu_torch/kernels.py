@@ -8,7 +8,8 @@ the nvcc processes of all sources run at once):
          -Xcompiler -fPIC -o build/libfbpr_<source>-<hash>.so csrc/<source>.cu
 
 The build runs at first use, into `build/` beside the package (the file name
-carries a hash of the source and flags, so an edited source rebuilds).
+carries a hash of the flags, the source and the `csrc/` headers it
+includes, so an edited source or header rebuilds).
 Importing this module builds nothing: the CPU tests import every module.
 
 Each C entry point launches on the stream it is given (PyTorch's current
@@ -23,6 +24,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,6 +37,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SUPPORTED_K = (6, 8, 16)  # template instances in csrc/*.cu
 RESIDENT_MAX_W = 512      # csrc/resident_fetch.cu: W = 128 * (1..4)
+BLOCK_FETCH_MAX_W = 16000  # csrc/fetch_tile.cuh kMaxW: one row of 12*W bytes
+                           # and a tile's results fit 227 KB of shared memory
+FETCH_TILE = 128          # queries per block of both fetch kernels
+                          # (csrc/fetch_tile.cuh kTile)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -66,13 +72,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
 
 
+def _local_includes(src: Path) -> list:
+    """The `csrc/` headers a source includes with `#include "..."` (the
+    headers include none of their own)."""
+    return [CSRC / name for name in re.findall(
+        r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M)]
+
+
 def _build(sources) -> list:
     """One shared library per source, all nvcc processes started together;
     returns their paths (existing ones are reused)."""
     jobs, sos = [], []
     for src in sources:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        h.update(src.read_bytes())
+        for path in (src, *_local_includes(src)):
+            h.update(path.read_bytes())
         so = BUILD_DIR / f"libfbpr_{src.stem}-{h.hexdigest()[:16]}.so"
         sos.append(so)
         if so.exists():
@@ -129,12 +143,18 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def launch_block_fetch(table, bcell, qx, qy, qz, d2, cand, *, K: int):
-    """csrc/block_fetch.cu on validated CUDA tensors (see ops/fetch.py)."""
+    """csrc/block_fetch.cu on validated CUDA tensors (see ops/fetch.py);
+    W up to BLOCK_FETCH_MAX_W, since a block stages at least one whole row
+    in shared memory."""
     _check_k(K)
+    W = table.shape[1] // 3
+    if W > BLOCK_FETCH_MAX_W:
+        raise ValueError(f"W={W}: the block-fetch kernel takes W up to "
+                         f"{BLOCK_FETCH_MAX_W}")
     lib = library()
     with torch.cuda.device(table.device):
         rc = lib.fbpr_block_fetch(
-            table.data_ptr(), table.shape[0], table.shape[1] // 3,
+            table.data_ptr(), table.shape[0], W,
             bcell.data_ptr(), qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
             bcell.shape[0], K, d2.data_ptr(), cand.data_ptr(),
             _stream(table))
@@ -143,14 +163,12 @@ def launch_block_fetch(table, bcell, qx, qy, qz, d2, cand, *, K: int):
 
 def launch_resident_fetch(table, bcell, qx, qy, qz, d2, cand, *, K: int):
     """csrc/resident_fetch.cu on validated CUDA tensors (see ops/fetch.py);
-    the kernel reads rows with 16-byte loads, so W is a multiple of 128."""
+    W is one of the compact tables' widths, a multiple of 128 up to 512."""
     _check_k(K)
     W = table.shape[1] // 3
     if W % 128 or not 128 <= W <= RESIDENT_MAX_W:
         raise ValueError(f"W={W}: the resident kernel takes W in "
                          f"{tuple(range(128, RESIDENT_MAX_W + 1, 128))}")
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
     lib = library()
     with torch.cuda.device(table.device):
         rc = lib.fbpr_resident_fetch(

@@ -28,7 +28,7 @@ def project_scan(params: Params, scan: RawScan) -> CloudInfo:
     B, N = scan.valid.shape
     G = n_scan * horizon_scan
     dev = scan.xyz.device
-    deskew_info = DeskewInfo.empty(B, dev)
+    deskew_info = DeskewInfo.empty(B, device=dev)
 
     x, y, z = scan.xyz.unbind(-1)
     # correctly rounded float32 sqrt on every device: PyTorch's vectorized

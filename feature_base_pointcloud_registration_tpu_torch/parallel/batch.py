@@ -132,6 +132,22 @@ def fetch_queries(pose, xyz, mask, table, origin, cell_size, dims,
             *[c.reshape(B * P).contiguous() for c in w])
 
 
+def presort_by_row(pose, xyz, mask, table, origin, cell_size, dims):
+    """Per-lane sort of features [B,P,3] by their block row at poses [B,6],
+    masked features at the sentinel (last): (xyz, mask, bcell), each in the
+    sorted order, the row order that favours the fetch kernels' query
+    tiles (JAX `batch_register_fused(presort_rows=True)`; the port's solver
+    has no such option, `chip_smoke.py` times the fetch on this order).
+    The sort is stable, so features of one row keep their order (JAX
+    `lax.sort` does not promise that)."""
+    w = world_components(pose, xyz)
+    bcell = block_cell_of_xyz(w[0], w[1], w[2], origin, cell_size, dims=dims)
+    bcell = torch.where(mask, bcell, sentinel_of(table))
+    bcell, order = torch.sort(bcell, dim=1, stable=True)
+    return (torch.gather(xyz, 1, order[..., None].expand(-1, -1, 3)),
+            torch.gather(mask, 1, order), bcell.to(torch.int32))
+
+
 def fetch_candidates(pose, xyz, mask, table, origin, cell_size, dims, *,
                      K: int, skip_lane=None):
     """Candidates [3K, B*P] of features xyz [B,P,3] at poses [B,6], from

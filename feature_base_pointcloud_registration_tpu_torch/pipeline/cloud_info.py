@@ -28,8 +28,9 @@ class RawScan(NamedTuple):
     valid: torch.Tensor      # bool [N]
 
     @staticmethod
-    def from_numpy(xyz, intensity, ring, time, max_points=None,
-                   device="cpu"):
+    def from_numpy(xyz, intensity, ring, time, max_points=None, *, device):
+        """Pad one scan's arrays to `max_points` and place them on `device`
+        (required: the caller names the device, CPU included)."""
         n = xyz.shape[0]
         cap = max_points or n
         pad = cap - n
@@ -64,7 +65,8 @@ class DeskewInfo(NamedTuple):
     reset_id: torch.Tensor        # i32 [B]
 
     @staticmethod
-    def empty(batch: int, device="cpu"):
+    def empty(batch: int, *, device):
+        """No IMU/odom info for `batch` scans, on `device` (required)."""
         return DeskewInfo(
             imu_available=torch.zeros(batch, dtype=torch.bool, device=device),
             odom_available=torch.zeros(batch, dtype=torch.bool,

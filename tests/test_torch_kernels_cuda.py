@@ -92,6 +92,102 @@ def test_resident_kernel_bitwise(cuda, K, W):
     assert torch.equal(d2, d2b) and torch.equal(cand, candb)
 
 
+TILE = 128          # kernels.FETCH_TILE: queries per block of both kernels
+
+
+def _adversarial(pattern, W, K, Q=5000, R=300):
+    """Row patterns against the tiled kernels (Q % TILE == 8): inputs as
+    numpy, plus the ids the plain version runs on (out-of-range ids there
+    moved to the sentinel) and the mask of those out-of-range queries."""
+    r = np.random.RandomState(1000 * len(pattern) + 20 * W + K)
+    tab = r.uniform(-5, 5, (R, 3, W)).astype(np.float32)
+    tab[:, :, W - W // 5:] = 1e9
+    tab[3, :, 10:20] = tab[3, :, 0:10]          # duplicate points: ties
+    tab[5] = tab[5, :, :1]                      # every slot ties
+    tab[-1] = 1e9
+    q = r.uniform(-5, 5, (3, Q)).astype(np.float32)
+    if pattern == "one_row":
+        bc = np.full(Q, 3)
+    elif pattern == "all_distinct":           # overflows the row buffer
+        bc = np.arange(Q) % (R - 1)
+    elif pattern == "runs":                   # runs across tile edges
+        lens = r.randint(1, 3 * TILE, Q)
+        bc = np.repeat(r.randint(0, R - 1, Q), lens)[:Q]
+        bc[TILE - 5:TILE + 5] = 3
+    else:                                     # "sentinels"
+        bc = r.randint(0, R - 1, Q)
+        bc[:TILE] = R - 1                       # a sentinel-only tile
+        bc[TILE:2 * TILE:3] = R - 1
+        bc[TILE + 1:2 * TILE:7] = -1            # out of range
+        bc[TILE + 2:2 * TILE:11] = R + 4
+        bc[-8:] = R - 1                         # the ragged last tile
+    bc = bc.astype(np.int32)
+    bad = (bc < 0) | (bc >= R)
+    return tab.reshape(R, 3 * W), bc, q, np.where(bad, R - 1, bc), bad
+
+
+def _check_adversarial(fn, cuda, pattern, W, K, table=None):
+    tab, bc, q, bc_ref, bad = _adversarial(pattern, W, K)
+    t = torch.from_numpy(tab).to(cuda) if table is None else table(tab)
+    qs = [torch.from_numpy(c).to(cuda) for c in q]
+    d2, cand = fn(t, torch.from_numpy(bc).to(cuda), *qs, K=K)
+    torch.cuda.synchronize()
+    d2r, candr = tfetch.block_fetch_reference(
+        t, torch.from_numpy(bc_ref).to(cuda), *qs, K=K)
+    good = torch.from_numpy(~bad).to(cuda)
+    assert torch.equal(d2[good], d2r[good])
+    assert torch.equal(cand[:, good], candr[:, good])
+    assert torch.isnan(d2[~good]).all() and torch.isnan(cand[:, ~good]).all()
+    return d2, cand
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["one_row", "all_distinct", "runs",
+                                     "sentinels"])
+@pytest.mark.parametrize("K", [6, 8, 16])
+@pytest.mark.parametrize("W", [160, 384])
+def test_fetch_kernel_row_patterns(cuda, pattern, K, W):
+    _check_adversarial(tfetch.block_fetch, cuda, pattern, W, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["one_row", "all_distinct", "runs",
+                                     "sentinels"])
+@pytest.mark.parametrize("K", [6, 8, 16])
+@pytest.mark.parametrize("W", [128, 256, 384, 512])
+def test_resident_kernel_row_patterns(cuda, pattern, K, W):
+    d2, cand = _check_adversarial(tfetch.resident_fetch, cuda, pattern, W,
+                                  K)
+    # the raw-table kernel on the same rows gives the same results
+    d2b, candb = _check_adversarial(tfetch.block_fetch, cuda, pattern, W, K)
+    assert torch.equal(d2.nan_to_num(), d2b.nan_to_num())
+    assert torch.equal(cand.nan_to_num(), candb.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["block_fetch", "resident_fetch"])
+def test_fetch_kernels_on_an_unaligned_table(cuda, kernel):
+    """A table view 4 bytes past a 16-byte boundary takes the scalar row
+    copy."""
+    def unaligned(tab):
+        flat = torch.empty(tab.size + 1, dtype=torch.float32, device=cuda)
+        flat[1:] = torch.from_numpy(tab.reshape(-1)).to(cuda)
+        t = flat[1:].view(tab.shape)
+        assert t.data_ptr() % 16 == 4
+        return t
+    _check_adversarial(getattr(tfetch, kernel), cuda, "runs", 256, 8,
+                       table=unaligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,K", [(4200, 8), (16000, 16)])
+def test_fetch_kernel_wide_rows(cuda, W, K):
+    """Rows wider than the row buffer's budget: one row per round, and
+    more than 48 KB of shared memory, up to the widest rows the kernel
+    takes (kernels.BLOCK_FETCH_MAX_W) at the largest K."""
+    _check_adversarial(tfetch.block_fetch, cuda, "all_distinct", W, K)
+
+
 @pytest.mark.cuda
 def test_kernels_reject_unsupported_k(cuda):
     tab, bc, q = _fetch_inputs(0)
@@ -104,6 +200,10 @@ def test_kernels_reject_unsupported_k(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in (tab, bc, *q)]
     with pytest.raises(ValueError):                   # W over 512
         tfetch.resident_fetch(*args, K=8)
+    tab, bc, q = _fetch_inputs(0, R=8, W=16001, Q=200)
+    args = [torch.from_numpy(a).to(cuda) for a in (tab, bc, *q)]
+    with pytest.raises(ValueError):                   # W over 16000
+        tfetch.block_fetch(*args, K=8)
 
 
 def _lines_planes(r, n_corner, n_surf):

@@ -31,7 +31,8 @@ params = Params(n_scan=2, horizon_scan=8)
 r = np.random.RandomState(0)
 xyz = r.uniform(-10, 10, (12, 3)).astype(np.float32)
 raw = RawScan.from_numpy(xyz, np.ones(12), r.randint(0, 2, 12),
-                         np.zeros(12), max_points=16)
+                         np.zeros(12), max_points=16,
+                         device=torch.device("cpu"))
 cloud = project_scan(params, RawScan(*(a[None] for a in raw)))
 assert cloud.points.shape == (1, 16, 3), cloud.points.shape
 assert 0 < int(cloud.num_points[0]) <= 12

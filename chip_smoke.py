@@ -12,11 +12,14 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
   build    compiles csrc/*.cu with nvcc into build/ (ops/kernels.py);
   phase 1  the fetch kernel against its plain version on the main path's
            round-1 queries (corner and surf): d2 and candidates bitwise;
-  phase 2  the GN-round kernel against its plain version on those
-           candidates: pose within 1e-3 (m / rad);
+  phase 2  the GN-round kernel against its plain version on round 0's
+           inputs (strided features, lanes at iteration 0, so the Jacobi
+           runs) and on round 1's (phase 1's candidates): pose within 1e-3
+           (m / rad), iteration count and n_corr equal on >= 95% of lanes;
   phase 3  the slice end to end: frontend, map tables, batch_register_fused,
            with the kernels' launch counters zeroed just before; each kernel
-           must have launched (4 fetches, 2 GN rounds); ATE against ground
+           must have launched (4 fetches, 2 GN rounds, one a round); ATE
+           against ground
            truth and against the serial NumPy oracle (tests/oracle.py) on 8
            scans, which must be <= 1e-3 m;
   phase 4  the resident-fetch kernel against its plain version on phase 1's
@@ -31,17 +34,39 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            resident tables, counted: 4 resident fetches, 0 GN rounds; ATE
            against the oracle <= 1e-3 m; batch_register_blocks (plain fetch,
            same solver) on the first 32 scans within 1e-4 of it;
-  timing   CUDA events: each kernel beside its plain version at these
-           shapes, with its bound (bytes over 3.35 TB/s or operations over
-           67 TFLOP/s fp32, whichever is larger); frontend and solve
-           ms/scan, end-to-end scans/s;
+  timing   CUDA events (a GN call through a replayed CUDA graph of its
+           calls, since one of a few iterations is shorter than its host
+           launch): each kernel beside its plain version at these
+           shapes (the GN round at both rounds' inputs), with its bound
+           (bytes read once over 3.35 TB/s or operations over 67 TFLOP/s
+           fp32, whichever is larger; the GN round reads the mask of every
+           point and the xyz and candidates of live ones; also the floor of a
+           design that streams the candidates every iteration: lane-
+           iterations x live points x (16 + 12K) B over 3.35 TB/s);
+           frontend and solve ms/scan, end-to-end scans/s;
   probes   both fetch kernels at phase 4's round-1 surf queries: (a) as
            they are, (b) after a per-lane sort by row (presort_by_row,
            the order of JAX presort_rows), (c) every query at
            the sentinel (the writes alone), (d) every live query on one
            row (the cached ceiling), and K = 6/8/16 on (a); with the live
            queries, the distinct (tile, row) pairs of the kernels' query
-           tiles and the row bytes each pattern reads.
+           tiles and the row bytes each pattern reads; the GN kernel at
+           both rounds' inputs: (a) as they are, with the histogram of
+           per-lane iterations and us per lane-iteration, (b) every valid
+           lane at exactly 1 and 15 iterations (convergence thresholds 0),
+           (c) live features only (each lane's live features and their
+           candidates packed to the front, P cut to the batch's largest
+           live count), (d) one lane per SM against all B lanes, (e) at
+           round 0, one iteration with the 6-sweep Jacobi against none, (f)
+           round 1 at K = 6 and 16.
+
+    python3 chip_smoke.py --gn-ab NAME=path/to/gn_round.cu ...
+
+also builds each named GN source (same C entry point, same flags), runs it
+through the shipped wrapper, and prints its ptxas lines, its pose
+difference from the plain version and the same GN timing and probe lines
+beside the shipped kernel's, in this one call (cards of one model differ by
+up to 13% between calls).
 
 Any failure raises (exit code 1).  Prints the card's name and power limit
 early, a JSON line of per-kernel results second to last, and as the last
@@ -50,12 +75,16 @@ line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import argparse
+import functools
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -68,6 +97,11 @@ ITERS = 15
 N_ORACLE = 8
 PARITY_BUDGET = 1e-3     # m, bench.py's BENCH_PARITY_BUDGET
 N_BLOCKS = 32            # scans of phase 6's plain-fetch comparison
+# share of lanes whose GN iteration count and n_corr must equal the plain
+# version's: FMA contraction may move a lane across the convergence test
+# (and then its last n_corr), but a point dropped or counted twice changes
+# n_corr on nearly every lane
+GN_EQUAL_LANES = 0.95
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
 # operations per slot of a live query's row: 3 sub, 3 mul, 2 add for d2 and
@@ -90,16 +124,148 @@ def tpu_kernel_line(file_name, kernel):
     raise FileNotFoundError(f"{kernel} in */ops/{file_name}")
 
 
-def cuda_ms(fn, reps):
-    """Mean device ms per call of fn over reps calls (after one warm-up)."""
+def print_ptxas(src, log):
+    """The registers, stack and spill lines of ptxas -v, each with the
+    kernel and template arguments (K first) it belongs to."""
+    fn = "?"
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"entry function '\w*?([a-z_]+_kernel)I((?:Li\d+E)+)",
+                          line)
+            if m:
+                args = ",".join(re.findall(r"\d+", m.group(2)))
+                fn = f"{m.group(1)}<{args}>"
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {src} {fn}: {line.strip()}", flush=True)
+
+
+def gn_variants(named_sources):
+    """{name: call(args, iters, K=K, **kw) -> (stat', matP')} for other GN
+    sources with the shipped C entry point, built like the shipped ones
+    (one nvcc each, all at once), for A/B readings in this run.  A call
+    runs the shipped wrapper ops.gn_round.gn_round (its checks and
+    defaults) with its launch pointed at the other build."""
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
+        gn_round)
+    sos = kernels._build([Path(src).resolve() for _, src in named_sources])
+    shipped = kernels.launch_gn_round
+    calls = {}
+    for (name, _), so in zip(named_sources, sos):
+        print_ptxas(name, kernels.BUILD_DIR / (so.stem + ".log"))
+        launch = functools.partial(shipped, lib=kernels.load(so))
+
+        def call(args, iters, K=K, launch=launch, **kw):
+            kernels.launch_gn_round = launch
+            try:
+                return gn_round(*args, K=K, iters=iters, **kw)
+            finally:
+                kernels.launch_gn_round = shipped
+        calls[name] = call
+    return calls
+
+
+def live_only(args):
+    """The GN inputs with each lane's live features (and their candidates)
+    packed to the front and P cut to the batch's largest live count."""
+    import torch
+    stat, matP, fc, fs, cc, cs = args
+    B = stat.shape[0]
+    out = []
+    for f, c in ((fc, cc), (fs, cs)):
+        live = f[:, 3] != 0
+        n = max(int(live.sum(1).max()), 1)
+        order = torch.sort((~live).to(torch.int8), dim=1,
+                           stable=True).indices[:, :n]
+        out.append(torch.gather(f, 2, order[:, None].expand(-1, 4, -1))
+                   .contiguous())
+        out.append(torch.gather(c.view(3 * K, B, -1), 2,
+                                order[None].expand(3 * K, -1, -1))
+                   .reshape(3 * K, B * n).contiguous())
+    return stat, matP, out[0], out[2], out[1], out[3]
+
+
+def first_lanes(args, n):
+    """The GN inputs of the first n lanes."""
+    stat, matP, fc, fs, cc, cs = args
+    B = stat.shape[0]
+
+    def cut(c):
+        return c.view(3 * K, B, -1)[:, :n].reshape(3 * K, -1).contiguous()
+    return (stat[:n].contiguous(), matP[:n].contiguous(),
+            fc[:n].contiguous(), fs[:n].contiguous(), cut(cc), cut(cs))
+
+
+def gn_probes(name, call, rounds, n_sm, other_k):
+    """Probe lines of one GN kernel at both rounds' inputs: ms per call for
+    (a) the inputs as they are (with the histogram of per-lane iterations
+    and us per lane-iteration), (b) convergence thresholds 0, so every
+    valid lane runs exactly 1 or ITERS iterations, (c) live features only,
+    (d) one lane per SM against all B lanes, (e) round 0 only (its lanes
+    are at iteration 0): one iteration with the 6-sweep Jacobi against
+    none, which prices the Jacobi; (f) round 1's inputs with the
+    candidates of the other supported K (other_k = {K: args})."""
+    import torch
+    for r, args in enumerate(rounds):
+        B = args[0].shape[0]
+        ms = cuda_ms(lambda: call(args, ITERS), 10, graph=True)
+        its = (call(args, ITERS)[0][:, 6] - args[0][:, 6]).long()
+        hist = torch.bincount(its, minlength=ITERS + 1).tolist()
+        print(f"probe gn {name} (a) round {r}: {ms:.4f} ms; lane-iterations"
+              f" {int(its.sum())}, {ms * 1e3 / max(int(its.sum()), 1):.4f} "
+              f"us each; iterations histogram (0..{ITERS}) {hist}",
+              flush=True)
+        fixed = [cuda_ms(lambda: call(args, n, conv_rot_deg=0.0,
+                                      conv_trans_cm=0.0), 10, graph=True)
+                 for n in (1, ITERS)]
+        print(f"probe gn {name} (b) round {r}: iters 1 {fixed[0]:.4f} ms, "
+              f"iters {ITERS} {fixed[1]:.4f} ms; "
+              f"{(fixed[1] - fixed[0]) / (ITERS - 1):.4f} ms an iteration",
+              flush=True)
+        packed = live_only(args)
+        ms_c = cuda_ms(lambda: call(packed, ITERS), 10, graph=True)
+        print(f"probe gn {name} (c) round {r}: {ms_c:.4f} ms at Pc "
+              f"{packed[2].shape[2]} Ps {packed[3].shape[2]} (from "
+              f"{args[2].shape[2]} / {args[3].shape[2]})", flush=True)
+        few = first_lanes(args, n_sm)
+        ms_d = cuda_ms(lambda: call(few, ITERS), 10, graph=True)
+        print(f"probe gn {name} (d) round {r}: B={n_sm} {ms_d:.4f} ms, "
+              f"B={B} {ms:.4f} ms", flush=True)
+        if r == 0:
+            sweeps = [cuda_ms(lambda: call(args, 1, jacobi_sweeps=n), 10,
+                              graph=True) for n in (6, 0)]
+            print(f"probe gn {name} (e) round 0: iters 1 with the Jacobi "
+                  f"{sweeps[0]:.4f} ms, without {sweeps[1]:.4f} ms",
+                  flush=True)
+    for k, args in other_k.items():
+        ms = cuda_ms(lambda: call(args, ITERS, K=k), 10, graph=True)
+        print(f"probe gn {name} (f) round 1 K={k}: {ms:.4f} ms", flush=True)
+
+
+def cuda_ms(fn, reps, graph=False):
+    """Mean device ms per call of fn over reps calls (after one warm-up).
+    graph=True captures the reps calls in a CUDA graph and times one
+    replay, so that a call shorter than its host-side launch (a GN round
+    of one iteration) is timed on the device alone; fn must then not
+    synchronize (the kernels' wrappers do not, the plain versions do)."""
     import torch
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+    else:
+        start.record()
+        for _ in range(reps):
+            fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -111,6 +277,29 @@ def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gn_bound(args, stat_out, K):
+    """(bound_ms, bound_by, floor_ms) of one GN round on args = (stat,
+    matP, featc, feats, candc, cands) that ended at stat_out: read once,
+    the mask of every point and the xyz and candidates of each live one (a
+    dead point's add nothing, so the kernel never reads them), stat/matP
+    read and written; operations for the lane-iterations this run's data
+    took.  floor_ms: the candidates and features of every live point
+    streamed once per lane-iteration."""
+    stat, _, fc, fs = args[:4]
+    B = stat.shape[0]
+    n_pts = fc.shape[2] + fs.shape[2]
+    lane_iters = (stat_out[:, 6] - stat[:, 6]).clamp(min=0)
+    live = {kind: (f[:, 3] != 0).sum(1).float()
+            for kind, f in (("corner", fc), ("surf", fs))}
+    n_live = float(sum(n.sum() for n in live.values()))
+    ops = sum(float((lane_iters * n).sum()) * GN_OPS_PER_POINT[kind]
+              for kind, n in live.items())
+    ms, by = bound(B * n_pts * 4 + n_live * (3 + 3 * K) * 4
+                   + B * (16 + 36) * 4 * 2, ops)
+    streamed = float((lane_iters * (live["corner"] + live["surf"])).sum())
+    return ms, by, streamed * (16 + 12 * K) / HBM_BYTES_PER_S * 1e3
 
 
 def fetch_bound(table, bcell, K):
@@ -192,6 +381,8 @@ def main():
         grid_overflow_fraction)
     from feature_base_pointcloud_registration_tpu_torch.ops.projection import (
         project_scan)
+    from feature_base_pointcloud_registration_tpu_torch.parallel import (
+        batch as pbatch)
     from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
         batch_register_blocks, batch_register_fused, batch_register_pallas,
         build_map_block_tables, build_map_planar_tables, feature_planes,
@@ -201,6 +392,11 @@ def main():
     from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
         downsample_features)
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--gn-ab", action="append", default=[],
+                    metavar="NAME=PATH", type=lambda v: v.split("=", 1),
+                    help="another gn_round.cu to time beside the shipped one")
+    args = ap.parse_args()
     dev = require_cuda()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -214,12 +410,10 @@ def main():
     kernels.library()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for log in sorted(glob.glob(os.path.join(kernels.BUILD_DIR,
-                                             "libfbpr_*fetch-*.log"))):
-        src = os.path.basename(log).split("-")[0][len("libfbpr_"):]
-        with open(log) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {src}: {line.strip()}", flush=True)
+                                             "libfbpr_*.log"))):
+        print_ptxas(os.path.basename(log).split("-")[0][len("libfbpr_"):],
+                    log)
+    variants = gn_variants(args.gn_ab)
 
     # ---- setup: bench.py's scans, guesses and map, from seeds ----
     params = Params(map_corner_cap=16384, map_surf_cap=65536)
@@ -272,7 +466,8 @@ def main():
           f"tables corner {tuple(ctab.shape)} surf {tuple(stab.shape)} "
           f"dims {dims}", flush=True)
 
-    # ---- the main path's round 0, to reach its round-1 queries ----
+    # ---- the main path's round 0 (its inputs kept for phase 2 and the
+    # timing), to reach its round-1 queries ----
     stat, matP = initial_state(feats, guesses_t)
     fc = feature_planes(feats.corner_xyz, feats.corner_mask)
     fs = feature_planes(feats.surf_xyz, feats.surf_mask)
@@ -280,10 +475,10 @@ def main():
                         feats.corner_mask[:, ::R1C], ctab, origin, 2.0, dims)
     q0s = fetch_queries(stat[:, :6], feats.surf_xyz[:, ::R1S],
                         feats.surf_mask[:, ::R1S], stab, origin, 2.0, dims)
-    stat, matP = gn_round(stat, matP, fc[:, :, ::R1C].contiguous(),
-                          fs[:, :, ::R1S].contiguous(),
-                          block_fetch(ctab, *q0c, K=K)[1],
-                          block_fetch(stab, *q0s, K=K)[1], K=K, iters=ITERS)
+    gn_args0 = (stat, matP, fc[:, :, ::R1C].contiguous(),
+                fs[:, :, ::R1S].contiguous(), block_fetch(ctab, *q0c, K=K)[1],
+                block_fetch(stab, *q0s, K=K)[1])
+    stat, matP = gn_round(*gn_args0, K=K, iters=ITERS)
     stat[:, 7] = 0.0
     queries = {
         "corner": (ctab, fetch_queries(stat[:, :6], feats.corner_xyz,
@@ -312,20 +507,41 @@ def main():
         raw_d2[kind] = d2k
         fetch_err = max(fetch_err, err)
 
-    # ---- phase 2: GN kernel vs plain version on those candidates ----
+    # ---- phase 2: GN kernel vs plain version on both rounds' inputs ----
     gn_args = (stat, matP, fc, fs, cands["corner"], cands["surf"])
-    sk, mk = gn_round(*gn_args, K=K, iters=ITERS)
-    torch.cuda.synchronize()
-    sr, mr = gn_round_reference(*gn_args, K=K, iters=ITERS)
-    dpose = (sk[:, :6] - sr[:, :6]).abs()
-    gn_err = dpose.max().item()
-    print(f"phase 2 gn: pose |diff| max {gn_err:.3e} median "
-          f"{dpose.max(1).values.median().item():.3e}; iterations equal "
-          f"{(sk[:, 6] == sr[:, 6]).float().mean().item():.3f}; n_corr "
-          f"equal {(sk[:, 10] == sr[:, 10]).float().mean().item():.3f}; "
-          f"matP |diff| max {(mk - mr).abs().max().item():.3e}", flush=True)
-    if not gn_err <= 1e-3:
-        raise AssertionError(f"GN kernel vs plain version: {gn_err} > 1e-3")
+    gn_rounds = (gn_args0, gn_args)
+    gn_out, gn_plain, gn_err = [], [], 0.0
+    for r, a in enumerate(gn_rounds):
+        sk, mk = gn_round(*a, K=K, iters=ITERS)
+        torch.cuda.synchronize()
+        sr, mr = gn_round_reference(*a, K=K, iters=ITERS)
+        dpose = (sk[:, :6] - sr[:, :6]).abs()
+        err = dpose.max().item()
+        first = int(((a[0][:, 6] == 0) & (a[0][:, 9] > 0)).sum())
+        its_eq = (sk[:, 6] == sr[:, 6]).float().mean().item()
+        ncorr_eq = (sk[:, 10] == sr[:, 10]).float().mean().item()
+        print(f"phase 2 gn round {r}: Pc={a[2].shape[2]} Ps={a[3].shape[2]}"
+              f" lanes at iteration 0 (Jacobi) {first}; pose |diff| max "
+              f"{err:.3e} median {dpose.max(1).values.median().item():.3e};"
+              f" iterations equal {its_eq:.3f}; n_corr equal {ncorr_eq:.3f};"
+              f" matP |diff| max {(mk - mr).abs().max().item():.3e}",
+              flush=True)
+        if not err <= 1e-3:
+            raise AssertionError(f"GN kernel vs plain version, round {r}: "
+                                 f"{err} > 1e-3")
+        if not min(its_eq, ncorr_eq) >= GN_EQUAL_LANES:
+            raise AssertionError(
+                f"GN kernel vs plain version, round {r}: iterations equal on"
+                f" {its_eq:.3f}, n_corr on {ncorr_eq:.3f} of lanes (want >= "
+                f"{GN_EQUAL_LANES})")
+        gn_out.append(sk)
+        gn_plain.append(sr)
+        gn_err = max(gn_err, err)
+    for name, call in variants.items():
+        errs = [(call(a, ITERS)[0][:, :6] - sr[:, :6]).abs().max().item()
+                for a, sr in zip(gn_rounds, gn_plain)]
+        print(f"phase 2 gn {name}: pose |diff| max vs plain version "
+              f"round 0 {errs[0]:.3e} round 1 {errs[1]:.3e}", flush=True)
 
     # ---- phase 3: the slice end to end, counted ----
     wrappers = {"block_fetch": block_fetch, "resident_fetch": resident_fetch,
@@ -344,11 +560,26 @@ def main():
             raise AssertionError(f"phase {phase} launches {got}, want {want}")
         return got
 
+    per_round = []
+
+    def counted_gn(*a, **kw):           # GN launches of each round
+        before = gn_round.launches
+        out = gn_round(*a, **kw)
+        per_round.append(gn_round.launches - before)
+        return out
+
     zero_counts()
     feats3 = frontend(raw)
-    res = solve(feats3, tables())
+    pbatch.gn_round = counted_gn
+    try:
+        res = solve(feats3, tables())
+    finally:
+        pbatch.gn_round = gn_round
     launches = read_counts(3, {"block_fetch": 4, "resident_fetch": 0,
                                "gn_round": 2})
+    print(f"phase 3 gn launches per round: {per_round}", flush=True)
+    if per_round != [1, 1]:
+        raise AssertionError(f"GN launches per round {per_round}")
 
     pose = res.pose6.cpu().numpy()
     if not (np.isfinite(pose).all() and pose.shape == (B, 6)):
@@ -480,26 +711,33 @@ def main():
                                        resident_fetch_reference,
                                        rqueries["corner"]),
         "gn_round": (cuda_ms(lambda: gn_round(*gn_args, K=K, iters=ITERS),
-                             10),
+                             10, graph=True),
                      cuda_ms(lambda: gn_round_reference(*gn_args, K=K,
                                                         iters=ITERS), 2)),
+        "gn_round0": (cuda_ms(lambda: gn_round(*gn_args0, K=K,
+                                               iters=ITERS), 10, graph=True),
+                      cuda_ms(lambda: gn_round_reference(*gn_args0, K=K,
+                                                         iters=ITERS), 2)),
     }
     bounds = {name: fetch_bound(tq[0], tq[1][0], K) for name, tq in (
         ("fetch_surf", queries["surf"]), ("fetch_corner", queries["corner"]),
         ("resident_surf", rqueries["surf"]),
         ("resident_corner", rqueries["corner"]))}
-    # GN round 1: features and candidates read once, stat/matP read and
-    # written; operations for the lane-iterations this run's data took
-    n_pts = fc.shape[2] + fs.shape[2]
-    lane_iters = (sk[:, 6] - stat[:, 6]).clamp(min=0)
-    gn_ops = sum(float((lane_iters * f[:, 3].sum(1)).sum())
-                 * GN_OPS_PER_POINT[kind]
-                 for kind, f in (("corner", fc), ("surf", fs)))
-    bounds["gn_round"] = bound(B * n_pts * (4 + 3 * K) * 4
-                               + B * (16 + 36) * 4 * 2, gn_ops)
+    floors = {}
+    for name, a, out in (("gn_round0", gn_args0, gn_out[0]),
+                         ("gn_round", gn_args, gn_out[1])):
+        *bounds[name], floors[name] = gn_bound(a, out, K)
     for name, (ms_k, ms_p) in kt.items():
+        floor = (f", streamed floor {floors[name]:.4f} ms"
+                 if name in floors else "")
         print(f"time {name}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
-              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})",
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}){floor}",
+              flush=True)
+    for vname, call in variants.items():
+        print(f"time gn_round0 {vname}: "
+              f"{cuda_ms(lambda: call(gn_args0, ITERS), 10, True):.3f} ms; "
+              f"gn_round {vname}: "
+              f"{cuda_ms(lambda: call(gn_args, ITERS), 10, True):.3f} ms",
               flush=True)
     t_front = cuda_ms(lambda: frontend(raw), 3)
     t_tables = cuda_ms(tables, 3)
@@ -513,20 +751,30 @@ def main():
           f"phase 5 solve (resident tables) {t_solve5 / B:.4f} ms/scan, "
           f"phase 6 solve (batch_register_pallas) {t_solve6 / B:.4f} ms/scan",
           flush=True)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    other_k = {k: (stat, matP, fc, fs,
+                   *(block_fetch(tq[0], *tq[1], K=k)[1]
+                     for tq in (queries["corner"], queries["surf"])))
+               for k in kernels.SUPPORTED_K if k != K}
+    gn_probes("shipped",
+              lambda a, n, K=K, **kw: gn_round(*a, K=K, iters=n, **kw),
+              gn_rounds, n_sm, other_k)
+    for vname, call in variants.items():
+        gn_probes(vname, call, gn_rounds, n_sm, other_k)
     fetch_probes(queries["surf"], rtabs[1],
                  presort_by_row(guesses_t, feats.surf_xyz, feats.surf_mask,
                                 stab, origin, 2.0, dims),
                  lambda xyz, m: fetch_queries(stat[:, :6], xyz, m, stab,
                                               origin, 2.0, dims))
 
-    def entry(name, source, replaces, launches_, err, timed):
+    def entry(name, source, replaces, launches_, err, timed, **extra):
         return {"name": name, "route": "cuda",
                 "source": "feature_base_pointcloud_registration_tpu_torch/"
                           f"csrc/{source}",
                 "replaces": replaces, "launches": launches_,
                 "max_abs_err": err, "ms": kt[timed][0],
                 "plain_ms": kt[timed][1], "bound_ms": bounds[timed][0],
-                "bound_by": bounds[timed][1], "library_ms": None}
+                "bound_by": bounds[timed][1], "library_ms": None, **extra}
 
     print(json.dumps({"kernels": [
         entry("block_fetch", "block_fetch.cu",
@@ -534,7 +782,10 @@ def main():
               launches["block_fetch"], fetch_err, "fetch_surf"),
         entry("gn_round", "gn_round.cu",
               tpu_kernel_line("pallas_gn.py", "_gn_round_kernel"),
-              launches["gn_round"], gn_err, "gn_round"),
+              launches["gn_round"], gn_err, "gn_round",
+              ms_round0=kt["gn_round0"][0],
+              bound_ms_round0=bounds["gn_round0"][0],
+              launches_per_round=per_round),
         entry("resident_fetch", "resident_fetch.cu",
               tpu_kernel_line("pallas_fetch.py", "_resident_kernel"),
               launches5["resident_fetch"], res_err, "resident_surf"),

@@ -8,28 +8,52 @@
 // Per lane (one scan), up to `iters` iterations while the lane is not
 // converged and its feature gate holds (the per-lane early exit; lanes
 // never wait on each other):
-//   1. thread 0 turns the pose into R and its three angle derivatives
-//      (shared memory);
-//   2. the CTA's threads stride over the Pc corner + Ps surf points: per
-//      point the 5-of-K selection, the line fit (Cardano spectrum, line gate,
-//      cross-product eigenvector) or the Householder plane fit, and the
-//      Jacobian row J = [Jr, Jp, Jy, nx, ny, nz, -resid, mask], accumulated
-//      into the 28 entries of G = J J^T the solve reads (JtJ upper 6x6, Jtb,
-//      n_corr = sum mask);
-//   3. a block reduction (warp shuffles, then across warps in shared
-//      memory; fixed order, so the kernel is deterministic);
-//   4. thread 0: at the lane's iteration 0 only the cyclic Jacobi (matP,
-//      degeneracy flag), then the (JtJ + 1e-2 I) Gauss-Jordan solve, the
-//      projection, the update when n_corr >= min_corr, and the convergence
-//      test (0.05 deg, 0.05 cm).
+//   1. the point loops: the CTA's threads stride over the lane's live corner
+//      points, then its live surf points (two loops, so the register peak
+//      is the larger body's, not both).  Per point the 5-of-K selection,
+//      the line fit (Cardano spectrum, line gate, cross-product
+//      eigenvector) or the Householder plane fit, and the Jacobian row
+//      J = [Jr, Jp, Jy, nx, ny, nz, -resid, mask], accumulated into the 28
+//      entries of G = J J^T the solve reads (JtJ upper 6x6, Jtb, n_corr);
+//   2. a fixed-order block reduction: a reduce-scatter of the 28 sums
+//      inside each warp (lane m ends with entry m), then warp 0 adds the
+//      warps' partial sums in warp order;
+//   3. the tail on warp 0, spread over its lanes: at the lane's iteration 0
+//      only the cyclic Jacobi (A on every lane, row k of V on lane k) for matP
+//      and the degeneracy flag; the (JtJ + 1e-2 I) Gauss-Jordan solve (lane
+//      i holds row i), the projection, the update when n_corr >= min_corr,
+//      the convergence test (0.05 deg, 0.05 cm), and the next iteration's
+//      frame (R and its three angle derivatives; the six sines and cosines
+//      on six lanes).  Each element keeps the single-thread arithmetic and
+//      order, so the tail's results depend on G alone.
+// Two __syncthreads an iteration: the partial sums, then the new frame.
 // The Pallas kernel's polynomial arccos (Mosaic has no acos) is acosf here.
 //
-// Bound.  Per iteration a lane reads its candidates, 3K floats per point:
-// ~1 MB per lane at the main path's Pc=2048, Ps=8192, K=8, which at B=256
-// (~250 MB) does not stay in L2 across iterations; plus per-lane serial
-// latency (the Jacobi, the 6x6 solve, iteration count) that no other lane
-// can hide once the grid's one wave of CTAs drains.  One CTA per lane keeps
-// the early exit free; the candidate re-reads are the next thing to cut.
+// Live points only.  At the start of the round the CTA compacts the
+// indices of its live points (mask != 0) into a uint16 list in dynamic
+// shared memory (a warp-ballot prefix, in point order), and the point loops
+// run over the list: no dead point is loaded, and the work is balanced
+// whatever the mask's pattern.  Precondition: every candidate of a dead
+// point is finite.  A dead point then adds exactly +-0 to each sum (every
+// term carries its mask), so skipping it changes nothing; a NaN or inf
+// candidate on a dead point would have reached G through 0 * NaN.  The
+// port's fetch kernels give sentinel queries zeros.  Shapes with Pc + Ps >
+// kMaxList run the same loops over all points, dead ones included.
+//
+// Bound.  The least work: the mask of every point and the xyz and
+// candidates of each live point read once (4 bytes a point and 12 + 12K a
+// live one; a dead point's are never read), and ~600 (corner) / ~900
+// (surf) fp32 operations a live point and lane-iteration.  A design that
+// re-reads every live point's candidates each iteration, as this one does,
+// is floored at lane-iterations x live points x (16 + 12K) bytes over the
+// memory rate (~125 MB an iteration of all lanes at the main path's round
+// 1: more than the 50 MB L2).  Neither binds it: a point is ~1000
+// dependent instructions, so the kernel is bound by issue and latency and
+// needs many warps an SM to hide them.  At <= 128 registers a thread
+// (__launch_bounds__(kThreads, 2), K <= 8) two lanes share an SM and all
+// 256 lanes of the main path run in one wave; then the lanes that need the
+// most iterations (the per-lane early exit), and at a lane's iteration 0
+// the 90 dependent rotations of the Jacobi, set the round's time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,14 +65,16 @@ constexpr int kStat = 16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kG = 28;  // JtJ upper (21) + Jtb (6) + n_corr (1)
+constexpr int kMaxList = 20480;  // live-point list: 40 KB of uint16
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 3.0e38f;
 constexpr float kPi = 3.14159265358979f;
 
-struct Frame {
-  float r[9];                  // R row-major
-  float dr[3][9];              // dR/droll, dR/dpitch, dR/dyaw
-  float t[3];
-};
+// Frame in shared memory: R row-major [0, 9), dR/droll [9, 18), dR/dpitch
+// [18, 27), dR/dyaw [27, 36), t [36, 39).
+constexpr int kFrame = 40;
+constexpr int kDr = 9;
+constexpr int kT = 36;
 
 struct Coef {
   float ca, cb, cc, resid, mask;
@@ -114,9 +140,10 @@ __device__ __forceinline__ unsigned select5(const float (&d2)[K],
 }
 
 template <int K>
-__device__ Coef corner_coef(const float (&cx_)[K], const float (&cy_)[K],
-                            const float (&cz_)[K], float fm, float xw,
-                            float yw, float zw) {
+__device__ __forceinline__ Coef corner_coef(const float (&cx_)[K],
+                                            const float (&cy_)[K],
+                                            const float (&cz_)[K], float fm,
+                                            float xw, float yw, float zw) {
   float d2[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) {
@@ -210,9 +237,11 @@ __device__ __forceinline__ float safe_pivot(float d) {
 }
 
 template <int K>
-__device__ Coef surf_coef(const float (&sx_)[K], const float (&sy_)[K],
-                          const float (&sz_)[K], float fm, float xw, float yw,
-                          float zw, float min_plane_spread) {
+__device__ __forceinline__ Coef surf_coef(const float (&sx_)[K],
+                                          const float (&sy_)[K],
+                                          const float (&sz_)[K], float fm,
+                                          float xw, float yw, float zw,
+                                          float min_plane_spread) {
   float d2[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) {
@@ -323,14 +352,39 @@ __device__ Coef surf_coef(const float (&sx_)[K], const float (&sy_)[K],
   return {s * pa * mask, s * pb * mask, s * pc * mask, s * pd2 * mask, mask};
 }
 
-// Accumulate J J^T entries: JtJ upper 6x6 (21), Jtb (6), n_corr (1).
-__device__ __forceinline__ void accumulate(float (&acc)[kG], const Frame& f,
-                                           float fx, float fy, float fz,
-                                           const Coef& c) {
+// One point's 28 products J J^T added to acc: JtJ upper 6x6 (21), Jtb (6),
+// n_corr (1); acc[28..31] stay 0 (the reduce-scatter's padding).  All of
+// the point's loads are issued before any use (the mask too), so a thread
+// waits for one round trip to memory a point.  `fr` is the frame in shared
+// memory, read at each use (volatile) so that it is not held in 39
+// registers across the point loop.
+template <int K, bool kSurf>
+__device__ __forceinline__ void add_point(float (&acc)[32], const float* F,
+                                          int P, const float* Cd,
+                                          int64_t plane, int p,
+                                          const volatile float* fr,
+                                          float min_plane_spread) {
+  const float fx = F[p], fy = F[P + p], fz = F[2 * P + p];
+  const float fm = F[3 * P + p];
+  float cx[K], cy[K], cz[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    cx[i] = Cd[(int64_t)i * plane + p];
+    cy[i] = Cd[(int64_t)(K + i) * plane + p];
+    cz[i] = Cd[(int64_t)(2 * K + i) * plane + p];
+  }
+  const float xw = fr[0] * fx + fr[1] * fy + fr[2] * fz + fr[kT];
+  const float yw = fr[3] * fx + fr[4] * fy + fr[5] * fz + fr[kT + 1];
+  const float zw = fr[6] * fx + fr[7] * fy + fr[8] * fz + fr[kT + 2];
+  Coef c;
+  if constexpr (kSurf)
+    c = surf_coef<K>(cx, cy, cz, fm, xw, yw, zw, min_plane_spread);
+  else
+    c = corner_coef<K>(cx, cy, cz, fm, xw, yw, zw);
   float J[7];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float* d = f.dr[a];
+    const volatile float* d = fr + kDr + 9 * a;
     const float gx = d[0] * fx + d[1] * fy + d[2] * fz;
     const float gy = d[3] * fx + d[4] * fy + d[5] * fz;
     const float gz = d[6] * fx + d[7] * fy + d[8] * fz;
@@ -352,150 +406,241 @@ __device__ __forceinline__ int gidx(int i, int j) {  // i <= j < 7, i < 6
   return i * 7 - i * (i - 1) / 2 + (j - i);
 }
 
-// Thread 0: Jacobi (lane iteration 0), Gauss-Jordan, projection, update.
-__device__ void solve_and_update(const float* G, float* st, float* mp,
-                                 int min_corr, float eig_thresh,
-                                 float conv_rot_deg, float conv_trans_cm,
-                                 int jacobi_sweeps) {
-  const float n_corr = G[kG - 1];
-  const bool enough = n_corr >= (float)min_corr;
+// r[i] for a lane-dependent i, without indexing registers at run time
+template <int N>
+__device__ __forceinline__ float pick(const float (&r)[N], int i) {
+  float v = r[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) v = i == j ? r[j] : v;
+  return v;
+}
 
-  if (st[6] == 0.0f) {
-    // cyclic Jacobi on the symmetric JtJ (the TPU kernel's _jacobi6)
-    float A[6][6], V[6][6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        A[i][j] = G[i <= j ? gidx(i, j) : gidx(j, i)];
-        V[i][j] = i == j ? 1.0f : 0.0f;
-      }
-    for (int sw = 0; sw < jacobi_sweeps; ++sw) {
-#pragma unroll
-      for (int p = 0; p < 6; ++p)
-#pragma unroll
-        for (int q = p + 1; q < 6; ++q) {
-          const float apq = A[p][q], app = A[p][p], aqq = A[q][q];
-          const bool small = fabsf(apq) < 1e-20f;
-          const float tau = (aqq - app) / (2.0f * (small ? 1.0f : apq));
-          const float sg = tau > 0.0f ? 1.0f : (tau < 0.0f ? -1.0f : tau);
-          float t = sg / (fabsf(tau) + sqrtf(1.0f + tau * tau));
-          if (tau == 0.0f) t = 1.0f;
-          if (small) t = 0.0f;
-          const float c = 1.0f / sqrtf(1.0f + t * t);
-          const float s = t * c;
-#pragma unroll
-          for (int k = 0; k < 6; ++k) {
-            const float akp = A[k][p], akq = A[k][q];
-            A[k][p] = c * akp - s * akq;
-            A[k][q] = s * akp + c * akq;
-          }
-#pragma unroll
-          for (int k = 0; k < 6; ++k) {
-            const float apk = A[p][k], aqk = A[q][k];
-            A[p][k] = c * apk - s * aqk;
-            A[q][k] = s * apk + c * aqk;
-          }
-#pragma unroll
-          for (int k = 0; k < 6; ++k) {
-            const float vkp = V[k][p], vkq = V[k][q];
-            V[k][p] = c * vkp - s * vkq;
-            V[k][q] = s * vkp + c * vkq;
-          }
-        }
-    }
-    float good[6];
-    float isdeg = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      good[i] = A[i][i] >= eig_thresh ? 1.0f : 0.0f;
-      isdeg = fmaxf(isdeg, 1.0f - good[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        float pij = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 6; ++k) pij += V[i][k] * good[k] * V[j][k];
-        mp[i * 6 + j] = pij;
-      }
-    st[8] = isdeg;
-  }
+// Entry (i, j) of the symmetric 6x6 JtJ (j < 6) or Jtb (j == 6) from the
+// lane of warp 0 that holds it.
+__device__ __forceinline__ float g_at(float g, int i, int j) {
+  return __shfl_sync(kFull, g, j < 6 && j < i ? gidx(j, i) : gidx(i, j));
+}
 
-  // (JtJ + 1e-2 I) x = Jtb, Gauss-Jordan without pivoting (SPD + Tikhonov
-  // shift keeps every pivot >= 1e-2)
-  float A[6][7];
+// Warp 0: cyclic Jacobi on the symmetric JtJ (the TPU kernel's _jacobi6)
+// -> matP = V diag(lam >= eig_thresh) V^T and the degeneracy flag.  Every
+// lane holds all of A and rotates it (no shuffle on the chain of 15 *
+// jacobi_sweeps dependent rotations); lane k < 6 holds row k of V.
+__device__ void jacobi_warp(float g, int lane, float* st, float* mp,
+                            float* scratch, float eig_thresh,
+                            int jacobi_sweeps) {
+  const int k = lane < 6 ? lane : 5;
+  float A[6][6], V[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i)
 #pragma unroll
-    for (int j = 0; j < 7; ++j)
-      A[i][j] = (j < 6 ? G[i <= j ? gidx(i, j) : gidx(j, i)] : G[gidx(i, 6)]) +
-                (i == j ? 1e-2f : 0.0f);
+    for (int j = 0; j < 6; ++j) A[i][j] = g_at(g, i, j);
+#pragma unroll
+  for (int j = 0; j < 6; ++j) V[j] = k == j ? 1.0f : 0.0f;
+  for (int sw = 0; sw < jacobi_sweeps; ++sw) {
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int q = p + 1; q < 6; ++q) {
+        const float apq = A[p][q], app = A[p][p], aqq = A[q][q];
+        const bool small = fabsf(apq) < 1e-20f;
+        const float tau = (aqq - app) / (2.0f * (small ? 1.0f : apq));
+        const float sg = tau > 0.0f ? 1.0f : (tau < 0.0f ? -1.0f : tau);
+        float t = sg / (fabsf(tau) + sqrtf(1.0f + tau * tau));
+        if (tau == 0.0f) t = 1.0f;
+        if (small) t = 0.0f;
+        const float c = 1.0f / sqrtf(1.0f + t * t);
+        const float s = t * c;
+#pragma unroll
+        for (int kk = 0; kk < 6; ++kk) {
+          const float akp = A[kk][p], akq = A[kk][q];
+          A[kk][p] = c * akp - s * akq;
+          A[kk][q] = s * akp + c * akq;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 6; ++kk) {
+          const float apk = A[p][kk], aqk = A[q][kk];
+          A[p][kk] = c * apk - s * aqk;
+          A[q][kk] = s * apk + c * aqk;
+        }
+        const float vkp = V[p], vkq = V[q];
+        V[p] = c * vkp - s * vkq;
+        V[q] = s * vkp + c * vkq;
+      }
+  }
+  float* sV = scratch;  // V row-major [36]
+  if (lane < 6) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) sV[lane * 6 + j] = V[j];
+  }
+  __syncwarp();
+  float good[6];
+  float isdeg = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    good[i] = A[i][i] >= eig_thresh ? 1.0f : 0.0f;
+    isdeg = fmaxf(isdeg, 1.0f - good[i]);
+  }
+  for (int e = lane; e < 36; e += 32) {
+    const int i = e / 6, j = e % 6;
+    float pij = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 6; ++kk)
+      pij += sV[i * 6 + kk] * good[kk] * sV[j * 6 + kk];
+    mp[e] = pij;
+  }
+  if (lane == 0) st[8] = isdeg;
+  __syncwarp();
+}
+
+// Warp 0: the iteration's tail.  g: lane m < 28 holds G[m].  Jacobi at the
+// lane's iteration 0, Gauss-Jordan (lane i < 6 holds row i of
+// [JtJ + 1e-2 I | Jtb]), projection, update, convergence test.
+__device__ void solve_warp(float g, int lane, float* st, float* mp,
+                           float* scratch, int min_corr, float eig_thresh,
+                           float conv_rot_deg, float conv_trans_cm,
+                           int jacobi_sweeps) {
+  const float n_corr = __shfl_sync(kFull, g, kG - 1);
+  const bool enough = n_corr >= (float)min_corr;
+  if (st[6] == 0.0f)
+    jacobi_warp(g, lane, st, mp, scratch, eig_thresh, jacobi_sweeps);
+
+  // (JtJ + 1e-2 I) x = Jtb, Gauss-Jordan without pivoting (SPD + Tikhonov
+  // shift keeps every pivot >= 1e-2)
+  const int i = lane < 6 ? lane : 5;
+  float A[7];
+#pragma unroll
+  for (int j = 0; j < 7; ++j) A[j] = g_at(g, i, j) + (i == j ? 1e-2f : 0.0f);
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
-    const float piv = A[j][j];
+    float Aj[7];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      if (i == j) continue;
-      const float f = A[i][j] / piv;
+    for (int c = 0; c < 7; ++c) Aj[c] = __shfl_sync(kFull, A[c], j);
+    const float piv = Aj[j];
+    if (i != j) {
+      const float f = A[j] / piv;
 #pragma unroll
-      for (int c = 0; c < 7; ++c) A[i][c] = A[i][c] - f * A[j][c];
+      for (int c = 0; c < 7; ++c) A[c] = A[c] - f * Aj[c];
     }
   }
+  float xi = A[6] / pick(A, i);
   float x[6];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) x[i] = A[i][6] / A[i][i];
+  for (int j = 0; j < 6; ++j) x[j] = __shfl_sync(kFull, xi, j);
   if (st[8] > 0.0f) {
-    float xp[6];
+    float acc = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      float acc = 0.0f;
+    for (int j = 0; j < 6; ++j) acc += mp[i * 6 + j] * x[j];
+    xi = acc;
 #pragma unroll
-      for (int j = 0; j < 6; ++j) acc += mp[i * 6 + j] * x[j];
-      xp[i] = acc;
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i) x[i] = xp[i];
+    for (int j = 0; j < 6; ++j) x[j] = __shfl_sync(kFull, xi, j);
   }
   const float deg2 = (180.0f / kPi) * (180.0f / kPi);
   const float d_r = sqrtf((x[0] * x[0] + x[1] * x[1] + x[2] * x[2]) * deg2);
   const float d_t = sqrtf((x[3] * x[3] + x[4] * x[4] + x[5] * x[5]) * 1.0e4f);
   const bool conv = enough && d_r < conv_rot_deg && d_t < conv_trans_cm;
   const float ef = enough ? 1.0f : 0.0f;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) st[i] = st[i] + ef * x[i];
-  st[6] = st[6] + 1.0f;
-  st[7] = conv ? 1.0f : 0.0f;
-  st[10] = n_corr;
-}
-
-__device__ void make_frame(const float* st, Frame& f) {
-  const float sr = sinf(st[0]), cr = cosf(st[0]);
-  const float sp = sinf(st[1]), cp = cosf(st[1]);
-  const float sy = sinf(st[2]), cy = cosf(st[2]);
-  const float r[9] = {cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr,
-                      sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr,
-                      -sp,     cp * sr,                cp * cr};
-  const float dr[3][9] = {
-      {0.0f, cy * sp * cr + sy * sr, -cy * sp * sr + sy * cr,
-       0.0f, sy * sp * cr - cy * sr, -sy * sp * sr - cy * cr,
-       0.0f, cp * cr, -cp * sr},
-      {-cy * sp, cy * cp * sr, cy * cp * cr,
-       -sy * sp, sy * cp * sr, sy * cp * cr,
-       -cp, -sp * sr, -sp * cr},
-      {-sy * cp, -sy * sp * sr - cy * cr, -sy * sp * cr + cy * sr,
-       cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr,
-       0.0f, 0.0f, 0.0f}};
-  for (int i = 0; i < 9; ++i) {
-    f.r[i] = r[i];
-    for (int a = 0; a < 3; ++a) f.dr[a][i] = dr[a][i];
+  __syncwarp();  // every lane has read st[6] and st[8]
+  if (lane < 6) st[lane] = st[lane] + ef * xi;
+  if (lane == 0) {
+    st[6] = st[6] + 1.0f;
+    st[7] = conv ? 1.0f : 0.0f;
+    st[10] = n_corr;
   }
-  for (int i = 0; i < 3; ++i) f.t[i] = st[3 + i];
+  __syncwarp();
 }
 
+// Warp 0: whether the lane runs another iteration, and if so its frame
+// (the sines and cosines on lanes 0..5, the entries on lane 0).
+__device__ void next_frame(const float* st, int lane, bool more,
+                           float* fr, int* active) {
+  const bool act = more && st[7] == 0.0f && st[9] > 0.0f;
+  if (lane == 0) *active = act;
+  if (!act) return;
+  const float a = st[lane < 6 ? lane % 3 : 0];
+  const float sc = lane < 3 ? sinf(a) : cosf(a);
+  const float sr = __shfl_sync(kFull, sc, 0), cr = __shfl_sync(kFull, sc, 3);
+  const float sp = __shfl_sync(kFull, sc, 1), cp = __shfl_sync(kFull, sc, 4);
+  const float sy = __shfl_sync(kFull, sc, 2), cy = __shfl_sync(kFull, sc, 5);
+  if (lane != 0) return;
+  float* r = fr;
+  r[0] = cy * cp;
+  r[1] = cy * sp * sr - sy * cr;
+  r[2] = cy * sp * cr + sy * sr;
+  r[3] = sy * cp;
+  r[4] = sy * sp * sr + cy * cr;
+  r[5] = sy * sp * cr - cy * sr;
+  r[6] = -sp;
+  r[7] = cp * sr;
+  r[8] = cp * cr;
+  float* d = fr + kDr;  // dR/droll
+  d[0] = 0.0f;
+  d[1] = cy * sp * cr + sy * sr;
+  d[2] = -cy * sp * sr + sy * cr;
+  d[3] = 0.0f;
+  d[4] = sy * sp * cr - cy * sr;
+  d[5] = -sy * sp * sr - cy * cr;
+  d[6] = 0.0f;
+  d[7] = cp * cr;
+  d[8] = -cp * sr;
+  d += 9;  // dR/dpitch
+  d[0] = -cy * sp;
+  d[1] = cy * cp * sr;
+  d[2] = cy * cp * cr;
+  d[3] = -sy * sp;
+  d[4] = sy * cp * sr;
+  d[5] = sy * cp * cr;
+  d[6] = -cp;
+  d[7] = -sp * sr;
+  d[8] = -sp * cr;
+  d += 9;  // dR/dyaw
+  d[0] = -sy * cp;
+  d[1] = -sy * sp * sr - cy * cr;
+  d[2] = -sy * sp * cr + cy * sr;
+  d[3] = cy * cp;
+  d[4] = cy * sp * sr - sy * cr;
+  d[5] = cy * sp * cr + sy * sr;
+  d[6] = 0.0f;
+  d[7] = 0.0f;
+  d[8] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) fr[kT + e] = st[3 + e];
+}
+
+// Compacts the indices of the live points (mask row F[3P..4P) != 0) of one
+// feature kind into list[0..n) in point order; returns n.  Each warp
+// counts, then writes, one contiguous span; all threads must call it.
+__device__ int compact_live(const float* F, int P, uint16_t* list,
+                            int* s_cnt, int warp, int lane) {
+  const int span = ((P + kThreads - 1) / kThreads) * 32;
+  const int lo = warp * span, hi = min(lo + span, P);
+  int cnt = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int p = base + lane;
+    cnt += __popc(__ballot_sync(kFull, p < hi && F[3 * P + p] != 0.0f));
+  }
+  if (lane == 0) s_cnt[warp] = cnt;
+  __syncthreads();
+  int off = 0, n = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    off += w < warp ? s_cnt[w] : 0;
+    n += s_cnt[w];
+  }
+  for (int base = lo; base < hi; base += 32) {
+    const int p = base + lane;
+    const bool live = p < hi && F[3 * P + p] != 0.0f;
+    const unsigned b = __ballot_sync(kFull, live);
+    if (live) list[off + __popc(b & ((1u << lane) - 1u))] = (uint16_t)p;
+    off += __popc(b);
+  }
+  __syncthreads();  // s_cnt is reused
+  return n;
+}
+
+// Two CTAs an SM up to K=8; K=16 does not fit 128 registers a thread and
+// takes one CTA an SM without spills.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, K > 8 ? 1 : 2)
 gn_round_kernel(float* __restrict__ stat, float* __restrict__ matP,
                 const float* __restrict__ featc,
                 const float* __restrict__ feats,
@@ -503,85 +648,74 @@ gn_round_kernel(float* __restrict__ stat, float* __restrict__ matP,
                 const float* __restrict__ cands, int B, int Pc, int Ps,
                 int iters, int min_corr, float eig_thresh, float conv_rot_deg,
                 float conv_trans_cm, int jacobi_sweeps,
-                float min_plane_spread) {
+                float min_plane_spread, bool use_list) {
+  extern __shared__ uint16_t s_list[];  // live corner, then surf, indices
   __shared__ float s_st[kStat];
   __shared__ float s_mp[36];
-  __shared__ Frame s_f;
+  __shared__ float s_fr[kFrame];
   __shared__ float s_red[kWarps][kG];
-  __shared__ float s_G[kG];
+  __shared__ float s_scratch[36];
+  __shared__ int s_cnt[kWarps];
   __shared__ int s_active;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  if (tid < kStat) s_st[tid] = stat[(int64_t)b * kStat + tid];
-  if (tid < 36) s_mp[tid] = matP[(int64_t)b * 36 + tid];
-  __syncthreads();
-
   const float* fc = featc + (int64_t)b * 4 * Pc;
   const float* fs = feats + (int64_t)b * 4 * Ps;
   const int64_t qc = (int64_t)B * Pc, qs = (int64_t)B * Ps;
   const float* cc = candc + (int64_t)b * Pc;
   const float* cs = cands + (int64_t)b * Ps;
 
-  for (int it = 0; it < iters; ++it) {
-    if (tid == 0) {
-      s_active = s_st[7] == 0.0f && s_st[9] > 0.0f;
-      if (s_active) make_frame(s_st, s_f);
-    }
+  if (tid < kStat) s_st[tid] = stat[(int64_t)b * kStat + tid];
+  if (tid < 36) s_mp[tid] = matP[(int64_t)b * 36 + tid];
+  int nc = Pc, ns = Ps;
+  if (use_list) {
+    nc = compact_live(fc, Pc, s_list, s_cnt, warp, lane);
+    ns = compact_live(fs, Ps, s_list + nc, s_cnt, warp, lane);
+  } else {
     __syncthreads();
+  }
+  if (warp == 0) next_frame(s_st, lane, iters > 0, s_fr, &s_active);
+  __syncthreads();
+
+  for (int it = 0; it < iters; ++it) {
     if (!s_active) break;
 
-    float acc[kG];
+    float acc[32];
 #pragma unroll
-    for (int m = 0; m < kG; ++m) acc[m] = 0.0f;
+    for (int m = 0; m < 32; ++m) acc[m] = 0.0f;
+    int c = tid;
+    for (; c < nc; c += kThreads)
+      add_point<K, false>(acc, fc, Pc, cc, qc, use_list ? s_list[c] : c,
+                          s_fr, min_plane_spread);
+    for (; c < nc + ns; c += kThreads) {
+      const int p = use_list ? s_list[c] : c - nc;
+      add_point<K, true>(acc, fs, Ps, cs, qs, p, s_fr, min_plane_spread);
+    }
 
-    for (int p = tid; p < Pc + Ps; p += kThreads) {
-      const bool corner = p < Pc;
-      const int pp = corner ? p : p - Pc;
-      const float* F = corner ? fc : fs;
-      const int P = corner ? Pc : Ps;
-      const float fx = F[pp], fy = F[P + pp], fz = F[2 * P + pp];
-      const float fm = F[3 * P + pp];
-      const float* Cd = corner ? cc : cs;
-      const int64_t st = corner ? qc : qs;
-      float cx[K], cy[K], cz[K];
+    // reduce-scatter inside the warp: after the step of width h, slot i
+    // holds entry i + (the bits of lane above h), so lane m ends with m
 #pragma unroll
-      for (int i = 0; i < K; ++i) {
-        cx[i] = Cd[(int64_t)i * st + pp];
-        cy[i] = Cd[(int64_t)(K + i) * st + pp];
-        cz[i] = Cd[(int64_t)(2 * K + i) * st + pp];
+    for (int h = 16; h >= 1; h >>= 1) {
+      const bool upper = lane & h;
+#pragma unroll
+      for (int i = 0; i < h; ++i) {
+        const float send = upper ? acc[i] : acc[i + h];
+        const float keep = upper ? acc[i + h] : acc[i];
+        acc[i] = keep + __shfl_xor_sync(kFull, send, h);
       }
-      const float* r = s_f.r;
-      const float xw = r[0] * fx + r[1] * fy + r[2] * fz + s_f.t[0];
-      const float yw = r[3] * fx + r[4] * fy + r[5] * fz + s_f.t[1];
-      const float zw = r[6] * fx + r[7] * fy + r[8] * fz + s_f.t[2];
-      const Coef c = corner
-          ? corner_coef<K>(cx, cy, cz, fm, xw, yw, zw)
-          : surf_coef<K>(cx, cy, cz, fm, xw, yw, zw, min_plane_spread);
-      accumulate(acc, s_f, fx, fy, fz, c);
     }
-
-#pragma unroll
-    for (int m = 0; m < kG; ++m) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[m] += __shfl_down_sync(0xffffffffu, acc[m], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int m = 0; m < kG; ++m) s_red[warp][m] = acc[m];
-    }
+    if (lane < kG) s_red[warp][lane] = acc[0];
     __syncthreads();
-    if (tid < kG) {
-      float s = 0.0f;
-      for (int w = 0; w < kWarps; ++w) s += s_red[w][tid];
-      s_G[tid] = s;
+    if (warp == 0) {
+      float g = 0.0f;
+      if (lane < kG)
+        for (int w = 0; w < kWarps; ++w) g += s_red[w][lane];
+      solve_warp(g, lane, s_st, s_mp, s_scratch, min_corr, eig_thresh,
+                 conv_rot_deg, conv_trans_cm, jacobi_sweeps);
+      next_frame(s_st, lane, it + 1 < iters, s_fr, &s_active);
     }
-    __syncthreads();
-    if (tid == 0)
-      solve_and_update(s_G, s_st, s_mp, min_corr, eig_thresh, conv_rot_deg,
-                       conv_trans_cm, jacobi_sweeps);
     __syncthreads();
   }
   if (tid < kStat) stat[(int64_t)b * kStat + tid] = s_st[tid];
@@ -594,10 +728,12 @@ void launch(float* stat, float* matP, const float* featc, const float* feats,
             int iters, int min_corr, float eig_thresh, float conv_rot_deg,
             float conv_trans_cm, int jacobi_sweeps, float min_plane_spread,
             cudaStream_t stream) {
-  gn_round_kernel<K><<<B, kThreads, 0, stream>>>(
+  const bool use_list = (int64_t)Pc + Ps <= kMaxList;
+  const size_t smem = use_list ? sizeof(uint16_t) * (Pc + Ps) : 0;
+  gn_round_kernel<K><<<B, kThreads, smem, stream>>>(
       stat, matP, featc, feats, candc, cands, B, Pc, Ps, iters, min_corr,
       eig_thresh, conv_rot_deg, conv_trans_cm, jacobi_sweeps,
-      min_plane_spread);
+      min_plane_spread, use_list);
 }
 
 }  // namespace

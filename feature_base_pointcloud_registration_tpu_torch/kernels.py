@@ -112,18 +112,29 @@ def _build(sources) -> list:
     return sos
 
 
+def load(so: Path) -> SimpleNamespace:
+    """One built library: an attribute per C entry point of `_SIGNATURES`
+    that it defines."""
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = fns[name] = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return SimpleNamespace(**fns)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> SimpleNamespace:
     """Build the kernels (first call per source hash) and load them: one
     attribute per C entry point of `_SIGNATURES`."""
-    libs = [ctypes.CDLL(str(so))
-            for so in _build(sorted(CSRC.glob("*.cu")))]
     fns = {}
-    for name, argtypes in _SIGNATURES.items():
-        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    for so in _build(sorted(CSRC.glob("*.cu"))):
+        fns.update(vars(load(so)))
+    missing = set(_SIGNATURES) - set(fns)
+    if missing:
+        raise RuntimeError(f"csrc/ defines no {sorted(missing)}")
     return SimpleNamespace(**fns)
 
 
@@ -181,11 +192,14 @@ def launch_resident_fetch(table, bcell, qx, qy, qz, d2, cand, *, K: int):
 def launch_gn_round(stat, matP, featc, feats, candc, cands, *, K: int,
                     iters: int, min_corr: int, eig_thresh: float,
                     conv_rot_deg: float, conv_trans_cm: float,
-                    jacobi_sweeps: int, min_plane_spread: float):
+                    jacobi_sweeps: int, min_plane_spread: float,
+                    lib: SimpleNamespace | None = None):
     """csrc/gn_round.cu on validated CUDA tensors (see ops/gn_round.py);
-    updates stat and matP in place."""
+    updates stat and matP in place.  lib: another build of the same entry
+    point (`load`), for comparisons of kernel versions; by default the
+    shipped one."""
     _check_k(K)
-    lib = library()
+    lib = lib or library()
     B, _, Pc = featc.shape
     Ps = feats.shape[2]
     with torch.cuda.device(stat.device):

@@ -12,6 +12,8 @@ held against:
     constant fetch, at the 2e-3 that tests/test_pallas_gn.py uses (with and
     without the min_plane_spread gate);
   * the JAX kernel's `_jacobi6` on random SPD matrices (rtol 1e-6).
+It also pins the precondition under which the CUDA kernel skips dead
+points: with finite candidates, what a dead point carries changes nothing.
 The CUDA kernel against its plain version is tests/test_torch_kernels_cuda.py.
 """
 
@@ -164,6 +166,32 @@ def test_inactive_lanes_untouched():
     got, got_mp = _port((stat, matP, *rest))
     np.testing.assert_array_equal(got, stat)
     np.testing.assert_array_equal(got_mp, matP)
+
+
+def test_dead_point_candidates_add_nothing():
+    """The CUDA kernel skips dead points (mask 0) where the plain version
+    adds their terms times 0; with finite candidates that is the same
+    result, so zero and arbitrary finite candidates there give equal
+    stat and matP."""
+    stat, matP, fc, fs, cc, cs = _kernel_inputs(_scene())
+    fc[:, 3, ::4] = 0.0
+    fs[:, 3, PS // 2:] = 0.0
+    r = np.random.RandomState(3)
+    outs = []
+    for garbage in (False, True):
+        cands = []
+        for c, f in ((cc, fc), (cs, fs)):
+            c = c.copy()
+            dead = (f[:, 3] == 0).reshape(-1)
+            c[:, dead] = (r.uniform(-50, 50, (3 * K, dead.sum()))
+                          if garbage else 0.0)
+            cands.append(c)
+        outs.append(_port((stat, matP, fc, fs, *cands)))
+    assert (outs[0][0][:, 10] > 50).all()
+    assert np.isfinite(outs[0][0][:, :6]).all()
+    assert np.isfinite(outs[0][1]).all()
+    np.testing.assert_array_equal(outs[1][0], outs[0][0])
+    np.testing.assert_array_equal(outs[1][1], outs[0][1])
 
 
 def test_jacobi6_matches_pallas_helper():

@@ -8,7 +8,8 @@ Imports no JAX, so it runs on a GPU machine without it:
 test skips.  Tolerances: both fetch kernels are bitwise equal to their
 plain versions (explicit round-to-nearest arithmetic, same tie rule); the
 GN kernel within 1e-4 of its plain version in pose (FMA contraction and
-reduction order; both use the library acos) with equal n_corr and flags;
+reduction order; both use the library acos) with equal n_corr and flags,
+and bitwise equal to itself across two calls (a fixed-order reduction);
 the solvers on the GPU within 1e-4 of the same solvers on the CPU (the
 GN kernel's arithmetic, and `torch.linalg.eigh` on the card).
 """
@@ -239,7 +240,7 @@ def _scene(dev, B=6, Pc=200, Ps=700, seed=0):
     guess = gt + r.uniform(-1, 1, gt.shape) * np.array(
         [0.01, 0.01, 0.02, 0.1, 0.1, 0.05])
     cmask = np.ones((B, Pc), bool)
-    cmask[1, ::3] = False
+    cmask[1:2, ::3] = False
     feats = ScanFeatures(
         torch.tensor(np.stack(fc), dtype=torch.float32, device=dev),
         torch.from_numpy(cmask).to(dev),
@@ -280,6 +281,81 @@ def test_gn_kernel_matches_plain_version(cuda, K, spread):
     assert torch.equal(got[:, 6:11], want[:, 6:11])
     torch.testing.assert_close(got_mp, want_mp, rtol=0, atol=1e-4)
     assert torch.equal(got[-1], stat[-1])
+
+
+def _gn_lanes(cuda, B, Pc, Ps, K, pattern, seed):
+    """GN inputs that exercise the live-point list and the warp tail:
+    masks front-packed with dead tails (voxel_downsample's packing) or
+    interleaved, lane 2 with a few dozen live points (its gate forced on),
+    finite garbage candidates on every dead point, odd lanes past their
+    iteration 0 (lane 1 degenerate, with a projector), the last lane gated
+    off."""
+    feats, fmap, guess = _scene(cuda, B=B, Pc=Pc, Ps=Ps, seed=seed)
+    r = np.random.RandomState(seed)
+    cm, sm = np.ones((B, Pc), bool), np.ones((B, Ps), bool)
+    if pattern == "front":
+        for b in range(B):
+            cm[b, r.randint(Pc // 2, Pc + 1):] = False
+            sm[b, r.randint(Ps // 2, Ps + 1):] = False
+    else:
+        cm[:, ::3] = False
+        sm[:, 1::4] = False
+    if B > 2:
+        cm[2, 12:] = False
+        sm[2, 40:] = False
+    feats = ScanFeatures(feats.corner_xyz, torch.from_numpy(cm).to(cuda),
+                         feats.surf_xyz, torch.from_numpy(sm).to(cuda))
+    ct, st, origin, dims = tbatch.build_map_planar_tables(
+        fmap, np.zeros(3), np.array([8.0, 8.0, 4.0]), corner_cell_cap=48,
+        surf_cell_cap=48)
+    stat, matP = tbatch.initial_state(feats, guess)
+    fc = tbatch.feature_planes(feats.corner_xyz, feats.corner_mask)
+    fs = tbatch.feature_planes(feats.surf_xyz, feats.surf_mask)
+    cands = []
+    for xyz, mask, tab, m in ((feats.corner_xyz, feats.corner_mask, ct, cm),
+                              (feats.surf_xyz, feats.surf_mask, st, sm)):
+        c = tbatch.fetch_candidates(stat[:, :6], xyz, mask, tab, origin,
+                                    2.0, dims, K=K)
+        dead = torch.from_numpy(~m).to(cuda)
+        garbage = torch.from_numpy(r.uniform(
+            -50, 50, (3 * K, int(dead.sum())))).float().to(cuda)
+        c.view(3 * K, B, -1)[:, dead] = garbage
+        cands.append(c)
+    if B > 2:
+        stat[2, 9] = 1.0
+        past, past_mp = tgn.gn_round_reference(stat, matP, fc, fs, *cands,
+                                               K=K, iters=1)
+        stat[1::2], matP[1::2] = past[1::2], past_mp[1::2]
+        stat[:, 7] = 0.0
+        stat[1, 8] = 1.0
+        matP[1] = torch.diag(torch.tensor([1.0, 1, 1, 1, 1, 0])).reshape(36)
+    if B > 1:
+        stat[-1, 9] = 0.0
+    return stat, matP, fc, fs, *cands
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Pc,Ps,K,pattern", [
+    (133, 203, 707, 6, "front"), (133, 203, 707, 8, "front"),
+    (133, 203, 707, 16, "front"), (133, 203, 707, 6, "interleaved"),
+    (133, 203, 707, 8, "interleaved"), (133, 203, 707, 16, "interleaved"),
+    (1, 1000, 6000, 8, "front"), (300, 77, 333, 8, "front"),
+    (300, 77, 333, 8, "interleaved"),
+    (3, 1500, 19500, 8, "front"),   # Pc + Ps over the live-list capacity
+])
+def test_gn_kernel_live_points_and_warp_tail(cuda, B, Pc, Ps, K, pattern):
+    args = _gn_lanes(cuda, B, Pc, Ps, K, pattern, seed=B + Pc + K)
+    got, got_mp = tgn.gn_round(*args, K=K, iters=15)
+    again, again_mp = tgn.gn_round(*args, K=K, iters=15)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got_mp, again_mp)
+    want, want_mp = tgn.gn_round_reference(*args, K=K, iters=15)
+    assert (want[:, 10] > 50).float().mean() > 0.5
+    torch.testing.assert_close(got[:, :6], want[:, :6], rtol=0, atol=1e-4)
+    assert torch.equal(got[:, 6:11], want[:, 6:11])
+    torch.testing.assert_close(got_mp, want_mp, rtol=0, atol=1e-4)
+    if B > 1:
+        assert torch.equal(got[-1], args[0][-1])
 
 
 @pytest.mark.cuda

@@ -58,7 +58,24 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            candidates packed to the front, P cut to the batch's largest
            live count), (d) one lane per SM against all B lanes, (e) at
            round 0, one iteration with the 6-sweep Jacobi against none, (f)
-           round 1 at K = 6 and 16.
+           round 1 at K = 6 and 16;
+  phase 7  the single-scan localization pipeline at default Params (strict
+           picking, deskew, crop +-(30, 30, 10) m, register grid
+           +-(60, 60, 25) m, 3 rounds x 10 iterations, K=16): the world's
+           map written with the port's write_pcd and loaded with
+           GlobalMap.from_pcd_dir; 20 motion-skewed scans 0.2 s apart along
+           constant_twist_platform, each through ScanBuffer, imu_converter,
+           make_deskew_info (OdomQueue's increment) and
+           LocalizationPipeline.step, counted: 6 fetches of K=16 a step
+           (resident_fetch or block_fetch by table kind), 0 GN rounds; the
+           fetches of steps 0-2 bitwise equal to their plain versions;
+           steps 0-2 within 1e-4 of the same steps on the CPU; strict picks
+           of scans 0-2 equal to the oracle's, scan 0's deskewed points
+           within 2e-5 m of the oracle's (rotation); a scan 0.05 s later
+           gated; max translation error after step 0 < 0.06 m and ATE <
+           0.05 m against the ground truth; times of the step and its
+           stages, picking's host syncs, each table's kind and bytes, the
+           fetch beside its bound, ptxas of the K=16 fetch instances.
 
     python3 chip_smoke.py --gn-ab NAME=path/to/gn_round.cu ...
 
@@ -111,6 +128,10 @@ FETCH_OPS_PER_SLOT = 9
 # version (ops/gn_round.py) at K=8: transform 18, d2 64, 5-of-K selection
 # 120, J row and J*J^T 120, plus the fit (line ~270, Householder plane ~560)
 GN_OPS_PER_POINT = {"corner": 600, "surf": 900}
+N_LOC = 20               # phase 7: localization steps
+LOC_SPACING = 0.2        # s between scans (constant_twist_platform)
+LOC_CHECKED = 3          # steps held against the plain fetch and the CPU
+LOC_K = 16               # candidates per fetch of grid_register_step
 
 
 def tpu_kernel_line(file_name, kernel):
@@ -124,9 +145,10 @@ def tpu_kernel_line(file_name, kernel):
     raise FileNotFoundError(f"{kernel} in */ops/{file_name}")
 
 
-def print_ptxas(src, log):
+def print_ptxas(src, log, only=None):
     """The registers, stack and spill lines of ptxas -v, each with the
-    kernel and template arguments (K first) it belongs to."""
+    kernel and template arguments (K first) it belongs to; only: the
+    kernel instances to print (all by default)."""
     fn = "?"
     with open(log) as f:
         for line in f:
@@ -135,7 +157,8 @@ def print_ptxas(src, log):
             if m:
                 args = ",".join(re.findall(r"\d+", m.group(2)))
                 fn = f"{m.group(1)}<{args}>"
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line) and (
+                    only is None or fn in only):
                 print(f"ptxas {src} {fn}: {line.strip()}", flush=True)
 
 
@@ -361,6 +384,434 @@ def fetch_probes(raw_tq, rtab, presorted, queries_of):
             print(f"probe {name} (a) K={k}: {ms:.4f} ms", flush=True)
 
 
+def fetch_smem(W, K):
+    """Dynamic shared memory of one fetch block, bytes (csrc/fetch_tile.cuh
+    TileLayout: whole rows of the row buffer, the tile's staged results,
+    its queries and its ids)."""
+    row = 12 * W
+    nb = max(1, min(48 * 1024 // row, 128))
+    return nb * row + 16 * 128 * K + 12 * 128 + 4 * (5 * 128 + 1 + 8)
+
+
+def profile_call(fn):
+    """(wall ms, device-busy ms, [(kernel, ms)] by device time) of one call
+    under torch.profiler; busy is the union of the device events' spans
+    (0 when the profiler records none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return wall, busy / 1e3, sorted(by_name.items(), key=lambda kv: -kv[1])
+
+
+def table_info(table):
+    """(kind, rows, W, bytes) of a table from build_map_planar_tables."""
+    from feature_base_pointcloud_registration_tpu_torch.ops.fetch import (
+        PlanarTable)
+    if isinstance(table, PlanarTable):
+        t = table.table
+        return ("resident", t.shape[0] - 1, t.shape[1] // 3,
+                t.numel() * 4 + table.rows_index.numel() * 4)
+    return "raw", table.shape[0] - 1, table.shape[1] // 3, table.numel() * 4
+
+
+def localization_phase(dev):
+    """Phase 7: the single-scan localization pipeline on the card at the
+    reference's settings (default Params).  Returns (launches {wrapper:
+    count} over the N_LOC steps, {feature kind: (kernel, ms, plain_ms,
+    bound_ms, bound_by)} of the fetch at step 0's queries, {kernel:
+    max_abs_err} of the checked fetches)."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.geom.se3 import (
+        euler_from_quat, rot_to_euler)
+    from feature_base_pointcloud_registration_tpu_torch.imu.conversion import (
+        imu_converter)
+    from feature_base_pointcloud_registration_tpu_torch.io.pcd import (
+        write_pcd)
+    from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+        SyntheticWorld, constant_twist_platform, simulate_scan)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fetch as tfetch)
+    from feature_base_pointcloud_registration_tpu_torch.ops.features import (
+        extract_features, window_labels)
+    from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
+        gn_round)
+    from feature_base_pointcloud_registration_tpu_torch.ops.projection import (
+        project_scan)
+    from feature_base_pointcloud_registration_tpu_torch.ops.register import (
+        grid_register_step, world_components)
+    from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
+        build_map_planar_tables)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        DeskewInfo, RawScan)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
+        make_deskew_info, process_scan)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.localization import (  # noqa: E501
+        GlobalMap, LocalizationPipeline, _crop_local_map)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.scan_buffer import (  # noqa: E501
+        OdomQueue, ScanBuffer)
+    import oracle
+
+    cpu = torch.device("cpu")
+    params = Params()
+    world = SyntheticWorld()
+
+    # ---- the map, written with the port's write_pcd and loaded as the
+    # reference starts up (GlobalMap caps 1<<19 / 1<<20, downsampled) ----
+    map_dir = os.path.join(REPO, "build", "localization_map")
+    os.makedirs(map_dir, exist_ok=True)
+    for name, pts in (("cloudCorner.pcd", world.corner_map_points()),
+                      ("cloudSurf.pcd", world.surf_map_points())):
+        write_pcd(os.path.join(map_dir, name), dict(
+            x=pts[:, 0], y=pts[:, 1], z=pts[:, 2],
+            intensity=np.zeros(len(pts), np.float32)))
+    t0 = time.perf_counter()
+    gm = GlobalMap.from_pcd_dir(params, map_dir, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 7 map: corner {int(gm.corner_mask.sum())} surf "
+          f"{int(gm.surf_mask.sum())} points after downsampling, loaded in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+
+    # ---- the platform: ground truth, raw IMU (sensor frame), odometry ----
+    n_scans = N_LOC + 2                  # the ScanBuffer holds two back
+    imu, states = constant_twist_platform(
+        n_scans * LOC_SPACING + 0.3, ext_rot=params.ext_rot,
+        ext_rpy=params.ext_rpy, gravity=params.imu_gravity)
+    w_body, v_body = np.array([0.0, 0.0, 0.15]), np.array([1.2, 0.0, 0.0])
+    imu_t = np.array([s[0] for s in imu])
+    _, gyr_l, quat_l, ok = imu_converter(params, *(
+        torch.tensor(np.stack([s[i] for s in imu]), dtype=torch.float32)
+        for i in (1, 2, 3)))
+    if not bool(ok.all()):
+        raise AssertionError("phase 7: imu_converter flagged a sample")
+    rpy_l = torch.stack(euler_from_quat(quat_l), -1).numpy()
+    gyr_l = gyr_l.numpy()
+    gt6 = np.concatenate([
+        torch.stack(rot_to_euler(torch.from_numpy(
+            np.stack([R for _, R, _ in states]))), -1).numpy(),
+        np.stack([p for _, _, p in states])], 1).astype(np.float32)
+    odom = OdomQueue()
+    for (t, _, _), pose in zip(states, gt6):
+        odom.push(t, pose)
+
+    def scan_at(t, seed):
+        """A motion-skewed scan starting at t, and its ground truth."""
+        i = int(round(t * 100))
+        return simulate_scan(world, gt6[i], seed=seed, spin_rpy_rate=w_body,
+                             vel_world=states[i][1] @ v_body), gt6[i]
+
+    def raw_of(s, device, batch=False):
+        raw = RawScan.from_numpy(
+            s["xyz"], s["intensity"], s["ring"], s["time"],
+            device=device)._replace(valid=torch.from_numpy(s["valid"]).to(
+                device))
+        return RawScan(*(a[None] for a in raw)) if batch else raw
+
+    scans = [scan_at(k * LOC_SPACING, seed=k) for k in range(n_scans)]
+
+    # ---- the main path, counted: ScanBuffer -> imu table -> step ----
+    counted = {"block_fetch": tfetch.block_fetch,
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+    real_fetch_rows = tfetch.fetch_rows
+    calls, check = [], {"on": True}
+
+    def checked_fetch_rows(table, bcell, qx, qy, qz, *, K, planes_out=True):
+        """fetch_rows, recording each call and, in the checked steps,
+        holding it against its plain version on the same table."""
+        out = real_fetch_rows(table, bcell, qx, qy, qz, K=K,
+                              planes_out=planes_out)
+        kind, _, W, _ = table_info(table)
+        rec = {"kind": kind, "K": K, "Q": bcell.shape[0], "W": W}
+        if check["on"]:
+            if kind == "resident":
+                d2r, cr = tfetch.resident_fetch_reference(
+                    table.table, table.rows_index[bcell.long()], qx, qy, qz,
+                    K=K)
+            else:
+                d2r, cr = tfetch.block_fetch_reference(table, bcell, qx, qy,
+                                                       qz, K=K)
+            if not planes_out:
+                cr = cr.view(3, K, -1).permute(2, 1, 0)
+            rec["equal"] = torch.equal(out[0], d2r) and torch.equal(out[1],
+                                                                     cr)
+            rec["err"] = max((out[0] - d2r).abs().max().item(),
+                             (out[1] - cr).abs().max().item())
+        calls.append(rec)
+        return out
+
+    pipe = LocalizationPipeline(params, gm)
+    pipe.pose = scans[0][1].copy()       # a map-frame initial guess
+    buf = ScanBuffer()
+    inputs, ests, per_step, syncs, wall, iters = [], [], [], [], [], []
+    tfetch.fetch_rows = checked_fetch_rows
+    try:
+        torch.cuda.synchronize()
+        for w in counted.values():
+            w.launches = 0
+        for k, (s, _) in enumerate(scans):
+            out = buf.push(raw_of(s, dev), k * LOC_SPACING)
+            if out is None:
+                continue
+            j = len(inputs)
+            t_cur = out.time_scan_cur
+            t_end = t_cur + float(scans[j][0]["time"].max())  # timeScanEnd
+            avail, guess, rid, incre, flag = odom.deskew_info(t_cur, t_end)
+            last = np.nonzero(imu_t <= t_cur + 0.01)[0][-1]
+            dsk_cpu = make_deskew_info(
+                params, imu_t, gyr_l, t_cur, t_end, imu_rpy=rpy_l[last],
+                initial_guess=guess if avail else None, odom_incre=incre,
+                odom_deskew_flag=flag, reset_id=rid, device=cpu)
+            dsk = DeskewInfo(*(a.to(dev) for a in dsk_cpu))
+            inputs.append((t_cur, dsk_cpu))
+            check["on"] = j < LOC_CHECKED
+            before = {n: w.launches for n, w in counted.items()}
+            n_calls = len(calls)
+            extract_features.host_syncs = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ests.append(pipe.step(out.scan, t_cur, dsk).copy())
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            syncs.append(extract_features.host_syncs)
+            iters.append(int(pipe.last_result.iterations[0]))
+            got = {n: w.launches - before[n] for n, w in counted.items()}
+            per_step.append(got)
+            ks = {c["K"] for c in calls[n_calls:]}
+            if (got["block_fetch"] + got["resident_fetch"] != 6
+                    or got["gn_round"] or ks != {LOC_K}):
+                raise AssertionError(f"phase 7 step {j}: launches {got}, "
+                                     f"K {ks}")
+            if j == 5:
+                # a scan 0.05 s later is under mappingProcessInterval
+                s_x, _ = scan_at(t_cur + 0.05, seed=1000)
+                before = {n: w.launches for n, w in counted.items()}
+                est_x = pipe.step(raw_of(s_x, dev), t_cur + 0.05, dsk)
+                moved = {n: w.launches - before[n]
+                         for n, w in counted.items()}
+                print(f"phase 7 interval gate: scan at +0.05 s kept the pose"
+                      f" {np.array_equal(est_x, ests[-1])}, launches {moved},"
+                      f" last processed {pipe.time_last_processing:.2f} s",
+                      flush=True)
+                if not (np.array_equal(est_x, ests[-1])
+                        and not any(moved.values())
+                        and pipe.time_last_processing == t_cur):
+                    raise AssertionError("phase 7: the interval gate let a "
+                                         "scan through")
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in counted.items()}
+    finally:
+        tfetch.fetch_rows = real_fetch_rows
+    print(f"phase 7 launches: {launches} over {len(inputs)} steps; per "
+          f"step {per_step[0]}", flush=True)
+    kinds = sorted({(c["kind"], c["W"], c["Q"]) for c in calls})
+    print(f"phase 7 fetch calls (kind, W, Q): {kinds}", flush=True)
+    if len(inputs) != N_LOC:
+        raise AssertionError(f"phase 7: {len(inputs)} steps, want {N_LOC}")
+    checked = [c for c in calls if "equal" in c]
+    fetch_err = {}
+    for c in checked:
+        name = f"{'resident' if c['kind'] == 'resident' else 'block'}_fetch"
+        fetch_err[name] = max(fetch_err.get(name, 0.0), c["err"])
+    print(f"phase 7 fetches of steps 0-{LOC_CHECKED - 1} against their plain"
+          f" versions: {sum(c['equal'] for c in checked)}/{len(checked)} "
+          f"bitwise equal, max_abs_err {fetch_err}", flush=True)
+    if not (len(checked) == 6 * LOC_CHECKED
+            and all(c["equal"] for c in checked)):
+        raise AssertionError("phase 7: a fetch kernel != its plain version")
+
+    # ---- (f) accuracy against the ground truth ----
+    gt = np.stack([scans[j][1] for j in range(N_LOC)])
+    est = np.stack(ests)
+    err = np.linalg.norm(est[:, 3:] - gt[:, 3:], axis=1)
+    ate = float(np.sqrt((err ** 2).mean()))
+    print(f"phase 7 accuracy: max translation error after step 0 "
+          f"{err[1:].max():.6f} m, ate_vs_gt_m {ate}; rotation error max "
+          f"{np.abs(est[:, :3] - gt[:, :3]).max():.6f} rad; GN iterations "
+          f"a step {iters}; n_corr of the last step "
+          f"{int(pipe.last_result.n_corr[0])}", flush=True)
+    if not (np.isfinite(est).all() and err[1:].max() < 0.06 and ate < 0.05):
+        raise AssertionError(f"phase 7: errors {err}")
+
+    # ---- (e) the same steps on the CPU (the plain fetch versions) ----
+    gm_cpu = GlobalMap.from_pcd_dir(params, map_dir, device=cpu)
+    pipe_cpu = LocalizationPipeline(params, gm_cpu)
+    pipe_cpu.pose = scans[0][1].copy()
+    d_cpu = max(float(np.abs(pipe_cpu.step(
+        raw_of(scans[j][0], cpu), t, dsk) - ests[j]).max())
+        for j, (t, dsk) in enumerate(inputs[:LOC_CHECKED]))
+    print(f"phase 7 card vs CPU: steps 0-{LOC_CHECKED - 1} pose |diff| max "
+          f"{d_cpu:.3e}", flush=True)
+    if not d_cpu <= 1e-4:
+        raise AssertionError(f"phase 7: card vs CPU poses differ by {d_cpu}")
+
+    # ---- (a) strict picks of scans 0-2 against the serial oracle ----
+    for j in range(LOC_CHECKED):
+        cloud = project_scan(params, raw_of(scans[j][0], dev, batch=True))
+        win, label, span, first = window_labels(params, cloud)
+        num = int(cloud.num_points[0])
+        c = {f: getattr(cloud, f)[0].cpu().numpy() for f in cloud._fields}
+        ref = oracle.extract_features(dict(
+            point_range=c["point_range"][:num],
+            point_col_ind=c["point_col_ind"][:num],
+            start_ring_index=c["start_ring_index"],
+            end_ring_index=c["end_ring_index"], points=c["points"][:num]),
+            params.edge_threshold, params.surf_threshold)
+        label = label[0].cpu().numpy()
+        pvalid = win["pvalid"][0].cpu().numpy()
+        flat = first[0].cpu().numpy()[:, None] - 8 + np.arange(
+            label.shape[1])
+        pairs = [(set(flat[(label == 1) & pvalid].tolist()),
+                  {i for idx in ref["corner_idx"] for i in idx}),
+                 (set(flat[span[0].cpu().numpy() & (label <= 0)
+                           & pvalid].tolist()),
+                  {i for idx in ref["surf_idx"] for i in idx})]
+        print(f"phase 7 strict picks scan {j}: corner {len(pairs[0][0])} "
+              f"equal {pairs[0][0] == pairs[0][1]}, surf candidates "
+              f"{len(pairs[1][0])} equal {pairs[1][0] == pairs[1][1]}",
+              flush=True)
+        if not all(a == b for a, b in pairs):
+            raise AssertionError(f"phase 7: strict picks of scan {j} != "
+                                 "the oracle's")
+
+    # ---- (b) deskewed points of scan 0 against the oracle (rotation) ----
+    dsk0 = inputs[0][1]
+    n_imu = int(dsk0.imu_count[0]) + 1
+    cloud = project_scan(params, raw_of(scans[0][0], dev, batch=True),
+                         DeskewInfo(*(a.to(dev) for a in dsk0._replace(
+                             odom_deskew_flag=torch.zeros(1, dtype=bool)))))
+    s0 = scans[0][0]
+    ref = oracle.project_scan(
+        s0["xyz"], s0["ring"], s0["time"], s0["valid"],
+        deskew=oracle.find_rotation_factory(
+            dsk0.imu_time[0, :n_imu].numpy(),
+            dsk0.imu_rot[0, :n_imu].numpy()))
+    n = len(ref["point_range"])
+    pts = cloud.points[0, :n].cpu().numpy()
+    d_desk = float(np.abs(pts - ref["points"]).max())
+    moved = float(np.abs(pts - project_scan(params, raw_of(
+        s0, dev, batch=True)).points[0, :n].cpu().numpy()).max())
+    print(f"phase 7 deskew scan 0: {n} points, |diff| vs oracle max "
+          f"{d_desk:.3e} m (the deskew moved points by up to {moved:.4f} m)",
+          flush=True)
+    if not (int(cloud.num_points[0]) == n and d_desk <= 2e-5):
+        raise AssertionError(f"phase 7: deskew vs oracle {d_desk}")
+
+    # ---- timings: the step split with CUDA events, tables, fetches ----
+    he, rhe = params.local_map_half_extent, params.register_grid_half_extent
+    split = np.zeros(4)
+    n_split = 5
+    for j in range(3, 3 + n_split):
+        t, dsk_cpu = inputs[j]
+        raw = raw_of(scans[j][0], dev, batch=True)
+        dsk = DeskewInfo(*(a.to(dev) for a in dsk_cpu))
+        guess = torch.from_numpy(ests[j - 1][None]).to(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        _, feats = process_scan(params, raw, dsk)
+        ev[1].record()
+        lmap = _crop_local_map(gm.corner_xyz, gm.corner_mask, gm.surf_xyz,
+                               gm.surf_mask, guess[0, 3:6], half_extent=he,
+                               map_corner_cap=params.map_corner_cap,
+                               map_surf_cap=params.map_surf_cap)
+        ev[2].record()
+        build_map_planar_tables(lmap, guess[0, 3:6], rhe, resident=True)
+        ev[3].record()
+        grid_register_step(lmap, feats, guess, half_extent=rhe)
+        ev[4].record()
+        torch.cuda.synchronize()
+        e = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+        split += [e[0], e[1], e[2], e[3] - e[2]]
+    split /= n_split
+    print(f"time phase 7 step: {np.mean(wall[1:]) * 1e3:.2f} ms wall "
+          f"(steps 1-{N_LOC - 1}; min {np.min(wall) * 1e3:.2f}, max "
+          f"{np.max(wall) * 1e3:.2f}); split over {n_split} steps (CUDA "
+          f"events): frontend (strict + deskew) {split[0]:.2f} ms, crop "
+          f"{split[1]:.2f} ms, tables {split[2]:.2f} ms, solve {split[3]:.2f}"
+          f" ms", flush=True)
+    print(f"phase 7 host syncs in picking per step: mean "
+          f"{np.mean(syncs):.1f} min {min(syncs)} max {max(syncs)}",
+          flush=True)
+    # one more step, profiled: how much of it the device is busy
+    t, dsk_cpu = inputs[-1]
+    pipe.time_last_processing = -1.0
+    wall_p, busy, top = profile_call(lambda: pipe.step(
+        raw_of(scans[N_LOC - 1][0], dev), t,
+        DeskewInfo(*(a.to(dev) for a in dsk_cpu))))
+    print(f"profile phase 7 step (torch.profiler): wall {wall_p:.2f} ms, "
+          f"device busy {busy:.2f} ms ({busy / wall_p:.1%}), {len(top)} "
+          f"kernel names; by device time: " + "; ".join(
+              f"{name[:60]} {ms:.3f}" for name, ms in top[:8]), flush=True)
+
+    # the tables of step 0's local map, and the fetch at its queries
+    guess = torch.from_numpy(scans[0][1][None]).to(dev)
+    lmap = _crop_local_map(gm.corner_xyz, gm.corner_mask, gm.surf_xyz,
+                           gm.surf_mask, guess[0, 3:6], half_extent=he,
+                           map_corner_cap=params.map_corner_cap,
+                           map_surf_cap=params.map_surf_cap)
+    ctab, stab, origin, dims = build_map_planar_tables(
+        lmap, guess[0, 3:6], rhe, resident=True)
+    n_cells = dims[0] * dims[1] * dims[2]
+    _, feats = process_scan(params, raw_of(scans[0][0], dev, batch=True),
+                            DeskewInfo(*(a.to(dev) for a in inputs[0][1])))
+    fetch_t = {}
+    for name, tab, cap, xyz in (("corner", ctab, 16, feats.corner_xyz),
+                                ("surf", stab, 64, feats.surf_xyz)):
+        kind, rows, W, nbytes = table_info(tab)
+        print(f"phase 7 table {name}: {kind}, {rows} rows of W {W} "
+              f"({nbytes} B; the raw planar table {(n_cells + 1) * 12 * W} "
+              f"B, the sentinel table {(n_cells + 1) * 12 * cap} B; dims "
+              f"{dims}); fits the {tfetch.RESIDENT_TABLE_CAP} B resident cap"
+              f" {kind == 'resident'}", flush=True)
+        qx, qy, qz = (c.reshape(-1).contiguous()
+                      for c in world_components(guess, xyz))
+        bcell = tfetch.block_cell_of_xyz(qx, qy, qz, origin, 2.0, dims=dims)
+        if kind == "resident":
+            fn, plain = tfetch.resident_fetch, tfetch.resident_fetch_reference
+            table, bc = tab.table, tab.rows_index[bcell.long()]
+        else:
+            fn, plain, table, bc = (tfetch.block_fetch,
+                                    tfetch.block_fetch_reference, tab, bcell)
+        ms = cuda_ms(lambda: fn(table, bc, qx, qy, qz, K=LOC_K), 20)
+        plain_ms = cuda_ms(lambda: plain(table, bc, qx, qy, qz, K=LOC_K), 2)
+        b_ms, b_by = fetch_bound(table, bc, LOC_K)
+        fetch_t[name] = (fn.__name__, ms, plain_ms, b_ms, b_by)
+        print(f"time phase 7 fetch {name} ({fn.__name__}, Q {bc.shape[0]}, "
+              f"W {W}, K {LOC_K}, {-(-bc.shape[0] // kernels.FETCH_TILE)} "
+              f"tiles): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); {fetch_smem(W, LOC_K)} B of shared "
+              f"memory a block", flush=True)
+    # registers and spills of the K=16 fetch instances these widths and
+    # W=512 run (the row width picks the instance: slots a lane holds)
+    used = {f"fetch_tile_kernel<{LOC_K},{-(-min(w, 512) // 128) * 4}>"
+            for w in {c["W"] for c in calls} | {512}}
+    for log in sorted(glob.glob(os.path.join(kernels.BUILD_DIR,
+                                             "libfbpr_*fetch*.log"))):
+        print_ptxas("phase 7 " + os.path.basename(log).split("-")[0][
+            len("libfbpr_"):], log, only=used)
+    print(f"phase 7 fetch shared memory at W 512, K {LOC_K}: "
+          f"{fetch_smem(512, LOC_K)} B a block", flush=True)
+    return launches, fetch_t, fetch_err
+
+
 def main():
     import torch
 
@@ -398,6 +849,7 @@ def main():
                     help="another gn_round.cu to time beside the shipped one")
     args = ap.parse_args()
     dev = require_cuda()
+    sys.path.insert(0, os.path.join(REPO, "tests"))    # oracle.py
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -416,7 +868,8 @@ def main():
     variants = gn_variants(args.gn_ab)
 
     # ---- setup: bench.py's scans, guesses and map, from seeds ----
-    params = Params(map_corner_cap=16384, map_surf_cap=65536)
+    params = Params(map_corner_cap=16384, map_surf_cap=65536,
+                    strict_feature_pick=False)
     world = SyntheticWorld()
     rng = np.random.RandomState(0)
     raws, gt = [], []
@@ -444,7 +897,8 @@ def main():
 
     def frontend(r):
         return downsample_features(
-            params, extract_features(params, project_scan(params, r)))
+            params, extract_features(params, project_scan(params, r),
+                                     strict=False))
 
     def tables(resident=False):
         return build_map_planar_tables(fmap, center, half,
@@ -586,7 +1040,6 @@ def main():
         raise AssertionError("non-finite or misshapen poses")
     err_t = np.linalg.norm(pose[:, 3:] - gt[:, 3:], axis=1)
     ate_gt = float(np.sqrt((err_t ** 2).mean()))
-    sys.path.insert(0, os.path.join(REPO, "tests"))
     import oracle
     fe = [a.cpu().numpy() for a in feats3]
     mc, ms = mcx[mcm], msx[msm]
@@ -767,6 +1220,18 @@ def main():
                  lambda xyz, m: fetch_queries(stat[:, :6], xyz, m, stab,
                                               origin, 2.0, dims))
 
+    loc_launches, loc_fetch, loc_err = localization_phase(dev)
+    loc = {}
+    for kind, (name, ms, plain_ms, b_ms, b_by) in loc_fetch.items():
+        loc.setdefault(name, {})[kind] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+    def localization(name):
+        return {"launches_localization": loc_launches[name],
+                "max_abs_err_localization": loc_err.get(name),
+                "localization": loc.get(name)}
+
     def entry(name, source, replaces, launches_, err, timed, **extra):
         return {"name": name, "route": "cuda",
                 "source": "feature_base_pointcloud_registration_tpu_torch/"
@@ -779,16 +1244,18 @@ def main():
     print(json.dumps({"kernels": [
         entry("block_fetch", "block_fetch.cu",
               tpu_kernel_line("pallas_fetch.py", "_fetch_kernel"),
-              launches["block_fetch"], fetch_err, "fetch_surf"),
+              launches["block_fetch"], fetch_err, "fetch_surf",
+              **localization("block_fetch")),
         entry("gn_round", "gn_round.cu",
               tpu_kernel_line("pallas_gn.py", "_gn_round_kernel"),
               launches["gn_round"], gn_err, "gn_round",
               ms_round0=kt["gn_round0"][0],
               bound_ms_round0=bounds["gn_round0"][0],
-              launches_per_round=per_round),
+              launches_per_round=per_round, **localization("gn_round")),
         entry("resident_fetch", "resident_fetch.cu",
               tpu_kernel_line("pallas_fetch.py", "_resident_kernel"),
-              launches5["resident_fetch"], res_err, "resident_surf"),
+              launches5["resident_fetch"], res_err, "resident_surf",
+              **localization("resident_fetch")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,15 @@ mirror the JAX package's so each counterpart is easy to find.
 
 Ported so far: the batched scan-to-map main path (projection, fast feature
 picking, feature downsampling, hash-grid map tables raw or row-compacted,
-and the fused solve `parallel.batch.batch_register_fused`), and the
+and the fused solve `parallel.batch.batch_register_fused`), the
 rounds-structured solver (`ops.register.register_rounds_core`) behind
-`batch_register_pallas` and `batch_register_blocks`.  The three TPU kernels
-are hand-written CUDA in `csrc/` (see `kernels.py`).  Functions take a
-leading batch dimension where the JAX package vmaps over scans.
+`batch_register_pallas` and `batch_register_blocks`, and the single-scan
+localization pipeline (`pipeline.localization.LocalizationPipeline`:
+strict picking, IMU deskew, the crop box, `ops.register.grid_register_step`
+on the fetch kernels, the IMU attitude fusion; `pipeline.scan_buffer`,
+`imu.conversion`, `io.pcd`, `utils.log`).  The three TPU kernels are
+hand-written CUDA in `csrc/` (see `kernels.py`).  Functions take a leading
+batch dimension where the JAX package vmaps over scans.
 """
 
 from . import device  # noqa: F401  (sets the TF32 guards)

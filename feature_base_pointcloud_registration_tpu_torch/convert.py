@@ -4,7 +4,9 @@
 (`RawScan`, `ScanFeatures`, `FeatureMap`, `RegisterResult`, `GNState`, ...)
 after `jax.tree.map(np.asarray, ...)` — into the port's NamedTuples of
 tensors, matched by class name.  `to_numpy` goes the other way.
-`planar_table_to_torch` carries a planar block table or a `PlanarTable`.
+`planar_table_to_torch` carries a planar block table or a `PlanarTable`,
+`deskew_info_to_torch` a `DeskewInfo` and `global_map_to_torch` a
+`GlobalMap`.
 Here the map and the tables built from it stand where a model's weights
 would: the tests use these functions to give both packages identical state.
 No function imports JAX, and none picks a device: the caller names it.
@@ -19,7 +21,9 @@ from .config import Params
 from .ops.fetch import PlanarTable
 from .ops.register import RegisterResult
 from .ops.solver import GNState
-from .pipeline.cloud_info import CloudInfo, FeatureMap, RawScan, ScanFeatures
+from .pipeline.cloud_info import (CloudInfo, DeskewInfo, FeatureMap, RawScan,
+                                  ScanFeatures)
+from .pipeline.localization import GlobalMap
 
 _TUPLES = {cls.__name__: cls for cls in
            (RawScan, CloudInfo, ScanFeatures, FeatureMap, RegisterResult,
@@ -65,6 +69,25 @@ def planar_table_to_torch(table, *, device):
     table = np.asarray(table, np.float32)
     return torch.from_numpy(table.reshape(table.shape[0], -1).copy()).to(
         device)
+
+
+def deskew_info_to_torch(info, *, device) -> DeskewInfo:
+    """Either package's `DeskewInfo` of numpy arrays, one scan's ([Q]
+    tables) or a batch's ([B, Q]), -> the port's batched DeskewInfo on
+    `device`."""
+    arrays = [np.asarray(getattr(info, f)) for f in DeskewInfo._fields]
+    if arrays[0].ndim == 1:
+        arrays = [a[None] for a in arrays]
+    return DeskewInfo(*(torch.from_numpy(np.array(a)).to(device)
+                        for a in arrays))
+
+
+def global_map_to_torch(global_map, *, device) -> GlobalMap:
+    """A `GlobalMap` (its four arrays as numpy, or anything numpy reads)
+    -> the port's GlobalMap on `device`, as it is (no downsampling)."""
+    return GlobalMap(*(torch.from_numpy(np.array(getattr(global_map, f)))
+                       .to(device) for f in ("corner_xyz", "corner_mask",
+                                             "surf_xyz", "surf_mask")))
 
 
 def params_from_dict(d: dict) -> Params:

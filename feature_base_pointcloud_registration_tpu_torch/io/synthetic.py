@@ -232,3 +232,65 @@ def build_feature_map(world: SyntheticWorld, corner_cap: int, surf_cap: int,
     sx, sm = pad(s, surf_cap)
     return cx, cm, sx, sm
 
+
+def _rot_to_quat_np(R):
+    """(x,y,z,w) from a proper rotation matrix."""
+    w = np.sqrt(max(1.0 + R[0, 0] + R[1, 1] + R[2, 2], 1e-12)) / 2.0
+    return np.array([(R[2, 1] - R[1, 2]) / (4 * w),
+                     (R[0, 2] - R[2, 0]) / (4 * w),
+                     (R[1, 0] - R[0, 1]) / (4 * w), w])
+
+
+def _quat_mul_np(a, b):
+    ax, ay, az, aw = a
+    bx, by, bz, bw = b
+    return np.array([aw * bx + ax * bw + ay * bz - az * by,
+                     aw * by - ax * bz + ay * bw + az * bx,
+                     aw * bz + ax * by - ay * bx + az * bw,
+                     aw * bw - ax * bx - ay * by - az * bz])
+
+
+def constant_twist_platform(duration, imu_hz=100.0, ext_rot=None,
+                            ext_rpy=None, gravity=9.80511,
+                            w_body=(0.0, 0.0, 0.15), v_body=(1.2, 0.0, 0.0)):
+    """Constant-twist ground-truth platform + synthetic RAW IMU stream.
+
+    Returns (imu_samples, states):
+      imu_samples: list of (t, acc_imu, gyr_imu, quat_imu) in the IMU SENSOR
+        frame — i.e. pre-imuConverter raw input.  When ext_rot/ext_rpy are
+        given (row-major 9-tuples, the reference's extrinsicRot/extrinsicRPY,
+        ref: config/params.yaml:37-42), the lidar-frame truth is rotated
+        back into the sensor frame so that imu_converter must be applied to
+        recover it; identity extrinsics otherwise.
+      states: list of (t, R_lidar, p_lidar) ground-truth lidar poses.
+    """
+    Re = (np.asarray(ext_rot, float).reshape(3, 3) if ext_rot is not None
+          else np.eye(3))
+    Rq = (np.asarray(ext_rpy, float).reshape(3, 3) if ext_rpy is not None
+          else np.eye(3))
+    q_ext_inv = _rot_to_quat_np(Rq.T)
+
+    dt = 1.0 / imu_hz
+    n = int(duration * imu_hz)
+    w_b = np.asarray(w_body, float)
+    v_b0 = np.asarray(v_body, float)
+    R, p = np.eye(3), np.zeros(3)
+    states, imu = [], []
+    for i in range(n):
+        t = i * dt
+        v_world = R @ v_b0
+        a_world = R @ np.cross(w_b, v_b0)
+        acc_lidar = R.T @ (a_world - np.array([0, 0, -gravity]))
+        quat_lidar = _rot_to_quat_np(R)
+        # sensor-frame raw sample: undo the extrinsics the converter applies
+        imu.append((t, Re.T @ acc_lidar, Re.T @ w_b,
+                    _quat_mul_np(q_ext_inv, quat_lidar)))
+        states.append((t, R.copy(), p.copy()))
+        p = p + v_world * dt + 0.5 * a_world * dt * dt
+        th = np.linalg.norm(w_b) * dt
+        if th > 0:
+            k = w_b / np.linalg.norm(w_b)
+            K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                          [-k[1], k[0], 0]])
+            R = R @ (np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K)
+    return imu, states

@@ -1,20 +1,27 @@
 """LOAM edge/planar feature extraction, batched over scans and rings.
 
-Port of the JAX package's `ops/features.py` with FAST picking only (strict
-picking comes in a later slice).  Rebuild of FeatureExtraction (ref:
-src/featureExtraction.h):
+Port of the JAX package's `ops/features.py`.  Rebuild of FeatureExtraction
+(ref: src/featureExtraction.h):
 
   * curvature (calculateSmoothness, ref :109-131): an 11-tap shifted sum over
     the flat compacted range array, adds in the reference's order;
   * occlusion / parallel-beam masking (markOccludedPoints, ref :134-176):
     shifted comparisons + mask dilation;
-  * picking (extractFeatures, ref :178-294): the greedy descending-curvature
-    pass with +-5 path-clear suppression is a greedy maximal independent set,
-    computed as rounds of "pick every alive candidate that beats all alive
-    conflicting neighbours, suppress their neighbours".  Fast mode runs one
-    corner-only MIS with conflicts restricted to the same sector, then keeps
-    the first 20 picks per sector (ref :221);
+  * picking (extractFeatures, ref :178-294): each greedy pass with +-5
+    path-clear suppression is a greedy maximal independent set, computed as
+    rounds of "pick every alive candidate that beats all alive conflicting
+    neighbours, suppress their neighbours".  Strict mode reproduces the
+    reference's serialized stream bit for bit: 6 sequential sector stages
+    of a corner pass (descending, first 20, ref :221) and a surf pass
+    (ascending, with a stride-6 fast-forward), marks carried across passes
+    and sectors.  Fast mode runs one corner-only pass with conflicts
+    restricted to the same sector, then keeps the first 20 picks a sector;
   * per-ring surface voxel thinning (ref :288-292).
+
+Ring lanes share no state, which is exact in strict mode too: the
+reference's only cross-ring write (a pick at a ring's first sector slot
+marking the previous ring's last point, ref :236) lands outside every
+pickable range (the JAX package's module docstring has the argument).
 
 Where the JAX package vmaps `_ring_pick` over 16 ring lanes per scan, the port
 runs every ring of the batch as one [B, n_scan, W] tensor, so each MIS round
@@ -123,19 +130,20 @@ def _ring_windows(cloud: CloudInfo, n_scan: int, horizon_scan: int):
     )
 
 
-def _fast_pick(win, edge_threshold):
-    """Fast greedy corner picking on every ring window at once.
+def _pick_setup(win):
+    """Loop-invariant tensors of the picking passes on ring windows [..., W]:
+    (w_idx, key, sec, conf, bcum).
 
-    Returns (corner label [..., W] bool, sector span [..., W] bool).  The
-    suppression path check: a pick at k suppresses i iff |i - k| <= 5 and no
-    column gap > 10 lies between them, i.e. equal gap-break prefix counts
-    (ref :227-240).  The examine-position-ep-first quirk (std::sort's range
-    excludes ep, ref :203 vs :208) is a +inf key."""
+    key: curvature, +inf at each sector's last slot `ep` (std::sort's range
+    excludes ep while the pick loops include it, ref :203 vs :208: ep is
+    examined first in the descending corner pass and last in the ascending
+    surf pass).  sec: the sector of each slot, -1 outside every sector.
+    conf[s]: the neighbour at i-s conflicts with i: |s| <= 5 without index
+    wrap and no column gap > 10 between them, i.e. equal gap-break prefix
+    counts bcum (the path check of ref :227-240)."""
     curv, col = win["curv"], win["col"]
     W = curv.shape[-1]
-    dev = curv.device
-    w_idx = torch.arange(W, device=dev)
-
+    w_idx = torch.arange(W, device=curv.device)
     gap_break = torch.abs(col - torch.roll(col, 1, dims=-1)) > 10
     bcum = torch.cumsum(gap_break.to(torch.int32), dim=-1)
 
@@ -148,61 +156,167 @@ def _fast_pick(win, edge_threshold):
         sec = torch.where(span, j, sec)
         is_ep = is_ep | (ok_j & (w_idx == win["ep"][..., j:j + 1]))
     key = torch.where(is_ep, float("inf"), curv)
+    conf = {s: ((torch.roll(bcum, s, dims=-1) == bcum)
+                & (torch.abs(torch.roll(w_idx, s) - w_idx) <= 5))
+            for s in _SHIFTS}
+    return w_idx, key, sec, conf, bcum
 
-    # per shift s: neighbour at i-s conflicts with i (path clear, same
-    # sector, no index wrap), and "beats" i in descending (key, pos) order
-    # (larger pos wins ties: the reversed stable sort of the reference)
-    beats_me, adj = {}, {}
-    for s in _SHIFTS:
-        c = ((torch.roll(bcum, s, dims=-1) == bcum)
-             & (torch.abs(torch.roll(w_idx, s) - w_idx) <= 5)
-             & (torch.roll(sec, s, dims=-1) == sec))
+
+def _beats(key, w_idx, conf, descending):
+    """Per shift s: the conflicting neighbour at i-s comes before i in the
+    pass's order: descending (key, pos) for corners (larger pos wins ties,
+    the reversed stable sort of the reference), ascending (key, pos) for
+    surfaces (smaller pos wins ties)."""
+    out = {}
+    for s, c in conf.items():
         k_s = torch.roll(key, s, dims=-1)
         i_s = torch.roll(w_idx, s)
-        adj[s] = c
-        beats_me[s] = c & ((k_s > key) | ((k_s == key) & (i_s > w_idx)))
+        if descending:
+            b = (k_s > key) | ((k_s == key) & (i_s > w_idx))
+        else:
+            b = (k_s < key) | ((k_s == key) & (i_s < w_idx))
+        out[s] = c & b
+    return out
 
-    alive = (sec >= 0) & ~win["picked"] & (curv > edge_threshold)
+
+def _dilate(p, adj):
+    """Positions suppressed by picks p (the picks included)."""
+    out = p.clone()
+    for s, a in adj.items():
+        out |= torch.roll(p, s, dims=-1) & a
+    return out
+
+
+def _mis(alive, beats_me, adj, bcum=None):
+    """The exact greedy pick set of every ring window at once, as rounds of
+    "pick every alive candidate that no alive conflicting neighbour beats,
+    suppress their neighbours" (a greedy maximal independent set on the +-5
+    conflict graph; for totally ordered keys it equals the serial greedy).
+    One host sync (`any()`) a round for the whole batch.
+
+    bcum given: the stride-6 chain fast-forward.  Plain rounds advance ~1
+    pick a round along a chain of dependencies (flat rings: equal-key runs
+    hundreds long).  A pick at i-6 suppresses all of i-5..i-1, so i is
+    serially picked when the window [i-6, i] is path-clear (one bcum
+    equality), i is alive, and no alive conflicting neighbour on i's far
+    side beats it; that relation is a stride-6 reachability along the ring,
+    closed in log2(W/6) doubling steps, forward (a pick on the left resolves
+    rightward) and backward."""
+    W = alive.shape[-1]
+    w_idx = torch.arange(W, device=alive.device)
+    if bcum is not None:
+        hop_f = ((torch.roll(bcum, 6, dims=-1) == bcum)
+                 & (torch.roll(w_idx, 6) == w_idx - 6))
+        hop_b = ((torch.roll(bcum, -6, dims=-1) == bcum)
+                 & (torch.roll(w_idx, -6) == w_idx + 6))
+        n_dbl = max(1, (W // 6).bit_length())
+    alive = alive.clone()
     pick = torch.zeros_like(alive)
     for _ in range(W):   # every round picks >= 1 point of each live ring
+        extract_features.host_syncs += 1
         if not bool(alive.any()):
             break
-        ext = alive.clone()
-        for s in _SHIFTS:
-            ext &= ~(torch.roll(alive, s, dims=-1) & beats_me[s])
+        # ext_r: no alive beater on the right (neighbour j > i <=> s < 0)
+        ext_r, ext_l = alive.clone(), alive.clone()
+        for s, b in beats_me.items():
+            clear = ~(torch.roll(alive, s, dims=-1) & b)
+            if s < 0:
+                ext_r &= clear
+            else:
+                ext_l &= clear
+        ext = ext_r & ext_l
+        if bcum is not None:
+            rf, rb = ext, ext
+            pf, pb = ext_r & hop_f, ext_l & hop_b
+            d = 6
+            for _ in range(n_dbl):
+                rf = rf | (torch.roll(rf, d, dims=-1) & pf)
+                rb = rb | (torch.roll(rb, -d, dims=-1) & pb)
+                pf = pf & torch.roll(pf, d, dims=-1)
+                pb = pb & torch.roll(pb, -d, dims=-1)
+                d *= 2
+            ext = rf | rb
         pick |= ext
-        supp = ext.clone()
-        for s in _SHIFTS:
-            supp |= torch.roll(ext, s, dims=-1) & adj[s]
-        alive &= ~supp
+        alive &= ~_dilate(ext, adj)
+    return pick
 
-    # per-sector cap: the first 20 picks in descending (key, pos) order
-    # (ref :221).  Order by pos descending, then stable by key descending.
-    rev = torch.flip(w_idx, [0])
-    _, order = torch.sort(key[..., rev], dim=-1, descending=True,
-                          stable=True)
-    order = rev[order]
+
+def _first20(pick, order):
+    """The first 20 picks in `order` (descending (key, pos)): the per-sector
+    cap, where the 21st qualifying candidate ends the corner phase
+    (ref :221), so the capped picks are the first 20 of the uncapped
+    greedy.  pick must lie within one sector."""
     pick_o = torch.gather(pick, -1, order)
-    sec_o = torch.gather(sec, -1, order)
-    kept_o = torch.zeros_like(pick_o)
-    for j in range(6):
-        in_j = pick_o & (sec_o == j)
-        kept_o |= in_j & (torch.cumsum(in_j.to(torch.int32), -1) <= 20)
-    kept = torch.zeros_like(kept_o).scatter_(-1, order, kept_o)
-    return kept, sec >= 0
+    kept_o = pick_o & (torch.cumsum(pick_o.to(torch.int32), -1) <= 20)
+    return torch.zeros_like(kept_o).scatter_(-1, order, kept_o)
 
 
-def extract_features(params: Params, cloud: CloudInfo) -> ScanFeatures:
-    """Feature extraction with fast picking (laserCloudInfoHandler body,
-    ref: src/featureExtraction.h:88-103), for a batch of clouds."""
+def _pick(win, edge_threshold, surf_threshold, strict, stride=True):
+    """Greedy feature picking on every ring window at once: (label [..., W]
+    int8: 1 corner, -1 surface pick, 0 neither; sector span [..., W]).
+
+    strict (the reference's serialized stream, bit for bit): 6 sequential
+    sector stages, each a corner pass (descending, capped at 20) then a
+    surf pass (ascending), with the suppression marks carried across the
+    passes and the sectors.  stride: the surf pass's chain fast-forward
+    (`_mis`); off gives the same picks in more rounds.  fast: one corner
+    pass over all sectors at once with conflicts inside a sector only, then
+    the first 20 picks of each sector; it loses the cross-sector suppression
+    spill (<= 5 points a seam) and the surf pass's marks."""
+    curv = win["curv"]
+    w_idx, key, sec, conf, bcum = _pick_setup(win)
+    # descending (key, pos): a stable sort by key of the reversed positions
+    rev = torch.flip(w_idx, [0])
+    order = rev[torch.sort(key[..., rev], dim=-1, descending=True,
+                           stable=True)[1]]
+    label = torch.zeros(curv.shape, dtype=torch.int8, device=curv.device)
+    if strict:
+        beats_c = _beats(key, w_idx, conf, descending=True)
+        beats_s = _beats(key, w_idx, conf, descending=False)
+        marks = win["picked"].clone()
+        for j in range(6):
+            in_sec = sec == j
+            pick_c = _first20(_mis(in_sec & ~marks & (curv > edge_threshold),
+                                   beats_c, conf), order)
+            marks |= _dilate(pick_c, conf)
+            pick_s = _mis(in_sec & ~marks & (curv < surf_threshold),
+                          beats_s, conf, bcum if stride else None)
+            marks |= _dilate(pick_s, conf)
+            label.masked_fill_(pick_c, 1)
+            label.masked_fill_(pick_s, -1)
+    else:
+        same = {s: c & (torch.roll(sec, s, dims=-1) == sec)
+                for s, c in conf.items()}
+        pick = _mis((sec >= 0) & ~win["picked"] & (curv > edge_threshold),
+                    _beats(key, w_idx, same, descending=True), same)
+        for j in range(6):
+            label.masked_fill_(_first20(pick & (sec == j), order), 1)
+    return label, sec >= 0
+
+
+def window_labels(params: Params, cloud: CloudInfo, strict: bool = True):
+    """Ring windows and their picks: (win, label [B, n_scan, W] int8,
+    surf_span [B, n_scan, W], ring_first [B, n_scan]).  Window slot w of
+    ring r is flat index ring_first[r] - 8 + w of the compacted cloud."""
+    win = _ring_windows(cloud, params.n_scan, params.horizon_scan)
+    label, surf_span = _pick(win, params.edge_threshold,
+                             params.surf_threshold, strict)
+    return win, label, surf_span, cloud.start_ring_index + 1 - 5
+
+
+def extract_features(params: Params, cloud: CloudInfo,
+                     strict: bool = True) -> ScanFeatures:
+    """Feature extraction (laserCloudInfoHandler body, ref:
+    src/featureExtraction.h:88-103) for a batch of clouds; strict=False
+    picks fast (see `_pick`).  Each MIS round is one host sync, counted in
+    `extract_features.host_syncs`."""
     n_scan = params.n_scan
-    win = _ring_windows(cloud, n_scan, params.horizon_scan)
-    label, surf_span = _fast_pick(win, params.edge_threshold)
+    win, label, surf_span, _ = window_labels(params, cloud, strict)
     B = label.shape[0]
 
     # corner set: picked & valid, compacted per ring (stable: valid first)
     ring_corner_cap = params.corner_cap // n_scan
-    corner_m = label & win["pvalid"]
+    corner_m = (label == 1) & win["pvalid"]
     _, order = torch.sort((~corner_m).to(torch.uint8), dim=-1, stable=True)
     order = order[..., :ring_corner_cap]
     cm = torch.gather(corner_m, -1, order)
@@ -211,7 +325,7 @@ def extract_features(params: Params, cloud: CloudInfo) -> ScanFeatures:
 
     # surface set: unpicked within sector spans, per-ring voxel thinning
     ring_surf_cap = params.surf_cap // n_scan
-    surf_m = surf_span & ~label & win["pvalid"]
+    surf_m = surf_span & (label <= 0) & win["pvalid"]
     sxyz, sm, _ = voxel_downsample(win["xyz"], surf_m,
                                    params.odometry_surf_leaf_size,
                                    ring_surf_cap)
@@ -221,3 +335,6 @@ def extract_features(params: Params, cloud: CloudInfo) -> ScanFeatures:
         surf_xyz=sxyz.reshape(B, -1, 3),
         surf_mask=sm.reshape(B, -1),
     )
+
+
+extract_features.host_syncs = 0

@@ -1,13 +1,15 @@
-"""Range-image projection and row-major compaction, batched over scans.
+"""Range-image projection, motion deskew and row-major compaction, batched
+over scans.
 
-Port of the JAX package's `ops/projection.py` without deskew (the reference's
-active path runs with deskew off; it comes in a later slice).  Replaces
-ImageProjection's hot loop (ref: src/imageProjection.cpp:583-670
-projectPointCloud/cloudExtraction): cell assignment is a closed-form
-(ring, atan2 column) map, "first write wins" (ref :623-624) is a stable sort
-by cell (equal cells keep arrival order, so the first of each run is the
-winner), and compaction with ring start/end indices (ref :642-670) is a
-second stable sort that moves winners to the front in row-major order.
+Port of the JAX package's `ops/projection.py`.  Replaces ImageProjection's
+hot loop (ref: src/imageProjection.cpp:583-670 projectPointCloud /
+cloudExtraction and :494-580 findRotation / deskewPoint): cell assignment is
+a closed-form (ring, atan2 column) map; per-point IMU rotation interpolation
+is a searchsorted + lerp over the integrated gyro table; "first write wins"
+(ref :623-624) is a stable sort by cell (equal cells keep arrival order, so
+the first of each run is the winner), and compaction with ring start/end
+indices (ref :642-670) is a second stable sort that moves winners to the
+front in row-major order.
 """
 
 from __future__ import annotations
@@ -17,18 +19,89 @@ import math
 import torch
 
 from ..config import Params
+from ..geom.se3 import euler_to_rot
 from ..pipeline.cloud_info import CloudInfo, DeskewInfo, RawScan
 
 
-def project_scan(params: Params, scan: RawScan) -> CloudInfo:
+def _find_rotation(point_time, imu_time, imu_rot, imu_count):
+    """Integrated gyro rotation at each point's time (findRotation, ref:
+    src/imageProjection.cpp:494-526), batched: point_time [B, N], imu_time
+    [B, Q] (+inf past imu_count), imu_rot [B, Q, 3], imu_count [B].
+
+    front = the first sample with imu_time[front] > t, capped at imu_count;
+    rot[front] itself when t > imu_time[front] (past the table's end) or
+    front == 0, else the lerp between front-1 and front."""
+    q = imu_time.shape[1]
+    front = torch.searchsorted(imu_time.contiguous(), point_time.contiguous(),
+                               right=True)
+    front = torch.minimum(front, imu_count[:, None].long())
+    front_c = torch.clamp(front, max=q - 1)
+    back = torch.clamp(front - 1, min=0)
+    t_front = torch.gather(imu_time, 1, front_c)
+    t_back = torch.gather(imu_time, 1, back)
+    direct = (point_time > t_front) | (front == 0)
+    denom = t_front - t_back
+    ratio = torch.where(denom > 0, (point_time - t_back)
+                        / torch.where(denom == 0, 1.0, denom), 0.0)
+
+    def rot_at(i):
+        return torch.gather(imu_rot, 1, i[..., None].expand(-1, -1, 3))
+
+    rot_front, rot_back = rot_at(front_c), rot_at(back)
+    interp = rot_front * ratio[..., None] + rot_back * (1.0 - ratio)[..., None]
+    return torch.where(direct[..., None], rot_front, interp)
+
+
+def deskew_points(xyz, rel_time, deskew_info: DeskewInfo, first_idx=None,
+                  scan_duration=None):
+    """Motion-compensate points into the scan-start lidar frame, batched
+    (deskewPoint, ref: src/imageProjection.cpp:544-580): each point's
+    rotation from the gyro integral table and, behind `odom_deskew_flag`,
+    a position interpolated along `odom_incre` (the reference stubs position
+    to zero, :528-542), both relative to the transform of point `first_idx`
+    (firstPointFlag, :562-566).
+
+    xyz [B, N, 3]; rel_time [B, N] seconds since scan start; first_idx [B]
+    (default 0); scan_duration [B] or None (no positional term)."""
+    B = xyz.shape[0]
+    rot = _find_rotation(rel_time, deskew_info.imu_time, deskew_info.imu_rot,
+                         deskew_info.imu_count)
+    if scan_duration is not None:
+        ratio = rel_time / torch.clamp(scan_duration, min=1e-9)[:, None]
+        pos = torch.where(deskew_info.odom_deskew_flag[:, None, None],
+                          ratio[..., None] * deskew_info.odom_incre[:, None],
+                          0.0)
+    else:
+        pos = torch.zeros_like(xyz)
+    R = euler_to_rot(rot[..., 0], rot[..., 1], rot[..., 2])   # [B, N, 3, 3]
+    if first_idx is None:
+        first_idx = torch.zeros(B, dtype=torch.long, device=xyz.device)
+    lanes = torch.arange(B, device=xyz.device)
+    R0 = R[lanes, first_idx]                                   # [B, 3, 3]
+    p0 = pos[lanes, first_idx]                                 # [B, 3]
+    # transBt = inv(T0) @ Ti (ref :564,571): R0^T Ri x + R0^T (pi - p0)
+    R0t = R0.transpose(-1, -2)[:, None]
+    Rbt = R0t @ R
+    tbt = (R0t @ (pos - p0[:, None])[..., None])[..., 0]
+    return (Rbt @ xyz[..., None])[..., 0] + tbt
+
+
+def project_scan(params: Params, scan: RawScan,
+                 deskew_info: DeskewInfo | None = None,
+                 enable_deskew: bool = True) -> CloudInfo:
     """Project a batch of raw scans [B, N] to the (ring, column) grid and
-    compact them (the JAX package's `project_scan(params, scan, None)`: no
-    deskew, empty IMU/odometry fields)."""
+    compact them (projectPointCloud + cloudExtraction, ref:
+    src/imageProjection.cpp:583-670).  With `deskew_info` ([B] fields) and
+    `enable_deskew`, each lane with IMU info has its points deskewed
+    relative to its first surviving point (ref :635, :544-580); without
+    it, the IMU/odometry fields are empty."""
     n_scan, horizon_scan = params.n_scan, params.horizon_scan
     B, N = scan.valid.shape
     G = n_scan * horizon_scan
     dev = scan.xyz.device
-    deskew_info = DeskewInfo.empty(B, device=dev)
+    if deskew_info is None:
+        deskew_info = DeskewInfo.empty(B, params.imu_queue_len, device=dev)
+        enable_deskew = False
 
     x, y, z = scan.xyz.unbind(-1)
     # correctly rounded float32 sqrt on every device: PyTorch's vectorized
@@ -54,10 +127,21 @@ def project_scan(params: Params, scan: RawScan) -> CloudInfo:
     cell = torch.where(gate, row * horizon_scan + col,
                        torch.full_like(row, G))
 
+    pts = scan.xyz
+    if enable_deskew:
+        # relative to the first surviving point (firstPointFlag, ref
+        # :562-566); the scan duration scales the positional term (ref :531)
+        first_idx = torch.argmax(gate.to(torch.uint8), dim=1)
+        do = deskew_info.imu_available & gate.any(1)
+        duration = torch.where(gate, scan.time, 0.0).amax(1)
+        desk = deskew_points(scan.xyz, scan.time, deskew_info,
+                             first_idx=first_idx, scan_duration=duration)
+        pts = torch.where(do[:, None, None], desk, scan.xyz)
+
     # sort 1 (by cell, stable): the first of each run is the first-write
     # winner, and runs are in ascending-cell = row-major order
     cell_s, perm = torch.sort(cell, dim=1, stable=True)
-    pay = torch.cat([scan.xyz, rng[..., None], scan.intensity[..., None]],
+    pay = torch.cat([pts, rng[..., None], scan.intensity[..., None]],
                     dim=-1)
     pay = torch.gather(pay, 1, perm[..., None].expand(-1, -1, 5))
     first_in_run = torch.ones_like(gate)

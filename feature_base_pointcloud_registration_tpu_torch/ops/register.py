@@ -1,9 +1,11 @@
-"""Scan-to-map registration: the result type and the rounds-structured solve.
+"""Scan-to-map registration: the result type, the rounds-structured solve,
+the localization step's grid registration and the IMU fusion epilogue.
 
 Port of the JAX package's `ops/register.py` (`RegisterResult`,
-`register_rounds_core`).  The fused solve of the main path lives in
-`parallel/batch.py`; this solver is the body of `batch_register_blocks` and
-`batch_register_pallas` there.
+`register_rounds_core`, `grid_register_step`, `transform_update`).  The
+fused solve of the batched main path lives in `parallel/batch.py`; the
+rounds solver is the body of `batch_register_blocks` and
+`batch_register_pallas` there, and of `grid_register_step` here.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..geom.se3 import euler_to_rot
+from ..geom.se3 import (euler_from_quat, euler_to_rot, quat_from_euler,
+                        quat_slerp)
 from .correspondence import (corner_correspondence_cand,
                              surf_correspondence_cand)
 from .solver import GNState, gn_step
@@ -132,3 +135,70 @@ def register_rounds_core(
         is_degenerate=state.is_degenerate,
         valid=gate,
     )
+
+
+def grid_register_step(local_map, features, pose6, *, half_extent,
+                       cell_size: float = 2.0, corner_cell_cap: int = 16,
+                       surf_cell_cap: int = 64, max_iterations: int = 30,
+                       min_correspondences: int = 50,
+                       edge_min_valid: int = 10, surf_min_valid: int = 100,
+                       min_plane_spread: float = 0.0) -> RegisterResult:
+    """Grid tables around the pose + the rounds-structured solve: the
+    single-scan registration step of the localization pipeline.
+
+    local_map: FeatureMap [M] in the world frame; features: ScanFeatures of
+    one scan [1, ...]; pose6 [1, 6].  The tables span pose +- half_extent
+    (plus a 2 m margin) in cells of `cell_size`, built by
+    `build_map_planar_tables(resident=True)`: a table whose compact form
+    fits the resident cap runs `resident_fetch`, a larger one
+    `block_fetch` (CUDA kernels on CUDA tensors).  Then
+    ceil(max_iterations / 10) rounds of (K=16 candidate fetch, up to 10 GN
+    iterations).  The JAX step gathers the same 2x2x2 cells in the same
+    order from its octant-sentinel tables and keeps the same K smallest
+    d2, so the candidate sets agree up to exact d2 ties."""
+    # parallel.batch imports this module
+    from ..parallel.batch import build_map_planar_tables
+    from .fetch import make_pallas_block_knn
+
+    ctab, stab, origin, dims = build_map_planar_tables(
+        local_map, pose6[0, 3:6], half_extent, cell_size, corner_cell_cap,
+        surf_cell_cap, resident=True)
+    iters_per_round = 10
+    knn = [make_pallas_block_knn(t, origin, cell_size, dims=dims,
+                                 cell_cap=cap, k=16)
+           for t, cap in ((ctab, corner_cell_cap), (stab, surf_cell_cap))]
+    return register_rounds_core(
+        features, knn[0], knn[1], pose6,
+        num_rounds=max(1, -(-max_iterations // iters_per_round)),
+        iters_per_round=iters_per_round,
+        min_correspondences=min_correspondences,
+        edge_min_valid=edge_min_valid, surf_min_valid=surf_min_valid,
+        min_plane_spread=min_plane_spread)
+
+
+def transform_update(pose6, imu_rpy_init, imu_available,
+                     imu_weight: float = 0.05,
+                     rotation_tolerance: float = 1000.0,
+                     z_tolerance: float = 1000.0):
+    """IMU attitude slerp fusion + clamps (transformUpdate /
+    constraintTransformation, ref: src/mapOptmization.h:1444-1489), batched:
+    pose6 [B, 6], imu_rpy_init [B, 3], imu_available [B].  Where IMU
+    attitude is available and |pitch| < 1.4 rad, roll and pitch slerp toward
+    it with weight imu_weight; then roll, pitch and z are clamped."""
+    use = imu_available & (torch.abs(imu_rpy_init[:, 1]) < 1.4)
+    zero = torch.zeros_like(pose6[:, 0])
+
+    def fused(i, q_pose, q_imu):
+        return euler_from_quat(quat_slerp(q_pose, q_imu, imu_weight))[i]
+
+    roll = fused(0, quat_from_euler(pose6[:, 0], zero, zero),
+                 quat_from_euler(imu_rpy_init[:, 0], zero, zero))
+    pitch = fused(1, quat_from_euler(zero, pose6[:, 1], zero),
+                  quat_from_euler(zero, imu_rpy_init[:, 1], zero))
+    roll = torch.where(use, roll, pose6[:, 0])
+    pitch = torch.where(use, pitch, pose6[:, 1])
+    out = pose6.clone()
+    out[:, 0] = torch.clamp(roll, -rotation_tolerance, rotation_tolerance)
+    out[:, 1] = torch.clamp(pitch, -rotation_tolerance, rotation_tolerance)
+    out[:, 5] = torch.clamp(pose6[:, 5], -z_tolerance, z_tolerance)
+    return out

@@ -54,26 +54,39 @@ class RawScan(NamedTuple):
 
 
 class DeskewInfo(NamedTuple):
-    """IMU/odom info attached to a scan (ref: imuDeskewInfo/odomDeskewInfo,
-    src/imageProjection.cpp:323-491).  The port has no deskew yet: only the
-    fields `project_scan` copies into `CloudInfo` are carried."""
+    """IMU/odom info attached to a batch of scans for motion compensation
+    and the pose initial guess (ref: imuDeskewInfo/odomDeskewInfo,
+    src/imageProjection.cpp:323-491)."""
 
+    imu_time: torch.Tensor        # f32 [B, Q] s since scan start, +inf pad
+    imu_rot: torch.Tensor         # f32 [B, Q, 3] gyro integral since start
+    imu_count: torch.Tensor       # i32 [B] last valid index (imuPointerCur)
     imu_available: torch.Tensor   # bool [B]
+    imu_rpy_init: torch.Tensor    # f32 [B, 3] attitude at scan start
     odom_available: torch.Tensor  # bool [B]
-    imu_rpy_init: torch.Tensor    # f32 [B, 3]
-    initial_guess: torch.Tensor   # f32 [B, 6] pose6
+    initial_guess: torch.Tensor   # f32 [B, 6] pose6 from preintegration
+    odom_incre: torch.Tensor      # f32 [B, 3] translation over the sweep
+    odom_deskew_flag: torch.Tensor  # bool [B]
     reset_id: torch.Tensor        # i32 [B]
 
     @staticmethod
-    def empty(batch: int, *, device):
+    def empty(batch: int, queue_len: int = 512, *, device):
         """No IMU/odom info for `batch` scans, on `device` (required)."""
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(batch, *shape, dtype=dtype, device=device)
+
         return DeskewInfo(
-            imu_available=torch.zeros(batch, dtype=torch.bool, device=device),
-            odom_available=torch.zeros(batch, dtype=torch.bool,
-                                       device=device),
-            imu_rpy_init=torch.zeros(batch, 3, device=device),
-            initial_guess=torch.zeros(batch, 6, device=device),
-            reset_id=torch.zeros(batch, dtype=torch.int32, device=device),
+            imu_time=torch.full((batch, queue_len), float("inf"),
+                                device=device),
+            imu_rot=zeros(queue_len, 3),
+            imu_count=zeros(dtype=torch.int32),
+            imu_available=zeros(dtype=torch.bool),
+            imu_rpy_init=zeros(3),
+            odom_available=zeros(dtype=torch.bool),
+            initial_guess=zeros(6),
+            odom_incre=zeros(3),
+            odom_deskew_flag=zeros(dtype=torch.bool),
+            reset_id=zeros(dtype=torch.int32),
         )
 
 

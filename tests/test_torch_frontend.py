@@ -1,5 +1,6 @@
-"""Port parity: the batched frontend (projection, fast feature picking,
-feature downsampling) against the JAX package on one full VLP-16 scan.
+"""Port parity: the batched frontend (projection, fast and strict feature
+picking, feature downsampling) against the JAX package on two full VLP-16
+scans.
 
 Tolerances:
   * CloudInfo: every field bit-equal except `point_range`, which XLA's CPU
@@ -10,7 +11,12 @@ Tolerances:
     the same slots); surf centroids within 1e-5 m (the per-ring voxel sums
     run in another order: float64 scatter-add vs float32 segmented scan).
   * downsample_features: masks equal, coordinates within 1e-5 m.
+  * process_scan(Params()) picks strictly, as the JAX package's does: the
+    same tolerances (corner sets bitwise before downsampling).
 """
+
+import dataclasses
+
 
 import numpy as np
 import jax
@@ -28,7 +34,7 @@ from feature_base_pointcloud_registration_tpu.ops.projection import (
 from feature_base_pointcloud_registration_tpu.pipeline.cloud_info import (
     RawScan)
 from feature_base_pointcloud_registration_tpu.pipeline.frontend import (
-    downsample_features)
+    downsample_features, process_scan)
 from feature_base_pointcloud_registration_tpu_torch.convert import (
     params_from_dict, to_numpy, to_torch)
 from feature_base_pointcloud_registration_tpu_torch.ops import (
@@ -38,6 +44,7 @@ from feature_base_pointcloud_registration_tpu_torch.pipeline import (
 from test_torch_batch import one_torch_thread  # noqa: F401
 
 PARAMS = Params()
+FAST = dataclasses.replace(PARAMS, strict_feature_pick=False)
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +76,6 @@ def jax_frontend(scans):
 
 
 def test_params_round_trip():
-    import dataclasses
     p = params_from_dict(dataclasses.asdict(PARAMS))
     assert dataclasses.asdict(p) == dataclasses.asdict(PARAMS)
 
@@ -95,7 +101,7 @@ def test_project_scan_bit_equal(scans, jax_frontend):
 def test_extract_features_fast(scans, jax_frontend):
     _, traw = scans
     cloud = tproj.project_scan(PARAMS, traw)
-    feats = to_numpy(tfeat.extract_features(PARAMS, cloud))
+    feats = to_numpy(tfeat.extract_features(PARAMS, cloud, strict=False))
     for b, (_, jfeats, _) in enumerate(jax_frontend):
         np.testing.assert_array_equal(feats.corner_mask[b], jfeats.corner_mask)
         np.testing.assert_array_equal(feats.corner_xyz[b], jfeats.corner_xyz)
@@ -107,7 +113,7 @@ def test_extract_features_fast(scans, jax_frontend):
 
 def test_downsample_features(scans, jax_frontend):
     _, traw = scans
-    _, feats = tfront.process_scan(PARAMS, traw)
+    _, feats = tfront.process_scan(FAST, traw)
     feats = to_numpy(feats)
     for b, (_, _, jds) in enumerate(jax_frontend):
         for name in ("corner_mask", "surf_mask"):
@@ -133,3 +139,29 @@ def test_voxel_downsample_matches_jax(cap):
         np.testing.assert_array_equal(got[1][b], want[1])
         assert got[2][b] == want[2]
         np.testing.assert_allclose(got[0][b], want[0], rtol=0, atol=1e-5)
+
+
+def test_process_scan_default_params_picks_strictly(scans):
+    """process_scan(Params()) in both packages: strict picking."""
+    jraws, traw = scans
+    assert PARAMS.strict_feature_pick
+    cloud, feats = tfront.process_scan(PARAMS, traw)
+    raw_feats = to_numpy(tfeat.extract_features(PARAMS, cloud, strict=True))
+    feats = to_numpy(feats)
+    for b, raw in enumerate(jraws):
+        _, want = jax.tree.map(np.asarray, process_scan(PARAMS, raw))
+        want_raw = jax.tree.map(np.asarray, extract_features(
+            PARAMS, project_scan(PARAMS, raw, None), strict=True))
+        np.testing.assert_array_equal(raw_feats.corner_mask[b],
+                                      want_raw.corner_mask)
+        np.testing.assert_array_equal(raw_feats.corner_xyz[b],
+                                      want_raw.corner_xyz)
+        np.testing.assert_array_equal(raw_feats.surf_mask[b],
+                                      want_raw.surf_mask)
+        for name in ("corner_mask", "surf_mask"):
+            np.testing.assert_array_equal(getattr(feats, name)[b],
+                                          getattr(want, name))
+        for name in ("corner_xyz", "surf_xyz"):
+            np.testing.assert_allclose(getattr(feats, name)[b],
+                                       getattr(want, name), rtol=0,
+                                       atol=1e-5)

@@ -11,21 +11,27 @@ GN kernel within 1e-4 of its plain version in pose (FMA contraction and
 reduction order; both use the library acos) with equal n_corr and flags,
 and bitwise equal to itself across two calls (a fixed-order reduction);
 the solvers on the GPU within 1e-4 of the same solvers on the CPU (the
-GN kernel's arithmetic, and `torch.linalg.eigh` on the card).
+GN kernel's arithmetic, and `torch.linalg.eigh` on the card).  The
+localization path: strict picks on the card bitwise equal to the CPU's on
+the same cloud, deskewed clouds within 2e-5 m (the card's sin/cos), one
+`LocalizationPipeline.step` within 1e-4 of the CPU's.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from feature_base_pointcloud_registration_tpu_torch.config import Params
 from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
-    pose6_to_matrix_np)
+    SyntheticWorld, build_feature_map, pose6_to_matrix_np, simulate_scan)
+from feature_base_pointcloud_registration_tpu_torch.ops import (
+    features as tfeat, projection as tproj)
 from feature_base_pointcloud_registration_tpu_torch.ops import (
     fetch as tfetch, gn_round as tgn)
 from feature_base_pointcloud_registration_tpu_torch.parallel import (
     batch as tbatch)
 from feature_base_pointcloud_registration_tpu_torch.pipeline import (
-    cloud_info)
+    cloud_info, frontend as tfront, localization as tloc)
 
 FeatureMap, ScanFeatures = cloud_info.FeatureMap, cloud_info.ScanFeatures
 
@@ -403,3 +409,90 @@ def test_rounds_solve_on_gpu_matches_cpu(cuda, resident):
     torch.testing.assert_close(got.pose6.cpu(), want.pose6, rtol=0,
                                atol=1e-4)
     assert torch.equal(got.converged.cpu(), want.converged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,W,Q", [
+    ("resident_fetch", 128, 2048), ("block_fetch", 128, 2048),
+    ("resident_fetch", 512, 8192), ("block_fetch", 512, 8192)])
+def test_fetch_kernels_at_localization_shapes(cuda, kernel, W, Q):
+    """One lane's queries at K=16 (2,048 corner / 8,192 surf features),
+    the tail at the sentinel as masked features would be."""
+    tab, bc, q = _fetch_inputs(W + Q, W=W, Q=Q)
+    bc[Q - Q // 3:] = tab.shape[0] - 1
+    args = [torch.from_numpy(a).to(cuda) for a in (tab, bc, *q)]
+    fn = getattr(tfetch, kernel)
+    before = fn.launches
+    d2, cand = fn(*args, K=16)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    d2r, candr = tfetch.block_fetch_reference(*args, K=16)
+    assert torch.equal(d2, d2r) and torch.equal(cand, candr)
+    assert (d2[Q - Q // 3:] == np.float32(3e38)).all()
+
+
+def _skewed_scan(dev):
+    """A motion-skewed full VLP-16 scan, its IMU table and batch-1 tensors
+    on dev."""
+    params = Params()
+    pose = np.array([0.0, 0.0, 0.3, 1.0, -2.0, 0.4], np.float32)
+    s = simulate_scan(SyntheticWorld(), pose, seed=7,
+                      spin_rpy_rate=(0.0, 0.0, 0.5), vel_world=(1.2, 0.5, 0))
+    raw = cloud_info.RawScan(*(torch.from_numpy(np.asarray(s[k]))[None].to(
+        dev) for k in ("xyz", "intensity", "ring", "time", "valid")))
+    imu_t = 200.0 + np.linspace(-0.005, 0.105, 23)
+    c, sn = np.cos(0.3), np.sin(0.3)               # velocity in scan frame
+    dsk = tfront.make_deskew_info(
+        params, imu_t, np.tile([0.0, 0.0, 0.5], (23, 1)), 200.0, 200.1,
+        odom_incre=[0.1 * (c * 1.2 + sn * 0.5), 0.1 * (c * 0.5 - sn * 1.2),
+                    0.0], odom_deskew_flag=True, device=dev)
+    return params, raw, dsk
+
+
+@pytest.mark.cuda
+def test_strict_frontend_and_deskew_on_gpu_match_cpu(cuda):
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        params, raw, dsk = _skewed_scan(dev)
+        out.append((tproj.project_scan(params, raw, dsk),
+                    tproj.project_scan(params, raw)))
+    (desk_g, plain_g), (desk_c, plain_c) = out
+    n = int(desk_c.num_points[0])
+    assert int(desk_g.num_points[0]) == n
+    torch.testing.assert_close(desk_g.points.cpu(), desk_c.points, rtol=0,
+                               atol=2e-5)
+    assert (desk_c.points - plain_c.points).abs().max() > 0.05
+    # the picks: on the same cloud, bitwise; on each device's own, equal
+    for cloud in (plain_c, desk_c):
+        want = tfeat.window_labels(params, cloud)
+        got = tfeat.window_labels(params, cloud_info.CloudInfo(
+            *(a.to(cuda) for a in cloud)))
+        assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(tfeat.window_labels(params, plain_g)[1].cpu(),
+                       tfeat.window_labels(params, plain_c)[1])
+    feats_g = tfeat.extract_features(params, plain_g)
+    feats_c = tfeat.extract_features(params, plain_c)
+    assert torch.equal(feats_g.corner_mask.cpu(), feats_c.corner_mask)
+    assert torch.equal(feats_g.corner_xyz.cpu(), feats_c.corner_xyz)
+
+
+@pytest.mark.cuda
+def test_localization_step_on_gpu_matches_cpu(cuda):
+    params = Params(register_grid_half_extent=(30.0, 30.0, 10.0))
+    arrays = build_feature_map(SyntheticWorld(), params.map_corner_cap,
+                               params.map_surf_cap)
+    poses, launches = [], []
+    for dev in (cuda, torch.device("cpu")):
+        _, raw, dsk = _skewed_scan(dev)
+        pipe = tloc.LocalizationPipeline(params, tloc.GlobalMap(
+            *(torch.from_numpy(a).to(dev) for a in arrays)))
+        pipe.pose = np.array([0.0, 0.0, 0.32, 1.1, -2.1, 0.4], np.float32)
+        before = tfetch.resident_fetch.launches + tfetch.block_fetch.launches
+        poses.append(pipe.step(cloud_info.RawScan(*(a[0] for a in raw)),
+                               200.0, dsk))
+        launches.append(tfetch.resident_fetch.launches
+                        + tfetch.block_fetch.launches - before)
+        assert bool(pipe.last_result.valid[0])
+    assert launches == [6, 0]
+    np.testing.assert_allclose(poses[0], poses[1], rtol=0, atol=1e-4)
+    assert np.abs(poses[1][3:] - [1.0, -2.0, 0.4]).max() < 0.05

@@ -2,7 +2,10 @@
 
 A fresh interpreter blocks `jax`, `jaxlib` and the JAX package
 (`sys.modules[name] = None` makes any import of them raise), imports every
-module of the port, and runs `project_scan` on a tiny CPU batch.
+module of the port, runs `project_scan` on a tiny CPU batch, and runs the
+localization path at a small size: strict picking, deskew and one
+`LocalizationPipeline.step` against a map loaded through `write_pcd` and
+`GlobalMap.from_pcd_dir`.
 """
 
 import os
@@ -36,6 +39,36 @@ raw = RawScan.from_numpy(xyz, np.ones(12), r.randint(0, 2, 12),
 cloud = project_scan(params, RawScan(*(a[None] for a in raw)))
 assert cloud.points.shape == (1, 16, 3), cloud.points.shape
 assert 0 < int(cloud.num_points[0]) <= 12
+import os, tempfile
+from feature_base_pointcloud_registration_tpu_torch.io.pcd import write_pcd
+from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+    SyntheticWorld, simulate_scan)
+from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (
+    make_deskew_info)
+from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+    localization)
+cpu = torch.device("cpu")
+params = Params(n_scan=16, horizon_scan=360, map_corner_cap=2048,
+                map_surf_cap=8192, local_map_half_extent=(10.0, 10.0, 6.0),
+                register_grid_half_extent=(10.0, 10.0, 6.0))
+world = SyntheticWorld()
+s = simulate_scan(world, [0, 0, 0.2, 1.0, 0.5, 0], horizon_scan=360,
+                  spin_rpy_rate=(0, 0, 0.3), vel_world=(1.0, 0, 0))
+with tempfile.TemporaryDirectory() as d:
+    for name, pts in (("cloudCorner.pcd", world.corner_map_points(0.5)),
+                      ("cloudSurf.pcd", world.surf_map_points(1.0))):
+        write_pcd(os.path.join(d, name), dict(x=pts[:, 0], y=pts[:, 1],
+                                              z=pts[:, 2]))
+    gm = localization.GlobalMap.from_pcd_dir(
+        params, d, device=cpu, corner_cap=4096, surf_cap=8192)
+dsk = make_deskew_info(params, np.linspace(-0.01, 0.11, 13),
+                       np.tile([0, 0, 0.3], (13, 1)), 0.0, 0.1, device=cpu)
+pipe = localization.LocalizationPipeline(params, gm)
+assert params.strict_feature_pick
+pose = pipe.step(RawScan.from_numpy(s["xyz"], s["intensity"], s["ring"],
+                                    s["time"], device=cpu), 0.0, dsk)
+assert pose.shape == (6,) and np.isfinite(pose).all(), pose
+assert bool(dsk.imu_available[0]) and pipe.last_result is not None
 loaded = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib")
                 or k.startswith("feature_base_pointcloud_registration_tpu.")))

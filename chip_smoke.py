@@ -75,7 +75,26 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            gated; max translation error after step 0 < 0.06 m and ATE <
            0.05 m against the ground truth; times of the step and its
            stages, picking's host syncs, each table's kind and bytes, the
-           fetch beside its bound, ptxas of the K=16 fetch instances.
+           fetch beside its bound, ptxas of the K=16 fetch instances;
+  phase 8  the SLAM back end: SlamPipeline at its default capacities with
+           loop closure on (default Params), 60 scans 0.7 s apart around a
+           3 m circle that closes after 41.9 s, skewed by the motion,
+           deskewed and guessed from the IMU alone (no odometry), counted:
+           6 fetches of K=16 a registration step, 0 GN rounds; the fetches
+           of the first 3 registration steps bitwise equal to their plain
+           versions; steps 0-3 within 1e-4 of the same steps on the CPU;
+           register_scan_with_params on those steps' local maps and
+           guesses within 3e-3 m / rad of grid_register_step; >= 1 loop
+           closure accepted (ICP fitness < 0.3), the full graph solved;
+           relative displacements within 0.12 m and ATE < 0.1 m of the
+           truth in the first scan's frame; save_map ->
+           GlobalMap.from_pcd_dir -> one LocalizationPipeline.step
+           relocalizing a keyframe's scan within 0.06 m of its pose; step
+           time and its split (synchronized host clock), the window and
+           full LM, ICP ms and iterations, host syncs a step (the CUDA
+           sync debug mode), a profiled window LM solve, register_scan
+           beside its bound, the knn selection against a stable sort, the
+           caps the step reported, each table's kind, rows and bytes.
 
     python3 chip_smoke.py --gn-ab NAME=path/to/gn_round.cu ...
 
@@ -132,6 +151,11 @@ N_LOC = 20               # phase 7: localization steps
 LOC_SPACING = 0.2        # s between scans (constant_twist_platform)
 LOC_CHECKED = 3          # steps held against the plain fetch and the CPU
 LOC_K = 16               # candidates per fetch of grid_register_step
+N_SLAM = 60              # phase 8: SLAM steps, one loop of the circle
+SLAM_SPACING = 0.7       # s between scans
+SLAM_SPEED = 0.45        # m/s: a 3 m circle at SLAM_YAW_RATE
+SLAM_YAW_RATE = 0.15     # rad/s: the loop closes after 41.9 s
+SLAM_CHECKED = 3         # registration steps held against plain/CPU/exact
 
 
 def tpu_kernel_line(file_name, kernel):
@@ -430,6 +454,50 @@ def table_info(table):
     return "raw", table.shape[0] - 1, table.shape[1] // 3, table.numel() * 4
 
 
+def fetch_recorder(real_fetch_rows, calls, check):
+    """A stand-in for ops.fetch.fetch_rows that records each call (table
+    kind, K, W, Q) in `calls` and, while check["on"], holds it against its
+    plain version on the same table (rec["equal"], rec["err"])."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fetch as tfetch)
+
+    def checked_fetch_rows(table, bcell, qx, qy, qz, *, K, planes_out=True):
+        out = real_fetch_rows(table, bcell, qx, qy, qz, K=K,
+                              planes_out=planes_out)
+        kind, rows, W, nbytes = table_info(table)
+        rec = {"kind": kind, "K": K, "Q": bcell.shape[0], "W": W,
+               "rows": rows, "bytes": nbytes}
+        if check["on"]:
+            if kind == "resident":
+                d2r, cr = tfetch.resident_fetch_reference(
+                    table.table, table.rows_index[bcell.long()], qx, qy, qz,
+                    K=K)
+            else:
+                d2r, cr = tfetch.block_fetch_reference(table, bcell, qx, qy,
+                                                       qz, K=K)
+            if not planes_out:
+                cr = cr.view(3, K, -1).permute(2, 1, 0)
+            rec["equal"] = torch.equal(out[0], d2r) and torch.equal(out[1],
+                                                                     cr)
+            rec["err"] = max((out[0] - d2r).abs().max().item(),
+                             (out[1] - cr).abs().max().item())
+        calls.append(rec)
+        return out
+    return checked_fetch_rows
+
+
+def checked_fetches(calls):
+    """(the checked calls, {kernel: max_abs_err}) of a fetch_recorder."""
+    checked = [c for c in calls if "equal" in c]
+    fetch_err = {}
+    for c in checked:
+        name = f"{'resident' if c['kind'] == 'resident' else 'block'}_fetch"
+        fetch_err[name] = max(fetch_err.get(name, 0.0), c["err"])
+    return checked, fetch_err
+
+
 def localization_phase(dev):
     """Phase 7: the single-scan localization pipeline on the card at the
     reference's settings (default Params).  Returns (launches {wrapper:
@@ -532,30 +600,7 @@ def localization_phase(dev):
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": True}
-
-    def checked_fetch_rows(table, bcell, qx, qy, qz, *, K, planes_out=True):
-        """fetch_rows, recording each call and, in the checked steps,
-        holding it against its plain version on the same table."""
-        out = real_fetch_rows(table, bcell, qx, qy, qz, K=K,
-                              planes_out=planes_out)
-        kind, _, W, _ = table_info(table)
-        rec = {"kind": kind, "K": K, "Q": bcell.shape[0], "W": W}
-        if check["on"]:
-            if kind == "resident":
-                d2r, cr = tfetch.resident_fetch_reference(
-                    table.table, table.rows_index[bcell.long()], qx, qy, qz,
-                    K=K)
-            else:
-                d2r, cr = tfetch.block_fetch_reference(table, bcell, qx, qy,
-                                                       qz, K=K)
-            if not planes_out:
-                cr = cr.view(3, K, -1).permute(2, 1, 0)
-            rec["equal"] = torch.equal(out[0], d2r) and torch.equal(out[1],
-                                                                     cr)
-            rec["err"] = max((out[0] - d2r).abs().max().item(),
-                             (out[1] - cr).abs().max().item())
-        calls.append(rec)
-        return out
+    checked_fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
 
     pipe = LocalizationPipeline(params, gm)
     pipe.pose = scans[0][1].copy()       # a map-frame initial guess
@@ -625,11 +670,7 @@ def localization_phase(dev):
     print(f"phase 7 fetch calls (kind, W, Q): {kinds}", flush=True)
     if len(inputs) != N_LOC:
         raise AssertionError(f"phase 7: {len(inputs)} steps, want {N_LOC}")
-    checked = [c for c in calls if "equal" in c]
-    fetch_err = {}
-    for c in checked:
-        name = f"{'resident' if c['kind'] == 'resident' else 'block'}_fetch"
-        fetch_err[name] = max(fetch_err.get(name, 0.0), c["err"])
+    checked, fetch_err = checked_fetches(calls)
     print(f"phase 7 fetches of steps 0-{LOC_CHECKED - 1} against their plain"
           f" versions: {sum(c['equal'] for c in checked)}/{len(checked)} "
           f"bitwise equal, max_abs_err {fetch_err}", flush=True)
@@ -728,10 +769,11 @@ def localization_phase(dev):
         ev[0].record()
         _, feats = process_scan(params, raw, dsk)
         ev[1].record()
-        lmap = _crop_local_map(gm.corner_xyz, gm.corner_mask, gm.surf_xyz,
-                               gm.surf_mask, guess[0, 3:6], half_extent=he,
-                               map_corner_cap=params.map_corner_cap,
-                               map_surf_cap=params.map_surf_cap)
+        lmap, _ = _crop_local_map(gm.corner_xyz, gm.corner_mask,
+                                  gm.surf_xyz, gm.surf_mask, guess[0, 3:6],
+                                  half_extent=he,
+                                  map_corner_cap=params.map_corner_cap,
+                                  map_surf_cap=params.map_surf_cap)
         ev[2].record()
         build_map_planar_tables(lmap, guess[0, 3:6], rhe, resident=True)
         ev[3].record()
@@ -763,10 +805,10 @@ def localization_phase(dev):
 
     # the tables of step 0's local map, and the fetch at its queries
     guess = torch.from_numpy(scans[0][1][None]).to(dev)
-    lmap = _crop_local_map(gm.corner_xyz, gm.corner_mask, gm.surf_xyz,
-                           gm.surf_mask, guess[0, 3:6], half_extent=he,
-                           map_corner_cap=params.map_corner_cap,
-                           map_surf_cap=params.map_surf_cap)
+    lmap, _ = _crop_local_map(gm.corner_xyz, gm.corner_mask, gm.surf_xyz,
+                              gm.surf_mask, guess[0, 3:6], half_extent=he,
+                              map_corner_cap=params.map_corner_cap,
+                              map_surf_cap=params.map_surf_cap)
     ctab, stab, origin, dims = build_map_planar_tables(
         lmap, guess[0, 3:6], rhe, resident=True)
     n_cells = dims[0] * dims[1] * dims[2]
@@ -810,6 +852,369 @@ def localization_phase(dev):
     print(f"phase 7 fetch shared memory at W 512, K {LOC_K}: "
           f"{fetch_smem(512, LOC_K)} B a block", flush=True)
     return launches, fetch_t, fetch_err
+
+
+class StageTimer:
+    """Host wall ms per named stage, the device synchronized at both ends
+    of each timed call (`wrap` returns a timing wrapper of a function);
+    calls nested in a timed call are counted in both stages."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.ms = {}
+        self.calls = {}
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            import warnings
+
+            import torch
+            with warnings.catch_warnings():   # not one of the step's syncs
+                warnings.simplefilter("ignore")
+                torch.cuda.synchronize()
+
+    def wrap(self, name, fn):
+        def timed(*a, **kw):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.sync()
+            self.ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            self.calls.setdefault(name, []).append((a, kw, out))
+            return out
+        return timed
+
+
+def slam_phase(dev):
+    """Phase 8: the SLAM back end (SlamPipeline at its default capacities,
+    loop closure on) on the card.  Returns (launches {wrapper: count} over
+    the N_SLAM steps, {kernel: max_abs_err} of the checked fetches)."""
+    import warnings
+
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import native
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.geom.se3 import (
+        euler_from_quat, rot_to_euler)
+    from feature_base_pointcloud_registration_tpu_torch.imu.conversion import (
+        imu_converter)
+    from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+        SyntheticWorld, constant_twist_platform, pose6_to_matrix_np,
+        simulate_scan)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fetch as tfetch)
+    from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
+        gn_round)
+    from feature_base_pointcloud_registration_tpu_torch.ops.knn import (
+        _extract_topk)
+    from feature_base_pointcloud_registration_tpu_torch.ops.register import (
+        register_scan_with_params)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        slam as tslam)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        DeskewInfo, RawScan)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
+        make_deskew_info)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.localization import (  # noqa: E501
+        GlobalMap, LocalizationPipeline)
+    from feature_base_pointcloud_registration_tpu_torch.utils.log import (
+        EventLog)
+
+    cpu = torch.device("cpu")
+    params = Params(loop_closure_enable_flag=True)
+    world = SyntheticWorld()
+    print(f"phase 8 native library available {native.available()}",
+          flush=True)
+
+    # ---- the platform: a circle of 3 m radius (0.45 m/s, 0.15 rad/s),
+    # back at its start after 41.9 s; IMU in the sensor frame ----
+    v_body = np.array([SLAM_SPEED, 0.0, 0.0])
+    w_body = np.array([0.0, 0.0, SLAM_YAW_RATE])
+    imu, states = constant_twist_platform(
+        N_SLAM * SLAM_SPACING + 0.5, ext_rot=params.ext_rot,
+        ext_rpy=params.ext_rpy, gravity=params.imu_gravity,
+        w_body=w_body, v_body=v_body)
+    imu_t = np.array([s_[0] for s_ in imu])
+    _, gyr_l, quat_l, ok = imu_converter(params, *(
+        torch.tensor(np.stack([s_[i] for s_ in imu]), dtype=torch.float32)
+        for i in (1, 2, 3)))
+    if not bool(ok.all()):
+        raise AssertionError("phase 8: imu_converter flagged a sample")
+    rpy_l = torch.stack(euler_from_quat(quat_l), -1).numpy()
+    gyr_l = gyr_l.numpy()
+    gt6 = np.concatenate([
+        torch.stack(rot_to_euler(torch.from_numpy(
+            np.stack([R for _, R, _ in states]))), -1).numpy(),
+        np.stack([p_ for _, _, p_ in states])], 1).astype(np.float32)
+
+    def scan_at(k):
+        """Scan k (stamp k * SLAM_SPACING), skewed by the motion during its
+        sweep, its deskew table (IMU only: the rotation guess and the
+        rotation deskew; no odometry) and its ground truth."""
+        t = k * SLAM_SPACING
+        i = int(round(t * 100))
+        s_ = simulate_scan(world, gt6[i], seed=500 + k, spin_rpy_rate=w_body,
+                           vel_world=states[i][1] @ v_body)
+        last = np.nonzero(imu_t <= t + 0.01)[0][-1]
+        dsk = make_deskew_info(params, imu_t, gyr_l, t,
+                               t + float(s_["time"].max()),
+                               imu_rpy=rpy_l[last], device=cpu)
+        return s_, dsk, gt6[i], t
+
+    def raw_of(s_, device):
+        return RawScan.from_numpy(
+            s_["xyz"], s_["intensity"], s_["ring"], s_["time"],
+            device=device)._replace(valid=torch.from_numpy(s_["valid"]).to(
+                device))
+
+    scans = [scan_at(k) for k in range(N_SLAM)]
+
+    # ---- the main path, counted and timed ----
+    counted = {"block_fetch": tfetch.block_fetch,
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+    real = {name: getattr(tslam, name) for name in (
+        "process_scan", "grid_register_step", "optimize_pose_graph",
+        "icp_align")}
+    real_fetch_rows = tfetch.fetch_rows
+    calls, check = [], {"on": False}
+    checked_fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
+
+    timer = StageTimer(dev)
+    pipe = tslam.SlamPipeline(params, device=dev)
+    log = EventLog()
+    pipe._log = log
+    stage_of = {"process_scan": "frontend",
+                "grid_register_step": "tables + solve",
+                "optimize_pose_graph": "graph LM", "icp_align": "ICP"}
+    for name, stage in stage_of.items():
+        setattr(tslam, name, timer.wrap(stage, real[name]))
+    methods = {"_surrounding_map": "local map", "_save_keyframe":
+               "keyframe + graph", "maybe_close_loop": "loop closure"}
+    for name, stage in methods.items():
+        setattr(pipe, name, timer.wrap(stage, getattr(pipe, name)))
+    tfetch.fetch_rows = checked_fetch_rows
+    ests, wall, per_step, syncs, n_kf = [], [], [], [], []
+    try:
+        timer.sync()
+        for w in counted.values():
+            w.launches = 0
+        registered = 0
+        for k, (s_, dsk, _, t) in enumerate(scans):
+            raw = raw_of(s_, dev)
+            dsk_d = DeskewInfo(*(a.to(dev) for a in dsk))
+            check["on"] = registered < SLAM_CHECKED and k > 0
+            before = {n: w.launches for n, w in counted.items()}
+            n_calls = len(calls)
+            timer.sync()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if dev.type == "cuda":
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    ests.append(pipe.step(raw, t, dsk_d).copy())
+                finally:
+                    if dev.type == "cuda":
+                        torch.cuda.set_sync_debug_mode("default")
+            timer.sync()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            syncs.append(sum("synchroniz" in str(w_.message)
+                             for w_ in caught))
+            n_kf.append(pipe.n_keyframes)
+            got = {n: w.launches - before[n] for n, w in counted.items()}
+            per_step.append(got)
+            ks = {c["K"] for c in calls[n_calls:]}
+            want = 0 if k == 0 else 6
+            if (got["block_fetch"] + got["resident_fetch"] != want
+                    or got["gn_round"] or (want and ks != {LOC_K})):
+                raise AssertionError(f"phase 8 step {k}: launches {got}, "
+                                     f"K {ks}")
+            registered += k > 0
+        timer.sync()
+        launches = {n: w.launches for n, w in counted.items()}
+    finally:
+        tfetch.fetch_rows = real_fetch_rows
+        for name in stage_of:
+            setattr(tslam, name, real[name])
+    events = log.events
+    topics = [e["topic"] for e in events]
+    print(f"phase 8 launches: {launches} over {N_SLAM} steps; per step "
+          f"{per_step[1]}; keyframes {pipe.n_keyframes}; events "
+          f"{ {t_: topics.count(t_) for t_ in sorted(set(topics))} }",
+          flush=True)
+    kinds = sorted({(c["kind"], c["W"], c["Q"]) for c in calls})
+    print(f"phase 8 fetch calls (kind, W, Q): {kinds}", flush=True)
+    for kind, W in sorted({(c["kind"], c["W"]) for c in calls}):
+        sizes = [(c["rows"], c["bytes"]) for c in calls
+                 if (c["kind"], c["W"]) == (kind, W)]
+        print(f"phase 8 tables {kind} W {W}: {len(sizes)} fetches, rows "
+              f"{min(r for r, _ in sizes)}-{max(r for r, _ in sizes)}, "
+              f"bytes {min(b for _, b in sizes)}-{max(b for _, b in sizes)}"
+              f" (resident cap {tfetch.RESIDENT_TABLE_CAP} B)", flush=True)
+    checked, fetch_err = checked_fetches(calls)
+    print(f"phase 8 fetches of the first {SLAM_CHECKED} registration steps "
+          f"against their plain versions: "
+          f"{sum(c['equal'] for c in checked)}/{len(checked)} bitwise equal,"
+          f" max_abs_err {fetch_err}", flush=True)
+    if not (len(checked) == 6 * SLAM_CHECKED
+            and all(c["equal"] for c in checked)):
+        raise AssertionError("phase 8: a fetch kernel != its plain version")
+    drops = [e for e in events if e["topic"] == "mapping/dropped_points"]
+    by_cap = {}
+    for e in drops:
+        key = (e["cap"], e["feature"])
+        by_cap.setdefault(key, []).append(e.get("dropped",
+                                                e.get("dropped_share")))
+    print("phase 8 caps (mapping/dropped_points, per cap and feature: "
+          "warnings, mean dropped): " + "; ".join(
+              f"{c} {f}: {len(v)}, {np.mean(v):.4g}"
+              for (c, f), v in sorted(by_cap.items())), flush=True)
+
+    # ---- loop closure ----
+    closures = [e for e in events if e["topic"] == "mapping/loop_closure"]
+    icps = timer.calls.get("ICP", [])
+    icp_iters = [int(out.iterations) for _, _, out in icps]
+    icp_fit = [float(out.fitness) for _, _, out in icps]
+    print(f"phase 8 loop closure: {len(closures)} accepted of {len(icps)} "
+          f"ICP runs; fitness {[round(f_, 5) for f_ in icp_fit]}; reset_id "
+          f"{pipe.reset_id}; loop factors {len(pipe.loop_factors)}; first "
+          f"accepted {closures[0] if closures else None}", flush=True)
+    if not (closures and pipe.reset_id >= 1 and min(icp_fit) <
+            params.history_keyframe_fitness_score):
+        raise AssertionError("phase 8: no loop closure accepted")
+    full = [ms for (a, _, _), ms in zip(timer.calls["graph LM"],
+                                        timer.ms["graph LM"])
+            if a[0].poses.shape[0] == pipe.max_keyframes]
+    window = [ms for (a, _, _), ms in zip(timer.calls["graph LM"],
+                                          timer.ms["graph LM"])
+              if a[0].poses.shape[0] == pipe.opt_window]
+    if not full:
+        raise AssertionError("phase 8: the full graph was never solved")
+
+    # ---- accuracy against the ground truth, in the first scan's frame ----
+    T0inv = np.linalg.inv(pose6_to_matrix_np(scans[0][2]))
+    truth = np.stack([(T0inv @ pose6_to_matrix_np(g_))[:3, 3]
+                      for _, _, g_, _ in scans])
+    est = np.stack(ests)
+    rel = np.linalg.norm(np.diff(est[:, 3:], axis=0)
+                         - np.diff(truth, axis=0), axis=1)
+    err = np.linalg.norm(est[:, 3:] - truth, axis=1)
+    ate = float(np.sqrt((err ** 2).mean()))
+    print(f"phase 8 accuracy: relative displacement error max "
+          f"{rel.max():.6f} m (bound 0.12), ate_vs_gt_m {ate} (bound 0.1), "
+          f"final error {err[-1]:.4f} m, max {err.max():.4f} m; keyframes "
+          f"a step {n_kf[:8]}...", flush=True)
+    if not (np.isfinite(est).all() and rel.max() < 0.12 and ate < 0.1):
+        raise AssertionError(f"phase 8: rel {rel.max()} ate {ate}")
+
+    # ---- the same first steps on the CPU ----
+    n_cpu = 1 + SLAM_CHECKED
+    pipe_cpu = tslam.SlamPipeline(params, device=cpu)
+    pipe_cpu._log = EventLog()
+    d_cpu = max(float(np.abs(pipe_cpu.step(raw_of(s_, cpu), t, dsk)
+                             - ests[k]).max())
+                for k, (s_, dsk, _, t) in enumerate(scans[:n_cpu]))
+    print(f"phase 8 card vs CPU: steps 0-{n_cpu - 1} pose |diff| max "
+          f"{d_cpu:.3e}", flush=True)
+    if not d_cpu <= 1e-4:
+        raise AssertionError(f"phase 8: card vs CPU poses differ by {d_cpu}")
+
+    # ---- the exact solver on the first registration steps' local maps ----
+    exact, reg_ms, reg_bound = [], [], []
+    for (a, kw, out), _ in zip(timer.calls["tables + solve"][:SLAM_CHECKED],
+                               range(SLAM_CHECKED)):
+        local_map, feats, guess = a
+        timer.sync()
+        t0 = time.perf_counter()
+        res = register_scan_with_params(params, feats, local_map, guess)
+        timer.sync()
+        reg_ms.append((time.perf_counter() - t0) * 1e3)
+        d = (res.pose6[0] - out.pose6[0]).abs().cpu().numpy()
+        exact.append((float(d[3:].max()), float(d[:3].max())))
+        its = int(res.iterations[0])
+        q = [int(feats.corner_mask.sum()), int(feats.surf_mask.sum())]
+        m = [int(local_map.corner_mask.sum()), int(local_map.surf_mask.sum())]
+        slots = local_map.corner_xyz.shape[0] + local_map.surf_xyz.shape[0]
+        reg_bound.append(bound(its * slots * 16,
+                               its * 2 * 3 * (q[0] * m[0] + q[1] * m[1])))
+        print(f"phase 8 exact check: register_scan_with_params vs "
+              f"grid_register_step |diff| {d[3:].max():.3e} m "
+              f"{d[:3].max():.3e} rad; iterations {its} vs "
+              f"{int(out.iterations[0])}; n_corr {int(res.n_corr[0])} vs "
+              f"{int(out.n_corr[0])}; live features {q}, map points {m}",
+              flush=True)
+    if not all(t_ <= 3e-3 and r_ <= 3e-3 for t_, r_ in exact):
+        raise AssertionError(f"phase 8: exact vs grid {exact}")
+
+    # ---- save -> reload -> relocalize: the middle keyframe's scan, from
+    # 0.14 m off, against the saved map, back to that keyframe's pose ----
+    map_dir = os.path.join(REPO, "build", "slam_map")
+    pipe.save_map(map_dir)
+    gm = GlobalMap.from_pcd_dir(params, map_dir, device=dev)
+    loc = LocalizationPipeline(params, gm)
+    kf_steps = [k for k in range(N_SLAM)
+                if n_kf[k] > (n_kf[k - 1] if k else 0)]
+    j = len(kf_steps) // 2
+    k = kf_steps[j]
+    s_, dsk, _, t = scans[k]
+    loc.pose = pipe.kf_poses[j] + np.array([0, 0, 0, 0.1, -0.1, 0.0],
+                                           np.float32)
+    reloc = loc.step(raw_of(s_, dev), t, DeskewInfo(*(a.to(dev)
+                                                      for a in dsk)))
+    d_reloc = float(np.linalg.norm(reloc[3:] - pipe.kf_poses[j, 3:]))
+    print(f"phase 8 save_map -> GlobalMap.from_pcd_dir (corner "
+          f"{int(gm.corner_mask.sum())}, surf {int(gm.surf_mask.sum())}) -> "
+          f"LocalizationPipeline.step of keyframe {j}'s scan {k} from 0.14 m "
+          f"off: {d_reloc:.4f} m from the map's pose (bound 0.06), "
+          f"{np.linalg.norm(reloc[3:] - truth[k]):.4f} m from the truth",
+          flush=True)
+    if not d_reloc < 0.06:
+        raise AssertionError(f"phase 8: relocalized {d_reloc} m off")
+
+    # ---- times ----
+    steps_ms = np.array(wall[1:])
+    split = {name: float(np.sum(v)) / (N_SLAM - 1)
+             for name, v in timer.ms.items()}
+    print(f"time phase 8 step: {steps_ms.mean():.2f} ms wall a step (steps "
+          f"1-{N_SLAM - 1}; p50 {np.median(steps_ms):.2f}, max "
+          f"{steps_ms.max():.2f}); per step on average (synchronized host "
+          f"clock; graph LM inside keyframe + graph and loop closure, ICP "
+          f"inside loop closure): " + ", ".join(
+              f"{name} {ms:.2f} ms" for name, ms in split.items()),
+          flush=True)
+    print(f"time phase 8 graph: window LM {np.mean(window):.2f} ms "
+          f"({len(window)} solves of {pipe.opt_window} poses, 8 iterations),"
+          f" full graph {np.mean(full):.2f} ms ({len(full)} solves of "
+          f"{pipe.max_keyframes} poses, 12 iterations); ICP "
+          f"{np.mean(timer.ms['ICP']):.2f} ms a run, iterations {icp_iters}"
+          f"; host syncs a step (torch.cuda sync debug mode, steps "
+          f"{SLAM_CHECKED + 1}-{N_SLAM - 1}): mean "
+          f"{np.mean(syncs[SLAM_CHECKED + 1:]):.1f} min "
+          f"{min(syncs[SLAM_CHECKED + 1:])} max "
+          f"{max(syncs[SLAM_CHECKED + 1:])}", flush=True)
+    # one window LM solve again (no state change), profiled: how much of
+    # it the device is busy, and with what
+    g, _ = pipe._window_graph_data()
+    wall_p, busy, top = profile_call(
+        lambda: tslam.optimize_pose_graph(g, iterations=8))
+    print(f"profile phase 8 window LM (torch.profiler): wall {wall_p:.2f} ms"
+          f", device busy {busy:.2f} ms ({busy / wall_p:.1%}), {len(top)} "
+          f"kernel names; by device time: " + "; ".join(
+              f"{name[:60]} {ms:.3f}" for name, ms in top[:6]), flush=True)
+    print(f"time phase 8 register_scan: {np.mean(reg_ms):.2f} ms a solve "
+          f"({reg_ms}), bound {[round(b_[0], 4) for b_ in reg_bound]} ms "
+          f"({reg_bound[0][1]}; map slots x 16 B and 2*3*Q*M operations a "
+          f"GN iteration)", flush=True)
+    if dev.type == "cuda":
+        d = torch.rand(8192, 4096, device=dev) * 100
+        ms_key = cuda_ms(lambda: _extract_topk(d, 5), 10)
+        ms_sort = cuda_ms(lambda: torch.sort(d, dim=1, stable=True), 10)
+        print(f"time phase 8 knn selection on one [8192, 4096] chunk: "
+              f"int64-key top-5 {ms_key:.3f} ms, stable sort "
+              f"{ms_sort:.3f} ms", flush=True)
+    return launches, fetch_err
 
 
 def main():
@@ -1221,6 +1626,7 @@ def main():
                                               origin, 2.0, dims))
 
     loc_launches, loc_fetch, loc_err = localization_phase(dev)
+    slam_launches, slam_err = slam_phase(dev)
     loc = {}
     for kind, (name, ms, plain_ms, b_ms, b_by) in loc_fetch.items():
         loc.setdefault(name, {})[kind] = {
@@ -1230,7 +1636,9 @@ def main():
     def localization(name):
         return {"launches_localization": loc_launches[name],
                 "max_abs_err_localization": loc_err.get(name),
-                "localization": loc.get(name)}
+                "localization": loc.get(name),
+                "launches_slam": slam_launches[name],
+                "max_abs_err_slam": slam_err.get(name)}
 
     def entry(name, source, replaces, launches_, err, timed, **extra):
         return {"name": name, "route": "cuda",

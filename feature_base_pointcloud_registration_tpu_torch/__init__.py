@@ -13,8 +13,12 @@ rounds-structured solver (`ops.register.register_rounds_core`) behind
 localization pipeline (`pipeline.localization.LocalizationPipeline`:
 strict picking, IMU deskew, the crop box, `ops.register.grid_register_step`
 on the fetch kernels, the IMU attitude fusion; `pipeline.scan_buffer`,
-`imu.conversion`, `io.pcd`, `utils.log`).  The three TPU kernels are
-hand-written CUDA in `csrc/` (see `kernels.py`).  Functions take a leading
+`imu.conversion`, `io.pcd`, `utils.log`), the exact verification solver
+(`ops.knn`, `ops.register.register_scan`, `parallel.batch.batch_register`)
+and the SLAM back end (`pipeline.slam.SlamPipeline`: keyframes,
+`graph.pose_graph`, `ops.icp` loop closure, `save_map`; `native`, the
+host C++ runtime).  The three TPU kernels are hand-written CUDA in `csrc/`
+(see `kernels.py`).  Functions take a leading
 batch dimension where the JAX package vmaps over scans.
 """
 

@@ -5,10 +5,12 @@
 after `jax.tree.map(np.asarray, ...)` — into the port's NamedTuples of
 tensors, matched by class name.  `to_numpy` goes the other way.
 `planar_table_to_torch` carries a planar block table or a `PlanarTable`,
-`deskew_info_to_torch` a `DeskewInfo` and `global_map_to_torch` a
-`GlobalMap`.
-Here the map and the tables built from it stand where a model's weights
-would: the tests use these functions to give both packages identical state.
+`deskew_info_to_torch` a `DeskewInfo`, `global_map_to_torch` a
+`GlobalMap` and `slam_state_to_torch` a `SlamPipeline`'s host state (its
+keyframes and factor graph).
+Here the map, the tables built from it and the graph stand where a model's
+weights would: the tests use these functions to give both packages
+identical state.
 No function imports JAX, and none picks a device: the caller names it.
 """
 
@@ -18,7 +20,9 @@ import numpy as np
 import torch
 
 from .config import Params
+from .graph.pose_graph import PoseGraphData
 from .ops.fetch import PlanarTable
+from .ops.icp import ICPResult
 from .ops.register import RegisterResult
 from .ops.solver import GNState
 from .pipeline.cloud_info import (CloudInfo, DeskewInfo, FeatureMap, RawScan,
@@ -27,7 +31,16 @@ from .pipeline.localization import GlobalMap
 
 _TUPLES = {cls.__name__: cls for cls in
            (RawScan, CloudInfo, ScanFeatures, FeatureMap, RegisterResult,
-            GNState)}
+            GNState, PoseGraphData, ICPResult)}
+
+# SlamPipeline host state: NumPy arrays, factor lists and scalars
+SLAM_STATE = ("kf_corner", "kf_corner_mask", "kf_surf", "kf_surf_mask",
+              "kf_poses", "kf_times", "n_keyframes", "odom_meas",
+              "odom_sigma", "loop_factors", "gps_factors", "prior_factor",
+              "gps_queue", "last_gps_point", "pose_cov",
+              "carried_prior_sigma", "pose", "time_last_processing",
+              "last_imu_transform", "reset_id", "a_loop_is_closed",
+              "trajectory")
 
 
 def _is_namedtuple(x) -> bool:
@@ -88,6 +101,26 @@ def global_map_to_torch(global_map, *, device) -> GlobalMap:
     return GlobalMap(*(torch.from_numpy(np.array(getattr(global_map, f)))
                        .to(device) for f in ("corner_xyz", "corner_mask",
                                              "surf_xyz", "surf_mask")))
+
+
+def slam_state_to_torch(state, pipeline):
+    """Copy a SLAM pipeline's host state (either package's `SlamPipeline`,
+    the fields of SLAM_STATE) into the port's `pipeline` of the same
+    capacities; its device mirror of the keyframe clouds is rebuilt at next
+    use.  Returns `pipeline`."""
+    import copy
+
+    for name in SLAM_STATE:
+        value = getattr(state, name)
+        if isinstance(value, np.ndarray):
+            value = np.array(value)
+            if isinstance(getattr(pipeline, name), np.ndarray) and (
+                    value.shape != getattr(pipeline, name).shape):
+                raise ValueError(f"{name}: {value.shape} != "
+                                 f"{getattr(pipeline, name).shape}")
+        setattr(pipeline, name, copy.deepcopy(value))
+    pipeline._dev_clouds = None
+    return pipeline
 
 
 def params_from_dict(d: dict) -> Params:

@@ -1,0 +1,314 @@
+"""Sliding-window Levenberg-Marquardt pose-graph optimizer.
+
+Port of the JAX package's `graph/pose_graph.py`, the replacement for the
+reference's GTSAM iSAM2 back end (ref: src/mapOptmization.h:153-159
+construction, :1658-1669 updates) with the same factor types:
+
+  * prior factor on pose 0 (addOdomFactor first branch, ref :1520-1527)
+  * between (odometry) factors     (ref :1531-1539)
+  * GPS position factors           (addGPSFactor, ref :1543-1634)
+  * loop-closure between factors   (performLoopClosure, ref :743-765)
+
+iSAM2's incremental relinearization is replaced by batch LM over a
+fixed-capacity, masked window.  The state is poses [K, 6] in pose6 = (roll,
+pitch, yaw, x, y, z); residuals use GTSAM-style local coordinates
+[so3_log(rotation error), translation error] whitened by per-factor
+diagonal sigmas.  Jacobian blocks come from per-factor forward-mode
+derivatives (dual numbers, as the JAX package's `jax.jacfwd`),
+scattered into a dense Hessian with
+`index_put_(accumulate=True)`; one 6K x 6K Cholesky solve per LM step, in
+float32 after Jacobi scaling.  Marginal covariances are assembled and
+solved on the host in float64, as in the JAX package.
+
+Everything runs on the device of the graph's tensors.  The LM loop makes
+no host decision: a step is accepted with `torch.where`, and a
+factorization that fails (`torch.linalg.cholesky_ex`'s info != 0, where
+the JAX solve gives NaN) is a rejected step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.autograd.forward_ad as fwAD
+
+from ..geom.se3 import euler_to_rot, rot_to_euler, so3_log
+
+
+class PoseGraphData(NamedTuple):
+    """Fixed-capacity factor storage (masked)."""
+
+    poses: torch.Tensor        # f32 [K, 6] initial values
+    pose_mask: torch.Tensor    # bool [K] active variables
+    prior_idx: torch.Tensor    # i32 [Fp]
+    prior_meas: torch.Tensor   # f32 [Fp, 6]
+    prior_sigma: torch.Tensor  # f32 [Fp, 6]
+    prior_mask: torch.Tensor   # bool [Fp]
+    btw_i: torch.Tensor        # i32 [Fb]
+    btw_j: torch.Tensor        # i32 [Fb]
+    btw_meas: torch.Tensor     # f32 [Fb, 6] relative pose6 (i -> j)
+    btw_sigma: torch.Tensor    # f32 [Fb, 6]
+    btw_mask: torch.Tensor     # bool [Fb]
+    gps_idx: torch.Tensor      # i32 [Fg]
+    gps_meas: torch.Tensor     # f32 [Fg, 3]
+    gps_sigma: torch.Tensor    # f32 [Fg, 3]
+    gps_mask: torch.Tensor     # bool [Fg]
+
+    @staticmethod
+    def empty(K: int, Fp: int, Fb: int, Fg: int, *, device):
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        def one(*shape):
+            return torch.ones(shape, dtype=torch.float32, device=device)
+
+        return PoseGraphData(
+            poses=z(K, 6), pose_mask=z(K, dtype=torch.bool),
+            prior_idx=z(Fp, dtype=torch.int32), prior_meas=z(Fp, 6),
+            prior_sigma=one(Fp, 6), prior_mask=z(Fp, dtype=torch.bool),
+            btw_i=z(Fb, dtype=torch.int32), btw_j=z(Fb, dtype=torch.int32),
+            btw_meas=z(Fb, 6), btw_sigma=one(Fb, 6),
+            btw_mask=z(Fb, dtype=torch.bool),
+            gps_idx=z(Fg, dtype=torch.int32), gps_meas=z(Fg, 3),
+            gps_sigma=one(Fg, 3), gps_mask=z(Fg, dtype=torch.bool),
+        )
+
+
+def _local_coords(meas6, pose6):
+    """GTSAM-style error of `pose` w.r.t. measurement:
+    [log(Rm^T R), Rm^T (t - tm)]; broadcasts over leading dims."""
+    Rm_t = euler_to_rot(meas6[..., 0], meas6[..., 1],
+                        meas6[..., 2]).transpose(-1, -2)
+    R = euler_to_rot(pose6[..., 0], pose6[..., 1], pose6[..., 2])
+    dt = (Rm_t @ (pose6[..., 3:6] - meas6[..., 3:6])[..., None])[..., 0]
+    return torch.cat([so3_log(Rm_t @ R), dt], -1)
+
+
+def between_residual(pose_i, pose_j, meas6):
+    """Error of the relative transform (T_i^-1 T_j) w.r.t. meas."""
+    Ri_t = euler_to_rot(pose_i[..., 0], pose_i[..., 1],
+                        pose_i[..., 2]).transpose(-1, -2)
+    Rj = euler_to_rot(pose_j[..., 0], pose_j[..., 1], pose_j[..., 2])
+    tij = (Ri_t @ (pose_j[..., 3:6] - pose_i[..., 3:6])[..., None])[..., 0]
+    rel = torch.cat([torch.stack(rot_to_euler(Ri_t @ Rj), -1), tij], -1)
+    return _local_coords(meas6, rel)
+
+
+def _prior_res(pose, meas, sigma):
+    return _local_coords(meas, pose) / sigma
+
+
+def _btw_res(pose_i, pose_j, meas, sigma):
+    return between_residual(pose_i, pose_j, meas) / sigma
+
+
+def _gps_res(pose, meas, sigma):
+    return (pose[..., 3:6] - meas) / sigma
+
+
+def _with_jacobians(fn, args, argnums):
+    """fn's residuals of F independent factors (batched over F: args [F,
+    ...]) and their Jacobian blocks [F, n_out, 6] w.r.t. each args[a], a in
+    argnums, in forward mode like the JAX package's `jax.jacfwd`: the six
+    tangent directions of each differentiated argument become copies of
+    the batch, one dual-number evaluation (`torch.autograd.forward_ad`)
+    gives every column, and its primal part the residuals."""
+    F = args[0].shape[0]
+    n = 6 * len(argnums)
+    eye = torch.eye(6, dtype=args[0].dtype,
+                    device=args[0].device).repeat_interleave(F, 0)
+    with fwAD.dual_level():
+        # every argument dual (zero tangents but the differentiated ones):
+        # PyTorch takes a slow path for an op between a dual tensor and a
+        # plain one
+        duals = []
+        for i, a in enumerate(args):
+            rep = a.repeat(n, *[1] * (a.dim() - 1))
+            t = torch.zeros_like(rep)
+            if i in argnums:
+                k = argnums.index(i)
+                t[6 * F * k:6 * F * (k + 1)] = eye
+            duals.append(fwAD.make_dual(rep, t))
+        primal, tangent = fwAD.unpack_dual(fn(*duals))
+    J = tangent.reshape(len(argnums), 6, F, -1).permute(0, 2, 3, 1)
+    return primal[:F], list(J)
+
+
+def _residuals(g: PoseGraphData, poses):
+    """Whitened residuals of every factor (masked ones zeroed):
+    (r_p [Fp, 6], r_b [Fb, 6], r_g [Fg, 3])."""
+    p = _prior_res(poses[g.prior_idx.long()], g.prior_meas, g.prior_sigma)
+    b = _btw_res(poses[g.btw_i.long()], poses[g.btw_j.long()], g.btw_meas,
+                 g.btw_sigma)
+    r = _gps_res(poses[g.gps_idx.long()], g.gps_meas, g.gps_sigma)
+    return (torch.where(g.prior_mask[:, None], p, 0.0),
+            torch.where(g.btw_mask[:, None], b, 0.0),
+            torch.where(g.gps_mask[:, None], r, 0.0))
+
+
+def _graph_cost_terms(g: PoseGraphData, poses):
+    """All whitened residuals + per-factor Jacobian blocks (masked entries
+    zeroed): ((r_p, J_p), (r_b, J_bi, J_bj), (r_g, J_g))."""
+    r_p, (J_p,) = _with_jacobians(
+        _prior_res, (poses[g.prior_idx.long()], g.prior_meas,
+                     g.prior_sigma), (0,))
+    r_b, (J_bi, J_bj) = _with_jacobians(
+        _btw_res, (poses[g.btw_i.long()], poses[g.btw_j.long()],
+                   g.btw_meas, g.btw_sigma), (0, 1))
+    r_g, (J_g,) = _with_jacobians(
+        _gps_res, (poses[g.gps_idx.long()], g.gps_meas, g.gps_sigma), (0,))
+
+    def masked(x, m):
+        return torch.where(m.view(-1, *[1] * (x.dim() - 1)), x, 0.0)
+
+    return ((masked(r_p, g.prior_mask), masked(J_p, g.prior_mask)),
+            (masked(r_b, g.btw_mask), masked(J_bi, g.btw_mask),
+             masked(J_bj, g.btw_mask)),
+            (masked(r_g, g.gps_mask), masked(J_g, g.gps_mask)))
+
+
+def _assemble(g: PoseGraphData, poses, K):
+    """Dense H = J^T J and gradient = J^T r from per-factor blocks."""
+    (r_p, J_p), (r_b, J_bi, J_bj), (r_g, J_g) = _graph_cost_terms(g, poses)
+    D = K * 6
+    dev = poses.device
+    H = torch.zeros(D, D, dtype=torch.float32, device=dev)
+    grad = torch.zeros(D, dtype=torch.float32, device=dev)
+    six = torch.arange(6, device=dev)
+
+    def rows(idx):
+        return idx.long()[:, None] * 6 + six[None, :]          # [F, 6]
+
+    def add_block(idx_a, idx_b, Ja, Jb):
+        blocks = torch.einsum("fab,fac->fbc", Ja, Jb)
+        ra, rb = rows(idx_a), rows(idx_b)
+        H.index_put_((ra[:, :, None].expand(-1, -1, 6),
+                       rb[:, None, :].expand(-1, 6, -1)), blocks,
+                      accumulate=True)
+
+    def add_grad(idx, J, r):
+        grad.index_put_((rows(idx),), torch.einsum("fab,fa->fb", J, r),
+                        accumulate=True)
+
+    add_block(g.prior_idx, g.prior_idx, J_p, J_p)
+    add_grad(g.prior_idx, J_p, r_p)
+    # betweens (4 blocks each)
+    add_block(g.btw_i, g.btw_i, J_bi, J_bi)
+    add_block(g.btw_j, g.btw_j, J_bj, J_bj)
+    add_block(g.btw_i, g.btw_j, J_bi, J_bj)
+    add_block(g.btw_j, g.btw_i, J_bj, J_bi)
+    add_grad(g.btw_i, J_bi, r_b)
+    add_grad(g.btw_j, J_bj, r_b)
+    # gps (Jacobian blocks are [F, 3, 6])
+    add_block(g.gps_idx, g.gps_idx, J_g, J_g)
+    add_grad(g.gps_idx, J_g, r_g)
+    cost = (r_p * r_p).sum() + (r_b * r_b).sum() + (r_g * r_g).sum()
+    return H, grad, cost
+
+
+def _total_cost(g: PoseGraphData, poses):
+    r_p, r_b, r_g = _residuals(g, poses)
+    return (r_p * r_p).sum() + (r_b * r_b).sum() + (r_g * r_g).sum()
+
+
+def optimize_pose_graph(g: PoseGraphData, iterations: int = 10):
+    """Levenberg-Marquardt over the masked window, `iterations` steps.
+
+    Returns (optimized poses [K, 6], final cost []).  Inactive poses
+    (mask False) are pinned by a unit ridge so H stays invertible."""
+    K = g.poses.shape[0]
+    active = g.pose_mask.repeat_interleave(6)
+    pin = torch.where(active, 0.0, 1.0)
+    poses = g.poses
+    cost = _total_cost(g, poses)
+    lam = torch.tensor(1e-4, dtype=torch.float32, device=poses.device)
+    for _ in range(iterations):
+        H, grad, _ = _assemble(g, poses, K)
+        # Jacobi-precondition before the float32 Cholesky: factor weights
+        # span ~1e-8 (the wide gauge prior) to ~1e6 (tight betweens,
+        # fit-scaled loop factors), far beyond float32 solve conditioning;
+        # after scaling, the uniform relative damping `lam` (floor 1e-6)
+        # bounds the condition number even along the gauge direction.
+        d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12)) + pin
+        A = H / (d[:, None] * d[None, :]) + torch.diag(lam + pin)
+        L, info = torch.linalg.cholesky_ex(A)
+        dy = torch.cholesky_solve((-grad / d)[:, None], L)[:, 0]
+        dx = torch.where(active, dy / d, 0.0)
+        new_poses = poses + dx.reshape(K, 6)
+        new_cost = _total_cost(g, new_poses)
+        # a failed factorization is a rejected step (the JAX solve's NaN)
+        accept = (info == 0) & (new_cost < cost)
+        poses = torch.where(accept, new_poses, poses)
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-6),
+                          torch.clamp(lam * 4.0, max=1e6))
+    return poses, cost
+
+
+def graph_factor_blocks(g: PoseGraphData, poses):
+    """Whitened per-factor residuals + Jacobian blocks at `poses` (masked
+    entries zeroed): the square-root-form inputs of the host-side float64
+    marginal covariances."""
+    return _graph_cost_terms(g, poses)
+
+
+def pose_marginal_covariances(g: PoseGraphData, poses, idxs,
+                              active: int | None = None):
+    """6x6 marginal covariances of several poses from ONE factorization.
+
+    The reference reads isam->marginalCovariance(latest) after every update
+    (ref: src/mapOptmization.h:1706) to gate GPS factors (poseCovThreshold,
+    ref :1596-1599).  The Jacobian blocks come off the device in float32;
+    the Hessian is assembled and inverted on the host in float64 (in
+    float32, the 1e-8-information prior summed into 1e6-scale between
+    blocks vanishes and H goes singular along the gauge).
+
+    poses: [K, 6] numpy or tensor.  `active` restricts assembly and solve
+    to the first `active` poses (every factor endpoint must lie below it,
+    as in the SLAM graph's padded storage).  All `idxs` share one
+    assembly and one factorization."""
+    poses = torch.as_tensor(np.asarray(poses, np.float32),
+                            device=g.poses.device)
+    (r_p, J_p), (r_b, J_bi, J_bj), (r_g, J_g) = [
+        [t.detach().cpu().numpy().astype(np.float64) for t in group]
+        for group in graph_factor_blocks(g, poses)]
+    K = g.poses.shape[0]
+    n = K if active is None else min(int(active), K)
+    if any(int(i) >= n for i in idxs):
+        raise ValueError(f"requested pose index >= active count {n}")
+    D = n * 6
+    H = np.zeros((D, D))
+
+    def add(ia, ib, Ja, Jb):
+        blocks = np.einsum("fab,fac->fbc", Ja, Jb)
+        for f in range(len(ia)):
+            a, b = ia[f], ib[f]
+            if a < n and b < n:
+                H[a * 6:(a + 1) * 6, b * 6:(b + 1) * 6] += blocks[f]
+
+    pi = g.prior_idx.cpu().numpy()
+    bi, bj = g.btw_i.cpu().numpy(), g.btw_j.cpu().numpy()
+    gi = g.gps_idx.cpu().numpy()
+    add(pi, pi, J_p, J_p)
+    add(bi, bi, J_bi, J_bi)
+    add(bj, bj, J_bj, J_bj)
+    add(bi, bj, J_bi, J_bj)
+    add(bj, bi, J_bj, J_bi)
+    add(gi, gi, J_g, J_g)
+    active_rows = np.repeat(g.pose_mask.cpu().numpy()[:n], 6)
+    H[np.diag_indices(D)] += np.where(active_rows, 0.0, 1.0)
+
+    cols = np.concatenate([int(i) * 6 + np.arange(6) for i in idxs])
+    E = np.zeros((D, len(cols)))
+    E[cols, np.arange(len(cols))] = 1.0
+    X = np.linalg.solve(H, E)
+    return [X[int(i) * 6 + np.arange(6)][:, k * 6:(k + 1) * 6]
+            for k, i in enumerate(idxs)]
+
+
+def pose_marginal_covariance(g: PoseGraphData, poses, idx: int,
+                             active: int | None = None):
+    """6x6 marginal covariance [rot(3), trans(3)] of pose `idx`."""
+    return pose_marginal_covariances(g, poses, [idx], active=active)[0]

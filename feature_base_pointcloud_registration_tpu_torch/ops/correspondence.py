@@ -1,9 +1,9 @@
 """Point-to-line / point-to-plane correspondence with analytic coefficients.
 
-Port of the candidate path of the JAX package's `ops/correspondence.py`, a
-vectorized rebuild of cornerOptimization / surfOptimization (ref:
-src/mapOptmization.h:1002-1215).  Every query point is processed at once;
-all accept/reject gates become masks:
+Port of the JAX package's `ops/correspondence.py`, a vectorized rebuild of
+cornerOptimization / surfOptimization (ref: src/mapOptmization.h:1002-1215).
+Every query point is processed at once; all accept/reject gates become
+masks:
 
   corner: 5th-NN d2 < 1.0 (ref :1027), line test l0 > 3*l1 (ref :1063),
           weight s = 1 - 0.9*|ld2| > 0.1 (ref :1106,1115)
@@ -14,8 +14,11 @@ all accept/reject gates become masks:
 Outputs per query point: unit-direction coefficients scaled by s, weighted
 residual, validity mask.  Rejected points are zeroed with `torch.where`, so
 the junk arithmetic of a point with no candidates (FAR or zero coordinates)
-never reaches the solve.  Shapes: pts_world [N,3], valid [N], cand_xyz
-[N,K,3], cand_valid [N,K]; the batched solver flattens its lanes into N.
+never reaches the solve.  Shapes of the candidate path: pts_world [N,3],
+valid [N], cand_xyz [N,K,3], cand_valid [N,K]; the batched solver flattens
+its lanes into N.  The `knn_fn` path (`corner_correspondence`,
+`surf_correspondence`) takes the exact 5-NN of a search function and keeps
+the caller's leading dims.
 """
 
 from __future__ import annotations
@@ -48,6 +51,34 @@ def _cand_d2(pts_world, cand_xyz, cand_valid):
     diff = pts_world[:, None, :] - cand_xyz
     d2 = (diff * diff).sum(-1)
     return torch.where(cand_valid, d2, _BIG)
+
+
+def _from_knn(tail, pts_world, valid, knn_fn, **kw):
+    """A fit tail on the exact 5-NN of knn_fn: pts_world [..., N, 3] ->
+    (coeff [..., N, 3], resid [..., N], mask [..., N])."""
+    d2, nn = knn_fn(pts_world)                  # [..., N, 5], [..., N, 5, 3]
+    lead = pts_world.shape[:-1]
+    d2 = d2.reshape(-1, d2.shape[-1])
+    coeff, resid, mask = tail(
+        pts_world.reshape(-1, 3), valid.reshape(-1),
+        nn.reshape(-1, *nn.shape[-2:]), torch.ones_like(d2, dtype=torch.bool),
+        d2.amax(-1), **kw)
+    return coeff.reshape(*lead, 3), resid.reshape(lead), mask.reshape(lead)
+
+
+def corner_correspondence(pts_world, valid, knn_fn):
+    """Point-to-line coefficients for corner features from knn_fn: q ->
+    (d2 [..., 5], nn [..., 5, 3]), the exact 5-NN (every neighbor used).
+    pts_world [..., N, 3], valid [..., N]."""
+    return _from_knn(_corner_from_candidates, pts_world, valid, knn_fn)
+
+
+def surf_correspondence(pts_world, valid, knn_fn, *,
+                        min_plane_spread: float = 0.0):
+    """Point-to-plane coefficients for surface features from knn_fn (as
+    `corner_correspondence`)."""
+    return _from_knn(_surf_from_candidates, pts_world, valid, knn_fn,
+                     min_plane_spread=min_plane_spread)
 
 
 def corner_correspondence_cand(pts_world, valid, cand_xyz, cand_valid):

@@ -1,11 +1,16 @@
-"""Scan-to-map registration: the result type, the rounds-structured solve,
-the localization step's grid registration and the IMU fusion epilogue.
+"""Scan-to-map registration: the result type, the exact streamed-k-NN
+solve, the rounds-structured solve, the pipelines' grid registration step
+and the IMU fusion epilogue.
 
 Port of the JAX package's `ops/register.py` (`RegisterResult`,
+`register_core`, `register_scan`, `register_scan_with_params`,
 `register_rounds_core`, `grid_register_step`, `transform_update`).  The
 fused solve of the batched main path lives in `parallel/batch.py`; the
 rounds solver is the body of `batch_register_blocks` and
 `batch_register_pallas` there, and of `grid_register_step` here.
+`register_scan` is the exactness check: every GN iteration streams the
+whole map through `ops/knn.py` (scan2MapOptimization with the reference's
+KD-tree search, ref: src/mapOptmization.h:1403-1442).
 """
 
 from __future__ import annotations
@@ -16,8 +21,11 @@ import torch
 
 from ..geom.se3 import (euler_from_quat, euler_to_rot, quat_from_euler,
                         quat_slerp)
-from .correspondence import (corner_correspondence_cand,
+from .correspondence import (corner_correspondence,
+                             corner_correspondence_cand, surf_correspondence,
                              surf_correspondence_cand)
+from .hashgrid import default_grid_spec, grid_origin, grid_overflow_fraction
+from .knn import make_local_knn
 from .solver import GNState, gn_step
 
 
@@ -42,6 +50,140 @@ def world_components(pose, xyz):
 def _to_world(pose, xyz):
     """World points [B*P, 3] of features [B,P,3] at poses [B,6]."""
     return torch.stack(world_components(pose, xyz), dim=-1).reshape(-1, 3)
+
+
+def _initial(features, init_pose6, edge_min_valid, surf_min_valid):
+    """(gate [B], GNState) before a lane's first iteration: the feature-count
+    gate (ref :1410), the pose, an identity projector."""
+    B = features.corner_xyz.shape[0]
+    dev = features.corner_xyz.device
+    gate = ((features.corner_mask.sum(1) > edge_min_valid)
+            & (features.surf_mask.sum(1) > surf_min_valid))
+    false = torch.zeros(B, dtype=torch.bool, device=dev)
+    return gate, GNState(
+        pose6=torch.as_tensor(init_pose6, dtype=torch.float32,
+                              device=dev).clone(),
+        matP=torch.eye(6, dtype=torch.float32, device=dev).repeat(B, 1, 1),
+        is_degenerate=false,
+        converged=false,
+        n_corr=torch.zeros(B, dtype=torch.int32, device=dev),
+    )
+
+
+def _freeze(active, new, old):
+    """`new` where the lane is active, else `old` (a GNState per lane)."""
+    B = active.shape[0]
+    return GNState(*(torch.where(active.view(B, *[1] * (n.dim() - 1)), n, o)
+                     for n, o in zip(new, old)))
+
+
+def register_core(features, corner_knn, surf_knn, init_pose6, *,
+                  max_iterations: int = 30, min_correspondences: int = 50,
+                  eigen_threshold: float = 100.0, edge_min_valid: int = 10,
+                  surf_min_valid: int = 100, converge_rot_deg: float = 0.05,
+                  converge_trans_cm: float = 0.05) -> RegisterResult:
+    """LOAM scan-to-map Gauss-Newton solve with pluggable neighbor search,
+    over a batch of lanes.
+
+    features: ScanFeatures [B, ...]; init_pose6 [B, 6].  corner_knn /
+    surf_knn: world points [B, P, 3] -> (d2 [B, P, 5], nn [B, P, 5, 3]),
+    the exact 5-NN (`make_local_knn`).  Per lane, as the JAX package's
+    vmapped while-loop: iterate while the lane is under max_iterations,
+    not converged and through the feature-count gate; the projector is
+    taken at the lane's iteration 0.  A stopped lane is frozen with
+    `torch.where`; the loop asks the host once an iteration whether any
+    lane is still active."""
+    B = features.corner_xyz.shape[0]
+    gate, state = _initial(features, init_pose6, edge_min_valid,
+                           surf_min_valid)
+    it = torch.zeros(B, dtype=torch.int32, device=gate.device)
+    pts_all = torch.cat([features.corner_xyz, features.surf_xyz], dim=1)
+    for _ in range(max_iterations):
+        active = gate & ~state.converged
+        if not bool(active.any()):
+            break
+        c_coeff, c_resid, c_mask = corner_correspondence(
+            torch.stack(world_components(state.pose6, features.corner_xyz),
+                        -1), features.corner_mask, corner_knn)
+        s_coeff, s_resid, s_mask = surf_correspondence(
+            torch.stack(world_components(state.pose6, features.surf_xyz),
+                        -1), features.surf_mask, surf_knn)
+        new = gn_step(
+            state, pts_all, torch.cat([c_coeff, s_coeff], 1),
+            torch.cat([c_resid, s_resid], 1), torch.cat([c_mask, s_mask], 1),
+            it, min_correspondences=min_correspondences,
+            eigen_threshold=eigen_threshold,
+            converge_rot_deg=converge_rot_deg,
+            converge_trans_cm=converge_trans_cm)
+        state = _freeze(active, new, state)
+        it = it + active.to(torch.int32)
+    return RegisterResult(
+        pose6=state.pose6,
+        converged=state.converged,
+        iterations=it,
+        n_corr=state.n_corr,
+        is_degenerate=state.is_degenerate,
+        valid=gate,
+    )
+
+
+def register_scan(features, local_map, init_pose6, *,
+                  max_iterations: int = 30, min_correspondences: int = 50,
+                  eigen_threshold: float = 100.0, edge_min_valid: int = 10,
+                  surf_min_valid: int = 100, chunk: int = 4096,
+                  converge_rot_deg: float = 0.05,
+                  converge_trans_cm: float = 0.05) -> RegisterResult:
+    """Scan-to-map solve on the exact streamed 5-NN (scan2MapOptimization
+    equivalent), on the device of its inputs.
+
+    features: downsampled corner/surf sets in the lidar frame [B, ...];
+    local_map: padded FeatureMap in the world frame, one for all lanes
+    ([M, 3]) or one per lane ([B, M, 3]); M a multiple of `chunk`;
+    init_pose6 [B, 6] (roll, pitch, yaw, x, y, z)."""
+    return register_core(
+        features,
+        make_local_knn(local_map.corner_xyz, local_map.corner_mask, chunk),
+        make_local_knn(local_map.surf_xyz, local_map.surf_mask, chunk),
+        init_pose6,
+        max_iterations=max_iterations,
+        min_correspondences=min_correspondences,
+        eigen_threshold=eigen_threshold,
+        edge_min_valid=edge_min_valid,
+        surf_min_valid=surf_min_valid,
+        converge_rot_deg=converge_rot_deg,
+        converge_trans_cm=converge_trans_cm,
+    )
+
+
+def register_scan_with_params(params, features, local_map, init_pose6,
+                              imu_rpy_init=None, imu_available=None
+                              ) -> RegisterResult:
+    """`register_scan` with the Params thresholds, then the IMU fusion
+    epilogue `transform_update` (imu_rpy_init [B, 3], imu_available [B],
+    True when not given) on the lanes through the feature gate only
+    (ref :1438)."""
+    res = register_scan(
+        features, local_map, init_pose6,
+        max_iterations=params.max_gn_iterations,
+        min_correspondences=params.min_correspondences,
+        eigen_threshold=params.degeneracy_eigen_threshold,
+        edge_min_valid=params.edge_feature_min_valid_num,
+        surf_min_valid=params.surf_feature_min_valid_num,
+        chunk=params.knn_chunk,
+        converge_rot_deg=params.converge_delta_rot_deg,
+        converge_trans_cm=params.converge_delta_trans_cm,
+    )
+    if imu_rpy_init is None:
+        return res
+    if imu_available is None:
+        imu_available = torch.ones_like(res.valid)
+    pose = transform_update(
+        res.pose6, imu_rpy_init, imu_available,
+        imu_weight=params.imu_attitude_weight,
+        rotation_tolerance=params.rotation_tolerance,
+        z_tolerance=params.z_tolerance)
+    return res._replace(pose6=torch.where(res.valid[:, None], pose,
+                                          res.pose6))
 
 
 def register_rounds_core(
@@ -79,17 +221,9 @@ def register_rounds_core(
     B, Pc, _ = features.corner_xyz.shape
     Ps = features.surf_xyz.shape[1]
     dev = features.corner_xyz.device
-    gate = ((features.corner_mask.sum(1) > edge_min_valid)
-            & (features.surf_mask.sum(1) > surf_min_valid))
-    false = torch.zeros(B, dtype=torch.bool, device=dev)
-    state = GNState(
-        pose6=torch.as_tensor(init_pose6, dtype=torch.float32,
-                              device=dev).clone(),
-        matP=torch.eye(6, dtype=torch.float32, device=dev).repeat(B, 1, 1),
-        is_degenerate=false,
-        converged=false,
-        n_corr=torch.zeros(B, dtype=torch.int32, device=dev),
-    )
+    gate, state = _initial(features, init_pose6, edge_min_valid,
+                           surf_min_valid)
+    false = state.converged
     it = torch.zeros(B, dtype=torch.int32, device=dev)
     pts_all = torch.cat([features.corner_xyz, features.surf_xyz], dim=1)
     cmask = features.corner_mask.reshape(B * Pc)
@@ -121,9 +255,7 @@ def register_rounds_core(
                 eigen_threshold=eigen_threshold,
                 converge_rot_deg=converge_rot_deg,
                 converge_trans_cm=converge_trans_cm)
-            state = GNState(*(
-                torch.where(active.view(B, *[1] * (n.dim() - 1)), n, o)
-                for n, o in zip(new, state)))
+            state = _freeze(active, new, state)
             done = done + active.to(torch.int32)
         it = it + done
 
@@ -174,6 +306,22 @@ def grid_register_step(local_map, features, pose6, *, half_extent,
         min_correspondences=min_correspondences,
         edge_min_valid=edge_min_valid, surf_min_valid=surf_min_valid,
         min_plane_spread=min_plane_spread)
+
+
+def grid_overflow(local_map, center, *, half_extent, cell_size: float = 2.0,
+                  corner_cell_cap: int = 16, surf_cell_cap: int = 64):
+    """Share of the local map's in-grid corner and surf points that the
+    tables of `grid_register_step` around `center` [3] drop at their cell
+    caps: a float32 [2] tensor on the map's device (no host sync)."""
+    dims = default_grid_spec(half_extent, cell_size)
+    origin = grid_origin(center, half_extent,
+                         device=local_map.corner_xyz.device)
+    return torch.stack([
+        grid_overflow_fraction(xyz, m, origin, cell_size, dims=dims,
+                               cell_cap=cap)
+        for xyz, m, cap in (
+            (local_map.corner_xyz, local_map.corner_mask, corner_cell_cap),
+            (local_map.surf_xyz, local_map.surf_mask, surf_cell_cap))])
 
 
 def transform_update(pose6, imu_rpy_init, imu_available,

@@ -24,7 +24,14 @@ def voxel_downsample(pts, mask, leaf_size, cap: int):
     """Centroid voxel filter over the last point axis.
 
     pts [..., N, 3], mask [..., N] -> (centroids [..., cap, 3],
-    mask [..., cap], count [...] int32)."""
+    mask [..., cap], count [...] int32, at most cap)."""
+    out, out_mask, n_vox = voxel_filter(pts, mask, leaf_size, cap)
+    return out, out_mask, torch.clamp(n_vox, max=cap).to(torch.int32)
+
+
+def voxel_filter(pts, mask, leaf_size, cap: int):
+    """`voxel_downsample` whose count is the number of voxels BEFORE the
+    cap (int64 [...]): above cap, the largest keys were dropped."""
     lead = pts.shape[:-2]
     n = pts.shape[-2]
     pts = pts.reshape(-1, n, 3)
@@ -58,9 +65,8 @@ def voxel_downsample(pts, mask, leaf_size, cap: int):
     acc = acc[:, :cap].to(torch.float32)
     sums, counts = acc[..., :3], acc[..., 3]
 
-    count = torch.clamp(n_vox, max=cap)
-    out_mask = torch.arange(cap, device=dev)[None, :] < count[:, None]
+    out_mask = torch.arange(cap, device=dev)[None, :] < n_vox[:, None]
     out = sums / torch.clamp(counts, min=1.0)[..., None]
     out = torch.where(out_mask[..., None], out, 0.0)
     return (out.reshape(*lead, cap, 3), out_mask.reshape(*lead, cap),
-            count.to(torch.int32).reshape(lead))
+            n_vox.reshape(lead))

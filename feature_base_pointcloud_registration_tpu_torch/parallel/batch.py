@@ -14,6 +14,9 @@ axis.
     rounds-structured solver `ops.register.register_rounds_core`.
   * `batch_register_blocks` — that solver on the plain block-table fetch
     (`ops.hashgrid.grid_knn_block`), kernel-free.
+  * `batch_register` — the exact solve `ops.register.register_scan`
+    (streamed 5-NN, no table) over a batch, against one shared map or one
+    map per scan.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..ops.hashgrid import (build_block_table, build_grid_sentinel,
                             default_grid_spec, grid_origin,
                             make_block_grid_knn)
 from ..ops.register import (RegisterResult, register_rounds_core,
-                            world_components)
+                            register_scan, world_components)
 from ..pipeline.cloud_info import FeatureMap, ScanFeatures
 
 
@@ -289,3 +292,15 @@ def batch_register_blocks(features: ScanFeatures, corner_block, surf_block,
         num_rounds=num_rounds, iters_per_round=iters_per_round,
         edge_min_valid=edge_min_valid, surf_min_valid=surf_min_valid,
         min_plane_spread=min_plane_spread)
+
+
+def batch_register(features: ScanFeatures, local_map: FeatureMap,
+                   init_poses, *, chunk: int = 4096,
+                   max_iterations: int = 30) -> RegisterResult:
+    """The exact solve over a batch (the JAX package vmaps `register_scan`;
+    here its lane axis is the batch axis of `register_scan` itself).
+
+    features [B, ...]; local_map shared ([M, 3] / [M]) or per scan
+    ([B, M, 3] / [B, M]); init_poses [B, 6]."""
+    return register_scan(features, local_map, init_poses, chunk=chunk,
+                         max_iterations=max_iterations)

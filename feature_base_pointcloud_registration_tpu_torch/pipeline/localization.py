@@ -15,7 +15,10 @@ cloudHandler at src/imageProjection.cpp:203-225):
      src/imageProjection.cpp:206-218).
 
 The map lives on the device it was loaded to; the pose chain and the rate
-gate are host state like the reference's statics.
+gate are host state like the reference's statics.  The crop's caps and the
+grid tables' cell caps, which the reference does not have, are reported:
+a step that drops points emits a `localization/dropped_points` warn event,
+its counts carried in the one copy of the pose to the host.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ import torch
 
 from ..config import Params
 from ..ops.cropbox import crop_box
-from ..ops.register import (RegisterResult, grid_register_step,
-                            transform_update)
+from ..ops.register import (RegisterResult, grid_overflow,
+                            grid_register_step, transform_update)
 from ..ops.voxel import voxel_downsample
 from ..utils.log import get_logger
 from .cloud_info import DeskewInfo, FeatureMap, RawScan
@@ -86,12 +89,13 @@ class GlobalMap:
 
 def _crop_local_map(gm_corner, gm_corner_mask, gm_surf, gm_surf_mask,
                     center, *, half_extent, map_corner_cap, map_surf_cap):
-    """CropBox local map around the pose guess (ref :283-304)."""
+    """CropBox local map around the pose guess (ref :283-304), and the
+    corner and surf points inside the box before the caps (int32 [2])."""
     he = torch.tensor(half_extent, dtype=torch.float32, device=center.device)
-    cx, cm, _ = crop_box(gm_corner, gm_corner_mask, center, he,
-                         map_corner_cap)
-    sx, sm, _ = crop_box(gm_surf, gm_surf_mask, center, he, map_surf_cap)
-    return FeatureMap(cx, cm, sx, sm)
+    cx, cm, nc = crop_box(gm_corner, gm_corner_mask, center, he,
+                          map_corner_cap)
+    sx, sm, ns = crop_box(gm_surf, gm_surf_mask, center, he, map_surf_cap)
+    return FeatureMap(cx, cm, sx, sm), torch.stack([nc, ns])
 
 
 class LocalizationPipeline:
@@ -129,13 +133,13 @@ class LocalizationPipeline:
         if deskew_info is None:
             deskew_info = DeskewInfo.empty(1, p.imu_queue_len, device=dev)
 
-        local_map = _crop_local_map(
+        local_map, inside = _crop_local_map(
             gm.corner_xyz, gm.corner_mask, gm.surf_xyz, gm.surf_mask,
             guess[0, 3:6], half_extent=tuple(p.local_map_half_extent),
             map_corner_cap=p.map_corner_cap, map_surf_cap=p.map_surf_cap)
+        he = tuple(p.register_grid_half_extent)
         res = grid_register_step(
-            local_map, feats, guess,
-            half_extent=tuple(p.register_grid_half_extent),
+            local_map, feats, guess, half_extent=he,
             max_iterations=p.max_gn_iterations,
             min_correspondences=p.min_correspondences,
             edge_min_valid=p.edge_feature_min_valid_num,
@@ -149,12 +153,34 @@ class LocalizationPipeline:
         res = res._replace(
             pose6=torch.where(res.valid[:, None], fused, res.pose6))
         self.last_result = res
-        self.pose = res.pose6[0].cpu().numpy()
+        # one copy to the host: the pose, the result's fields, the points
+        # in the crop box and the grid tables' dropped shares
+        host = torch.cat([
+            res.pose6[0], torch.stack([
+                res.n_corr[0], res.iterations[0], res.converged[0],
+                res.is_degenerate[0], res.valid[0]]).to(torch.float32),
+            inside.to(torch.float32),
+            grid_overflow(local_map, guess[0, 3:6], half_extent=he)
+        ]).cpu().numpy()
+        self.pose = host[:6].copy()
+        n_corr, iters, conv, degen, valid = host[6:11]
+        # the reference's CropBox and KD-tree have no cap: say what the
+        # port's fixed capacities drop
+        for kind, total, cap in (("corner", host[11], p.map_corner_cap),
+                                 ("surf", host[12], p.map_surf_cap)):
+            if total > cap:
+                self._log.warn("localization/dropped_points", time=timestamp,
+                               cap="crop", feature=kind,
+                               dropped=int(total) - cap, kept=cap)
+        for kind, share in (("corner", host[13]), ("surf", host[14])):
+            if share > 0:
+                self._log.warn("localization/dropped_points", time=timestamp,
+                               cap="grid_cell", feature=kind,
+                               dropped_share=float(share))
         # publishOdometry analog (ref :339-341, :1791-1848)
-        valid = bool(res.valid[0])
         self._log.event(
             "localization/odometry", level="info" if valid else "warn",
-            time=timestamp, pose=self.pose, n_corr=res.n_corr[0],
-            iterations=res.iterations[0], converged=res.converged[0],
-            degenerate=res.is_degenerate[0], gate_valid=valid)
+            time=timestamp, pose=self.pose, n_corr=int(n_corr),
+            iterations=int(iters), converged=bool(conv),
+            degenerate=bool(degen), gate_valid=bool(valid))
         return self.pose

@@ -14,7 +14,13 @@ the solvers on the GPU within 1e-4 of the same solvers on the CPU (the
 GN kernel's arithmetic, and `torch.linalg.eigh` on the card).  The
 localization path: strict picks on the card bitwise equal to the CPU's on
 the same cloud, deskewed clouds within 2e-5 m (the card's sin/cos), one
-`LocalizationPipeline.step` within 1e-4 of the CPU's.
+`LocalizationPipeline.step` within 1e-4 of the CPU's.  The exact solver
+and the SLAM path: `_extract_topk` on the card equal to a stable sort (the
+lower index wins ties, which `torch.topk` alone does not promise on CUDA);
+the streamed `knn` on the card against the CPU (d2 within 1e-6 of the
+cancelled terms |q-c|^2 + |m-c|^2, indices equal except at near-ties);
+`register_scan` and two `SlamPipeline.step`s on the card within 1e-4 of
+the CPU (the second on the fetch kernels).
 """
 
 import numpy as np
@@ -496,3 +502,100 @@ def test_localization_step_on_gpu_matches_cpu(cuda):
     assert launches == [6, 0]
     np.testing.assert_allclose(poses[0], poses[1], rtol=0, atol=1e-4)
     assert np.abs(poses[1][3:] - [1.0, -2.0, 0.4]).max() < 0.05
+
+
+@pytest.mark.cuda
+def test_extract_topk_on_gpu_is_a_stable_sort(cuda):
+    from feature_base_pointcloud_registration_tpu_torch.ops.knn import (
+        _extract_topk)
+    r = np.random.RandomState(5)
+    d = torch.from_numpy(r.randint(0, 4, (3000, 4096)).astype(
+        np.float32)).to(cuda)
+    d[:, 100:200] = 3.0e38
+    for k in (1, 5, 16):
+        v, i = _extract_topk(d, k)
+        vs, is_ = torch.sort(d, dim=1, stable=True)
+        assert torch.equal(v, vs[:, :k]) and torch.equal(i.long(),
+                                                         is_[:, :k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5])
+def test_knn_on_gpu_matches_cpu(cuda, k):
+    from feature_base_pointcloud_registration_tpu_torch.ops.knn import knn
+    r = np.random.RandomState(k)
+    q = (r.uniform(-20, 20, (2000, 3)) + 50).astype(np.float32)
+    ref = (r.uniform(-20, 20, (16384, 3)) + 50).astype(np.float32)
+    mask = r.uniform(size=16384) < 0.8
+    out = [knn(*(torch.from_numpy(a).to(dev) for a in (q, ref, mask)),
+               k=k, chunk=4096) for dev in (cuda, torch.device("cpu"))]
+    d2g, ig = (a.cpu().numpy() for a in out[0])
+    d2c, ic = (a.numpy() for a in out[1])
+    c = q.astype(np.float64).mean(0)
+    tol = 1e-6 * (((q - c) ** 2).sum(-1)[:, None]
+                  + ((ref[ic].astype(np.float64) - c) ** 2).sum(-1))
+    assert (np.abs(d2g - d2c) <= tol).all()
+    swapped = ig != ic
+    exact = [((ref[a] - q[i]) ** 2).sum() - ((ref[b] - q[i]) ** 2).sum()
+             for i, a, b in zip(np.nonzero(swapped)[0], ig[swapped],
+                                ic[swapped])]
+    assert all(abs(e) <= 2 * t for e, t in zip(exact, tol[swapped]))
+    assert swapped.mean() < 1e-3
+
+
+@pytest.mark.cuda
+def test_register_scan_on_gpu_matches_cpu(cuda):
+    from feature_base_pointcloud_registration_tpu_torch.ops.register import (
+        register_scan)
+    params = Params(strict_feature_pick=False)
+    world = SyntheticWorld()
+    gt = np.array([0.0, 0.0, 0.25, 2.0, -1.0, 0.0], np.float32)
+    s = simulate_scan(world, gt, seed=9)
+    arrays = build_feature_map(world, 8192, 65536)
+    poses = []
+    for dev in (cuda, torch.device("cpu")):
+        raw = cloud_info.RawScan.from_numpy(
+            s["xyz"], s["intensity"], s["ring"], s["time"],
+            device=dev)._replace(valid=torch.from_numpy(s["valid"]).to(dev))
+        _, feats = tfront.process_scan(
+            params, cloud_info.RawScan(*(a[None] for a in raw)))
+        res = register_scan(feats, FeatureMap(
+            *(torch.from_numpy(a).to(dev) for a in arrays)),
+            torch.from_numpy((gt + np.array(
+                [0.015, -0.01, 0.04, 0.3, -0.25, 0.1], np.float32))[None]
+            ).to(dev), chunk=4096)
+        assert bool(res.valid[0]) and bool(res.converged[0])
+        poses.append(res.pose6[0].cpu().numpy())
+    np.testing.assert_allclose(poses[0], poses[1], rtol=0, atol=1e-4)
+    assert np.abs(poses[1][3:] - gt[3:]).max() < 0.03
+
+
+@pytest.mark.cuda
+def test_slam_steps_on_gpu_match_cpu(cuda):
+    """Two SLAM steps: the first saves a keyframe, the second registers on
+    the local map built from it (K=16 fetch kernels on the card)."""
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        slam as tslam)
+    params = Params(register_grid_half_extent=(30.0, 30.0, 10.0))
+    world = SyntheticWorld()
+    gts = [np.array([0.0, 0.0, 0.04 * k, 0.25 * k - 2.0, 0.12 * k - 1.0,
+                     0.0], np.float32) for k in range(2)]
+    scans = [simulate_scan(world, g, seed=100 + k)
+             for k, g in enumerate(gts)]
+    poses, launches = [], []
+    for dev in (cuda, torch.device("cpu")):
+        pipe = tslam.SlamPipeline(params, max_keyframes=32, device=dev)
+        before = tfetch.resident_fetch.launches + tfetch.block_fetch.launches
+        for k, s in enumerate(scans):
+            raw = cloud_info.RawScan.from_numpy(
+                s["xyz"], s["intensity"], s["ring"], s["time"],
+                device=dev)._replace(valid=torch.from_numpy(
+                    s["valid"]).to(dev))
+            poses.append(pipe.step(raw, 0.2 * k).copy())
+        launches.append(tfetch.resident_fetch.launches
+                        + tfetch.block_fetch.launches - before)
+        assert bool(pipe.last_result.valid[0]) and pipe.n_keyframes == 1
+    assert launches == [6, 0]
+    np.testing.assert_allclose(poses[1], poses[3], rtol=0, atol=1e-4)
+    rel = (poses[3] - poses[2])[3:] - (gts[1] - gts[0])[3:]
+    assert np.abs(rel).max() < 0.06

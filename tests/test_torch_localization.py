@@ -234,7 +234,7 @@ def test_grid_register_step_matches_jax(world_map):
     kw = dict(half_extent=tuple(PARAMS.register_grid_half_extent))
     want = jax.tree.map(np.asarray, grid_register_step(
         jmap, feats, jnp.asarray(guess), **kw))
-    tmap = tloc._crop_local_map(
+    tmap, _ = tloc._crop_local_map(
         tgm.corner_xyz, tgm.corner_mask, tgm.surf_xyz, tgm.surf_mask,
         T(guess[3:6]), half_extent=he, map_corner_cap=PARAMS.map_corner_cap,
         map_surf_cap=PARAMS.map_surf_cap)

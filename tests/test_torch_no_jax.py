@@ -5,7 +5,9 @@ A fresh interpreter blocks `jax`, `jaxlib` and the JAX package
 module of the port, runs `project_scan` on a tiny CPU batch, and runs the
 localization path at a small size: strict picking, deskew and one
 `LocalizationPipeline.step` against a map loaded through `write_pcd` and
-`GlobalMap.from_pcd_dir`.
+`GlobalMap.from_pcd_dir`; then `icp_align` and two `SlamPipeline.step`s
+(the first saves a keyframe and solves its graph, the second registers on
+the local map built from it) and `save_map`.
 """
 
 import os
@@ -69,6 +71,24 @@ pose = pipe.step(RawScan.from_numpy(s["xyz"], s["intensity"], s["ring"],
                                     s["time"], device=cpu), 0.0, dsk)
 assert pose.shape == (6,) and np.isfinite(pose).all(), pose
 assert bool(dsk.imu_available[0]) and pipe.last_result is not None
+from feature_base_pointcloud_registration_tpu_torch.ops.icp import icp_align
+from feature_base_pointcloud_registration_tpu_torch.pipeline.slam import (
+    SlamPipeline)
+src = torch.from_numpy(r.uniform(-2, 2, (64, 3)).astype(np.float32))
+res = icp_align(src, torch.ones(64, dtype=torch.bool), src + 0.05,
+                torch.ones(64, dtype=torch.bool), chunk=64)
+assert bool(res.converged) and float(res.fitness) < 1e-4, res
+slam = SlamPipeline(params, max_keyframes=4, opt_window=2, device=cpu)
+for k in range(2):
+    s = simulate_scan(world, [0, 0, 0.02 * k, 1.0 + 0.2 * k, 0.5, 0],
+                      horizon_scan=360, seed=k)
+    pose = slam.step(RawScan.from_numpy(s["xyz"], s["intensity"], s["ring"],
+                                        s["time"], device=cpu), 0.5 * k)
+assert slam.n_keyframes == 1 and slam.last_result is not None
+assert np.isfinite(pose).all(), pose
+with tempfile.TemporaryDirectory() as d:
+    slam.save_map(d)
+    assert os.path.exists(os.path.join(d, "keyframes.npz"))
 loaded = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib")
                 or k.startswith("feature_base_pointcloud_registration_tpu.")))

@@ -94,7 +94,29 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            full LM, ICP ms and iterations, host syncs a step (the CUDA
            sync debug mode), a profiled window LM solve, register_scan
            beside its bound, the knn selection against a stable sort, the
-           caps the step reported, each table's kind, rows and bytes.
+           caps the step reported, each table's kind, rows and bytes;
+  phase 9  the LIO mode (examples/run.py --mode lio): LioTopology(Params(
+           pose_cov_threshold=0), max_keyframes=256, imu_window=16,
+           imu_max_samples=64) over 50 scans 0.2 s apart along
+           constant_twist_platform (1.2 m/s, 0.15 rad/s; the raw
+           sensor-frame 100 Hz IMU with quaternions in batches, each scan
+           skewed by the motion) and a 1 Hz ENU GPS stream (the truth under
+           a 0.6 rad yaw offset, 0.05 m noise) through EkfGps and
+           NavsatTransform into SlamPipeline.add_gps, counted: 6 fetches
+           of K=16 a registration step, 0 GN rounds; the fetches of the
+           first 3 registration steps bitwise equal to their plain
+           versions; steps 0-3 and the IMU-rate odometry up to them within
+           1e-4 of the same run on the CPU; >= 2 IMU window resets through
+           the float64 marginal, no failure reset, >= 1 GPS factor;
+           relative displacements within 0.12 m, max translation error <
+           0.15 m, the IMU-rate odometry within a median 0.05 m of the LIO
+           trajectory that corrects it (against the truth printed); the
+           SLAM state saved after step 20, loaded into a fresh
+           SlamPipeline on the card and run 5 steps: bitwise or within
+           1e-5 of the uninterrupted run; the step time and its split,
+           one preintegration's and one chain LM's device operations and
+           ms, host syncs a step, a profiled ImuOdometry correction, each
+           table's kind, rows and bytes, the caps reported.
 
     python3 chip_smoke.py --gn-ab NAME=path/to/gn_round.cu ...
 
@@ -156,6 +178,15 @@ SLAM_SPACING = 0.7       # s between scans
 SLAM_SPEED = 0.45        # m/s: a 3 m circle at SLAM_YAW_RATE
 SLAM_YAW_RATE = 0.15     # rad/s: the loop closes after 41.9 s
 SLAM_CHECKED = 3         # registration steps held against plain/CPU/exact
+N_LIO = 50               # phase 9: LIO steps (examples/run.py --mode lio)
+LIO_SPACING = 0.2        # s between scans
+LIO_CHECKED = 3          # registration steps held against the plain fetch
+LIO_CPU = 4              # emitted steps held against the same run on the CPU
+LIO_CKPT = 20            # steps before the checkpoint of the resume check
+LIO_RESUMED = 5          # steps run from the checkpoint
+LIO_PROFILED = 30        # profiled: the first full correction from this step
+GPS_YAW_OFFSET = 0.6     # rad, the map frame's yaw in the ENU frame
+GPS_NOISE = 0.05         # m, isotropic, of the 1 Hz ENU fixes
 
 
 def tpu_kernel_line(file_name, kernel):
@@ -1217,6 +1248,453 @@ def slam_phase(dev):
     return launches, fetch_err
 
 
+def device_ops(fn):
+    """The device operations (kernels and copies) one call of fn runs, by
+    torch.profiler's device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
+def lio_phase(dev):
+    """Phase 9: the LIO mode (examples/run.py --mode lio) on the card:
+    LioTopology at its run.py capacities, the raw IMU, motion-skewed scans
+    and a GPS chain.  Returns (launches {wrapper: count} over the run,
+    {kernel: max_abs_err} of the checked fetches)."""
+    import copy
+    import warnings
+
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.geom.se3 import (
+        euler_from_quat, rot_to_euler)
+    from feature_base_pointcloud_registration_tpu_torch.graph.imu_graph import (  # noqa: E501
+        optimize_imu_chain)
+    from feature_base_pointcloud_registration_tpu_torch.graph.pose_graph import (  # noqa: E501
+        optimize_pose_graph)
+    from feature_base_pointcloud_registration_tpu_torch.imu.conversion import (
+        imu_converter)
+    from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+        SyntheticWorld, constant_twist_platform, simulate_scan)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fetch as tfetch)
+    from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
+        gn_round)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        checkpoint as tckpt, imu_odometry as todo, lio as tlio, slam as tslam)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        RawScan)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.navsat import (  # noqa: E501
+        EkfGps, NavsatTransform)
+    from feature_base_pointcloud_registration_tpu_torch.utils.log import (
+        EventLog)
+
+    cpu = torch.device("cpu")
+    params = Params(pose_cov_threshold=0.0)
+    world = SyntheticWorld()
+    w_body, v_body = np.array([0.0, 0.0, 0.15]), np.array([1.2, 0.0, 0.0])
+    n_in = N_LIO + 2                     # the ScanBuffer holds two back
+
+    # ---- the platform: raw sensor-frame IMU with quaternions, truth ----
+    imu, states = constant_twist_platform(
+        n_in * LIO_SPACING + 0.3, ext_rot=params.ext_rot,
+        ext_rpy=params.ext_rpy, gravity=params.imu_gravity, w_body=w_body,
+        v_body=v_body)
+    imu_t = np.array([s_[0] for s_ in imu])
+    imu_raw = [np.stack([s_[i] for s_ in imu]) for i in (1, 2, 3)]
+    _, gyr_l, quat_l, ok = imu_converter(params, *(
+        torch.tensor(a, dtype=torch.float32) for a in imu_raw))
+    if not bool(ok.all()):
+        raise AssertionError("phase 9: imu_converter flagged a sample")
+    rpy_l = torch.stack(euler_from_quat(quat_l), -1).numpy()
+    gyr_l = gyr_l.numpy()
+    gt6 = np.concatenate([
+        torch.stack(rot_to_euler(torch.from_numpy(
+            np.stack([R for _, R, _ in states]))), -1).numpy(),
+        np.stack([p_ for _, _, p_ in states])], 1).astype(np.float32)
+
+    def truth(t):
+        return gt6[int(round(t * 100))]
+
+    scans = []
+    for k in range(n_in):
+        t = k * LIO_SPACING
+        i = int(round(t * 100))
+        scans.append((t, simulate_scan(
+            world, gt6[i], seed=900 + k, spin_rpy_rate=w_body,
+            vel_world=states[i][1] @ v_body)))
+
+    # ---- GPS: 1 Hz ENU fixes of the truth, the map frame at a yaw offset
+    # in ENU, 0.05 m isotropic noise ----
+    rng = np.random.RandomState(9)
+    c_, s_ = np.cos(GPS_YAW_OFFSET), np.sin(GPS_YAW_OFFSET)
+    enu_of_map = np.array([[c_, s_, 0.0], [-s_, c_, 0.0], [0.0, 0.0, 1.0]])
+    anchor = np.array([1520.0, -310.0, 12.0])
+    fixes = [(float(t), anchor + enu_of_map @ truth(t)[3:]
+              + rng.normal(0, GPS_NOISE, 3))
+             for t in np.arange(0.0, (n_in - 1) * LIO_SPACING + 1e-6, 1.0)]
+
+    def feed(topo, ekf, nav, k):
+        """Input k: the raw IMU since the last scan, the GPS fixes through
+        EkfGps / NavsatTransform into the SLAM queue, the cloud; the LIO
+        pose (if the buffer emits one) feeds the EKF."""
+        t, sc = scans[k]
+        eps = 1e-9
+        sel = (imu_t <= t + eps) & (imu_t > t - LIO_SPACING + eps)
+        if sel.any():
+            topo.handle_imu(imu_t[sel], *(a[sel] for a in imu_raw))
+        j = np.nonzero(imu_t <= t + eps)[0][-1]
+        ekf.add_imu(t, rpy_l[j], gyr_l[j])
+        for tf, enu in fixes:
+            if t - LIO_SPACING + eps < tf <= t + eps:
+                jf = np.nonzero(imu_t <= tf + eps)[0][-1]
+                xyz, cov = nav.handle_fix(
+                    tf, enu, [GPS_NOISE ** 2] * 3,
+                    imu_yaw=rpy_l[jf][2] - GPS_YAW_OFFSET)
+                topo.slam.add_gps(tf, xyz, cov)
+        raw = RawScan.from_numpy(sc["xyz"], sc["intensity"], sc["ring"],
+                                 sc["time"], device=cpu)._replace(
+            valid=torch.from_numpy(sc["valid"]))
+        est = topo.handle_cloud(t, raw)
+        if est is not None:
+            ekf.add_odometry(topo.slam.time_last_processing, est)
+        return est
+
+    def topology(device):
+        topo = tlio.LioTopology(params, max_keyframes=256, imu_window=16,
+                                imu_max_samples=64, device=device)
+        topo.slam._log = topo.odo._log = EventLog()
+        ekf = EkfGps(device=device)
+        stream = []
+        push = topo.odom_queue.push
+
+        def recorded_push(t, pose6, reset_id=0):
+            stream.append((t, np.array(pose6)))
+            push(t, pose6, reset_id=reset_id)
+        topo.odom_queue.push = recorded_push
+        return topo, ekf, NavsatTransform(ekf), stream
+
+    # ---- the main path, counted and timed ----
+    counted = {"block_fetch": tfetch.block_fetch,
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+    real_fetch_rows = tfetch.fetch_rows
+    calls, check = [], {"on": False}
+    checked_fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
+    timer = StageTimer(dev)
+    topo, ekf, nav, stream = topology(dev)
+    log = topo.slam._log
+    odo = topo.odo
+    module_fns = [(tslam, "process_scan", "frontend"),
+                  (tslam, "optimize_pose_graph", "pose graph LM"),
+                  (todo, "preintegrate", "preintegrate"),
+                  (todo, "optimize_imu_chain", "chain LM"),
+                  (todo, "state_marginal_covariance", "window reset marginal"),
+                  (todo, "propagate_states", "propagate")]
+    real = {(m, n): getattr(m, n) for m, n, _ in module_fns}
+    for m, n, stage in module_fns:
+        setattr(m, n, timer.wrap(stage, real[(m, n)]))
+    timed_handle = timer.wrap("handle_odometry", odo.handle_odometry)
+    profiled = {}
+
+    def handle_odometry(*a, **kw):
+        if (len(ests) >= LIO_PROFILED and not profiled
+                and odo.system_initialized
+                and kw.get("reset_id") == odo.reset_id):
+            # the odometry as it is before this correction (a full one: no
+            # re-initialization), for the profile
+            t0 = time.perf_counter()
+            c_ = copy.deepcopy(odo)
+            for name in ("handle_odometry", "flush_imu_odometry",
+                         "_reset_window"):
+                c_.__dict__.pop(name)
+            profiled.update(odo=c_, args=(a, kw),
+                            copy_ms=(time.perf_counter() - t0) * 1e3)
+        return timed_handle(*a, **kw)
+    odo.handle_odometry = handle_odometry
+    odo.flush_imu_odometry = timer.wrap("flush_imu_odometry",
+                                        odo.flush_imu_odometry)
+    resets = []
+    reset_window = odo._reset_window
+
+    def counted_reset():
+        resets.append((odo.key, getattr(odo, "_last_chain_data", None)
+                       is not None))
+        reset_window()
+    odo._reset_window = counted_reset
+    # the SLAM calls in order (add_gps and step), for the resume check
+    slam_calls = []
+    slam_step = timer.wrap("slam step", topo.slam.step)
+    slam_gps = topo.slam.add_gps
+
+    def recorded_step(*a, **kw):
+        out = slam_step(*a, **kw)
+        slam_calls.append(("step", a, kw, out.copy()))
+        return out
+
+    def recorded_gps(*a):
+        slam_calls.append(("gps", a, {}, None))
+        slam_gps(*a)
+    topo.slam.step, topo.slam.add_gps = recorded_step, recorded_gps
+
+    ckpt_dir = os.path.join(REPO, "build", "lio_checkpoint")
+    ckpt_at = None
+    ests, t_ests, wall, per_step, syncs, stage_ms = [], [], [], [], [], []
+    n_kf_at = []
+    tfetch.fetch_rows = checked_fetch_rows
+    try:
+        timer.sync()
+        for w in counted.values():
+            w.launches = 0
+        registered = 0
+        for k in range(n_in):
+            check["on"] = registered < LIO_CHECKED
+            before = {n_: w.launches for n_, w in counted.items()}
+            n_calls = len(calls)
+            kf_before = topo.slam.n_keyframes
+            copied = bool(profiled)
+            stages0 = {n_: sum(v) for n_, v in timer.ms.items()}
+            timer.sync()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    est = feed(topo, ekf, nav, k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            timer.sync()
+            got = {n_: w.launches - before[n_] for n_, w in counted.items()}
+            ks = {c["K"] for c in calls[n_calls:]}
+            if est is None:
+                if any(got.values()):
+                    raise AssertionError(f"phase 9 input {k}: launches {got}"
+                                         " before the buffer emitted")
+                continue
+            # the profile's copy of the odometry is not the step's work
+            wall.append((time.perf_counter() - t0) * 1e3 - (
+                profiled["copy_ms"] if profiled and not copied else 0.0))
+            stage_ms.append({n_: sum(v) - stages0.get(n_, 0.0)
+                             for n_, v in timer.ms.items()})
+            syncs.append(sum("synchroniz" in str(w_.message)
+                             for w_ in caught))
+            ests.append(est.copy())
+            t_ests.append(topo.slam.time_last_processing)
+            n_kf_at.append(topo.slam.n_keyframes)
+            per_step.append(got)
+            want = 6 if kf_before else 0
+            if (got["block_fetch"] + got["resident_fetch"] != want
+                    or got["gn_round"] or (want and ks != {LOC_K})):
+                raise AssertionError(f"phase 9 step {len(ests)}: launches "
+                                     f"{got}, K {ks}")
+            registered += want > 0
+            if len(ests) == LIO_CKPT:
+                tckpt.save_checkpoint(topo.slam, ckpt_dir)
+                ckpt_at = len(slam_calls)
+            if len(ests) == LIO_CHECKED + 1:
+                # the stages' totals before the steps that are timed
+                timed_from = {n_: sum(v) for n_, v in timer.ms.items()}
+        timer.sync()
+        launches = {n_: w.launches for n_, w in counted.items()}
+    finally:
+        tfetch.fetch_rows = real_fetch_rows
+        for m, n, _ in module_fns:
+            setattr(m, n, real[(m, n)])
+    events = log.events
+    topics = [e["topic"] for e in events]
+    print(f"phase 9 launches: {launches} over {len(ests)} LIO steps "
+          f"({n_in} scans in); per step {per_step[1]}; keyframes "
+          f"{topo.slam.n_keyframes}; events "
+          f"{ {t_: topics.count(t_) for t_ in sorted(set(topics))} }",
+          flush=True)
+    for kind, W in sorted({(c["kind"], c["W"]) for c in calls}):
+        sizes = [(c["rows"], c["bytes"]) for c in calls
+                 if (c["kind"], c["W"]) == (kind, W)]
+        print(f"phase 9 tables {kind} W {W}: {len(sizes)} fetches, rows "
+              f"{min(r for r, _ in sizes)}-{max(r for r, _ in sizes)}, "
+              f"bytes {min(b for _, b in sizes)}-{max(b for _, b in sizes)}"
+              f" (resident cap {tfetch.RESIDENT_TABLE_CAP} B)", flush=True)
+    checked, fetch_err = checked_fetches(calls)
+    print(f"phase 9 fetches of the first {LIO_CHECKED} registration steps "
+          f"against their plain versions: "
+          f"{sum(c['equal'] for c in checked)}/{len(checked)} bitwise equal,"
+          f" max_abs_err {fetch_err}", flush=True)
+    if not (len(checked) == 6 * LIO_CHECKED
+            and all(c["equal"] for c in checked)):
+        raise AssertionError("phase 9: a fetch kernel != its plain version")
+
+    # ---- the IMU chain, GPS, the caps ----
+    n_marginal = sum(m for _, m in resets)
+    gps = [e for e in events if e["topic"] == "mapping/gps_factor"]
+    failures = [e for e in events if e["topic"] == "imu/failure_reset"]
+    dropped_imu = [e for e in events if e["topic"] == "imu/dropped_samples"]
+    print(f"phase 9 IMU chain: {len(timer.calls['handle_odometry'])} "
+          f"corrections, window resets at keys {[k_ for k_, _ in resets]} "
+          f"({n_marginal} carrying the marginal), re-initializations by the "
+          f"reset-id protocol {topics.count('imu/reset_id_mismatch')}, "
+          f"failure resets {len(failures)}, key {odo.key}, reset_id "
+          f"{odo.reset_id}, done_first_opt {odo.done_first_opt}; GPS "
+          f"factors {len(gps)} ({[(e['time'], e['keyframe']) for e in gps]}"
+          f"), fixes {len(fixes)}, SLAM reset_id {topo.slam.reset_id}",
+          flush=True)
+    by_cap = {}
+    for e in events:
+        if e["topic"].endswith("/dropped_points"):
+            key = (e["cap"], e["feature"])
+            by_cap.setdefault(key, []).append(
+                e.get("dropped", e.get("dropped_share")))
+    print(f"phase 9 caps: imu/dropped_samples {len(dropped_imu)} (cap "
+          f"{odo.max_samples}); mapping/dropped_points (per cap and "
+          "feature: warnings, mean dropped): " + "; ".join(
+              f"{c} {f}: {len(v)}, {np.mean(v):.4g}"
+              for (c, f), v in sorted(by_cap.items())), flush=True)
+    if not (n_marginal >= 2 and odo.done_first_opt and not failures):
+        raise AssertionError(f"phase 9: IMU chain resets {resets}, "
+                             f"failures {len(failures)}")
+    if not gps:
+        raise AssertionError("phase 9: no GPS factor")
+
+    # ---- accuracy against the truth (the map frame is the truth's) ----
+    est = np.stack(ests)
+    tru = np.stack([truth(t)[3:] for t in t_ests])
+    rel = np.linalg.norm(np.diff(est[:, 3:], axis=0) - np.diff(tru, axis=0),
+                         axis=1)
+    err = np.linalg.norm(est[:, 3:] - tru, axis=1)
+    ate = float(np.sqrt((err ** 2).mean()))
+    # the IMU-rate odometry against the truth, and against the LIO
+    # trajectory that corrects it (positions interpolated between steps):
+    # it cannot be nearer the truth than its corrections
+    ts_s = np.array([t for t, _ in stream])
+    ps = np.stack([p6[3:] for _, p6 in stream])
+    odo_gt = np.linalg.norm(ps - np.stack([truth(t)[3:] for t in ts_s]),
+                            axis=1)
+    inside = ts_s <= t_ests[-1]
+    lio_at = np.stack([np.interp(ts_s[inside], t_ests, est[:, i])
+                       for i in (3, 4, 5)], 1)
+    odo_lio = np.linalg.norm(ps[inside] - lio_at, axis=1)
+    print(f"phase 9 accuracy: relative displacement error max (steps 2-) "
+          f"{rel[1:].max():.6f} m (bound 0.12), max translation error "
+          f"{err.max():.4f} m (bound 0.15), ate_vs_gt_m {ate}, final error "
+          f"{err[-1]:.4f} m; IMU-rate odometry ({len(ps)} samples) median "
+          f"position error against the truth {np.median(odo_gt):.4f} m (max "
+          f"{odo_gt.max():.4f}), against the LIO trajectory "
+          f"{np.median(odo_lio):.4f} m (bound 0.05; max "
+          f"{odo_lio.max():.4f})", flush=True)
+    if not (np.isfinite(est).all() and rel[1:].max() < 0.12
+            and err.max() < 0.15 and np.median(odo_lio) < 0.05):
+        raise AssertionError(f"phase 9: rel {rel[1:].max()} err "
+                             f"{err.max()} odometry {np.median(odo_lio)}")
+
+    # ---- the same first steps on the CPU ----
+    topo_c, ekf_c, nav_c, stream_c = topology(cpu)
+    ests_c, k = [], 0
+    while len(ests_c) < LIO_CPU:
+        e_ = feed(topo_c, ekf_c, nav_c, k)
+        if e_ is not None:
+            ests_c.append(e_.copy())
+        k += 1
+    d_pose = float(np.abs(np.stack(ests_c) - est[:LIO_CPU]).max())
+    n_s = len(stream_c)
+    d_stream = (float(np.abs(np.stack([p for _, p in stream_c])
+                             - np.stack([p for _, p in stream[:n_s]])).max())
+                if n_s else 0.0)
+    same_t = [t for t, _ in stream_c] == [t for t, _ in stream[:n_s]]
+    print(f"phase 9 card vs CPU: steps 0-{LIO_CPU - 1} pose |diff| max "
+          f"{d_pose:.3e}; IMU-rate odometry up to them ({n_s} samples, same "
+          f"times {same_t}) |diff| max {d_stream:.3e}", flush=True)
+    if not (d_pose <= 1e-4 and d_stream <= 1e-4 and same_t and n_s > 0):
+        raise AssertionError(f"phase 9: card vs CPU {d_pose} {d_stream}")
+
+    # ---- resume on the card: the checkpoint at step LIO_CKPT into a fresh
+    # SlamPipeline, then the same SLAM calls ----
+    pipe = tslam.SlamPipeline(params, max_keyframes=256, device=dev)
+    pipe._log = EventLog()
+    tckpt.load_checkpoint(pipe, ckpt_dir)
+    replay = [c for c in slam_calls[ckpt_at:]]
+    d_res, equal, n_steps = 0.0, True, 0
+    for kind, a, kw, out in replay:
+        if kind == "gps":
+            pipe.add_gps(*a)
+            continue
+        got_ = pipe.step(*a, **kw)
+        d_res = max(d_res, float(np.abs(got_ - out).max()))
+        equal &= bool(np.array_equal(got_, out))
+        n_steps += 1
+        if n_steps == LIO_RESUMED:
+            break
+    g, _ = pipe._window_graph_data()
+    lm = [optimize_pose_graph(g, iterations=8)[0] for _ in range(2)]
+    chain = odo._last_chain_data
+    ch = [optimize_imu_chain(chain, iterations=4)[0] for _ in range(2)]
+    print(f"phase 9 resume: checkpoint after step {LIO_CKPT} loaded into a "
+          f"fresh SlamPipeline on the card, {n_steps} steps: bitwise "
+          f"{equal}, pose |diff| max {d_res:.3e} (bound 1e-5); repeated on "
+          f"the same inputs, the window pose-graph LM (index_put_ "
+          f"accumulate) bitwise {torch.equal(lm[0], lm[1])}, the IMU chain "
+          f"LM (no scatter) bitwise {torch.equal(ch[0], ch[1])}", flush=True)
+    if not (n_steps == LIO_RESUMED and d_res <= 1e-5):
+        raise AssertionError(f"phase 9: resumed {n_steps} steps, {d_res}")
+
+    # ---- times ----
+    steps_ms = np.array(wall[LIO_CHECKED + 1:])
+    n_t = len(ests)
+    split = {name: (float(np.sum(v)) - timed_from.get(name, 0.0))
+             / len(steps_ms) for name, v in timer.ms.items()}
+    print(f"time phase 9 step: {steps_ms.mean():.2f} ms wall a LIO step "
+          f"(handle_imu + GPS + handle_cloud; steps {LIO_CHECKED + 1}-"
+          f"{n_t - 1}; p50 {np.median(steps_ms):.2f}, max "
+          f"{steps_ms.max():.2f}); per step on average (synchronized host "
+          f"clock; frontend inside slam step; preintegrate, chain LM, the "
+          f"window reset's marginal and the re-propagation inside "
+          f"handle_odometry; propagate also inside flush_imu_odometry): "
+          + ", ".join(f"{name} {ms:.2f} ms" for name, ms in split.items())
+          + f"; host syncs a step (torch.cuda sync debug mode): mean "
+          f"{np.mean(syncs[LIO_CHECKED + 1:]):.1f} min "
+          f"{min(syncs[LIO_CHECKED + 1:])} max "
+          f"{max(syncs[LIO_CHECKED + 1:])}", flush=True)
+    worst = LIO_CHECKED + 1 + int(np.argmax(steps_ms))
+    print(f"time phase 9 slowest step: step {worst} (t {t_ests[worst]:.1f}"
+          f" s) {wall[worst]:.2f} ms: " + ", ".join(
+              f"{name} {ms:.2f} ms" for name, ms in stage_ms[worst].items()
+              if ms > 0) + f"; keyframes after it "
+          f"{n_kf_at[worst]}", flush=True)
+    a, kw, _ = timer.calls["preintegrate"][-1]
+    n_live = a[0].shape[0]
+    w_pre, b_pre, top_pre = profile_call(lambda: todo.preintegrate(*a, **kw))
+    ms_pre = cuda_ms(lambda: todo.preintegrate(*a, **kw), 5)
+    a2, kw2, _ = timer.calls["chain LM"][-1]
+    w_lm, b_lm, top_lm = profile_call(
+        lambda: todo.optimize_imu_chain(*a2, **kw2))
+    ms_lm = cuda_ms(lambda: todo.optimize_imu_chain(*a2, **kw2), 3)
+    print(f"time phase 9 IMU: one preintegration of {n_live} samples "
+          f"{ms_pre:.2f} ms (CUDA events; profiled wall {w_pre:.2f} ms, "
+          f"device busy {b_pre:.3f} ms, "
+          f"{sum(1 for _ in top_pre)} kernel names); one chain LM (window "
+          f"{odo.window}, 4 iterations) {ms_lm:.2f} ms (profiled wall "
+          f"{w_lm:.2f} ms, device busy {b_lm:.3f} ms)", flush=True)
+    print(f"launches phase 9 IMU: one preintegration "
+          f"{device_ops(lambda: todo.preintegrate(*a, **kw))} device "
+          f"operations ({n_live} samples), one chain LM "
+          f"{device_ops(lambda: todo.optimize_imu_chain(*a2, **kw2))} "
+          f"(kernels and copies, torch.profiler)", flush=True)
+    # one correction again, from the odometry as it was before step
+    # LIO_PROFILED's, profiled: how much of it the device is busy
+    a3, kw3 = profiled["args"]
+    wall_p, busy, top = profile_call(
+        lambda: profiled["odo"].handle_odometry(*a3, **kw3))
+    print(f"profile phase 9 handle_odometry (torch.profiler): wall "
+          f"{wall_p:.2f} ms, device busy {busy:.2f} ms "
+          f"({busy / wall_p:.1%}), {len(top)} kernel names; by device "
+          f"time: " + "; ".join(f"{name[:50]} {ms:.3f}"
+                               for name, ms in top[:5]), flush=True)
+    return launches, fetch_err
+
 def main():
     import torch
 
@@ -1627,6 +2105,7 @@ def main():
 
     loc_launches, loc_fetch, loc_err = localization_phase(dev)
     slam_launches, slam_err = slam_phase(dev)
+    lio_launches, lio_err = lio_phase(dev)
     loc = {}
     for kind, (name, ms, plain_ms, b_ms, b_by) in loc_fetch.items():
         loc.setdefault(name, {})[kind] = {
@@ -1638,7 +2117,9 @@ def main():
                 "max_abs_err_localization": loc_err.get(name),
                 "localization": loc.get(name),
                 "launches_slam": slam_launches[name],
-                "max_abs_err_slam": slam_err.get(name)}
+                "max_abs_err_slam": slam_err.get(name),
+                "launches_lio": lio_launches[name],
+                "max_abs_err_lio": lio_err.get(name)}
 
     def entry(name, source, replaces, launches_, err, timed, **extra):
         return {"name": name, "route": "cuda",

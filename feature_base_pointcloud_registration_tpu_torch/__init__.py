@@ -17,7 +17,10 @@ on the fetch kernels, the IMU attitude fusion; `pipeline.scan_buffer`,
 (`ops.knn`, `ops.register.register_scan`, `parallel.batch.batch_register`)
 and the SLAM back end (`pipeline.slam.SlamPipeline`: keyframes,
 `graph.pose_graph`, `ops.icp` loop closure, `save_map`; `native`, the
-host C++ runtime).  The three TPU kernels are hand-written CUDA in `csrc/`
+host C++ runtime), and the LIO mode (`pipeline.lio.LioTopology`:
+`imu.preintegration`, `graph.imu_graph`, `pipeline.imu_odometry`; the GPS
+chain `pipeline.navsat`; `pipeline.checkpoint` and `utils.supervise` for
+crash-safe resume).  The three TPU kernels are hand-written CUDA in `csrc/`
 (see `kernels.py`).  Functions take a leading
 batch dimension where the JAX package vmaps over scans.
 """

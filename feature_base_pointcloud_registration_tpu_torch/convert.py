@@ -6,8 +6,9 @@ after `jax.tree.map(np.asarray, ...)` — into the port's NamedTuples of
 tensors, matched by class name.  `to_numpy` goes the other way.
 `planar_table_to_torch` carries a planar block table or a `PlanarTable`,
 `deskew_info_to_torch` a `DeskewInfo`, `global_map_to_torch` a
-`GlobalMap` and `slam_state_to_torch` a `SlamPipeline`'s host state (its
-keyframes and factor graph).
+`GlobalMap`, `slam_state_to_torch` a `SlamPipeline`'s host state (its
+keyframes and factor graph) and `imu_odometry_state_to_torch` an
+`ImuOdometry`'s whole state.
 Here the map, the tables built from it and the graph stand where a model's
 weights would: the tests use these functions to give both packages
 identical state.
@@ -20,7 +21,9 @@ import numpy as np
 import torch
 
 from .config import Params
+from .graph.imu_graph import ImuChainData
 from .graph.pose_graph import PoseGraphData
+from .imu.preintegration import NavState, PreintState
 from .ops.fetch import PlanarTable
 from .ops.icp import ICPResult
 from .ops.register import RegisterResult
@@ -31,7 +34,8 @@ from .pipeline.localization import GlobalMap
 
 _TUPLES = {cls.__name__: cls for cls in
            (RawScan, CloudInfo, ScanFeatures, FeatureMap, RegisterResult,
-            GNState, PoseGraphData, ICPResult)}
+            GNState, PoseGraphData, ICPResult, NavState, PreintState,
+            ImuChainData)}
 
 # SlamPipeline host state: NumPy arrays, factor lists and scalars
 SLAM_STATE = ("kf_corner", "kf_corner_mask", "kf_surf", "kf_surf_mask",
@@ -121,6 +125,47 @@ def slam_state_to_torch(state, pipeline):
         setattr(pipeline, name, copy.deepcopy(value))
     pipeline._dev_clouds = None
     return pipeline
+
+
+# ImuOdometry state: host scalars and NumPy arrays, the IMU queues (lists
+# of (t, acc, gyr)), and the device tensors (nav states, biases, the
+# preintegration window, the last chain data)
+IMU_ODOMETRY_HOST = ("system_initialized", "done_first_opt", "key",
+                     "reset_id", "last_imu_t_imu", "last_imu_t_opt",
+                     "que_opt", "que_imu", "_pending", "chain_states",
+                     "chain_mask", "chain_has_preint", "chain_pose_meas",
+                     "prior_sigma0", "prior_sigma", "lidar2imu")
+IMU_ODOMETRY_DEVICE = ("prev_nav", "prev_ba", "prev_bg", "prev_nav_odom",
+                       "prev_ba_odom", "prev_bg_odom", "chain_preint_dev",
+                       "_last_chain_data")
+
+
+def _as_numpy(tree):
+    """Array leaves (JAX arrays included, through `np.asarray`) -> numpy,
+    NamedTuples kept."""
+    if _is_namedtuple(tree):
+        return type(tree)(*(_as_numpy(v) for v in tree))
+    return np.asarray(tree)
+
+
+def imu_odometry_state_to_torch(state, odometry):
+    """Copy an IMU odometry's whole state (either package's `ImuOdometry`:
+    queues, chain arrays, the preintegration window, nav states, biases,
+    priors, key / reset_id and flags) into the port's `odometry` of the
+    same window, its tensors on `odometry.device`.  Returns `odometry`."""
+    import copy
+
+    if state.window != odometry.window:
+        raise ValueError(f"window {state.window} != {odometry.window}")
+    for name in IMU_ODOMETRY_HOST:
+        setattr(odometry, name, copy.deepcopy(getattr(state, name)))
+    for name in IMU_ODOMETRY_DEVICE:
+        if not hasattr(state, name):        # no chain solved yet
+            odometry.__dict__.pop(name, None)
+            continue
+        setattr(odometry, name, to_torch(_as_numpy(getattr(state, name)),
+                                         device=odometry.device))
+    return odometry
 
 
 def params_from_dict(d: dict) -> Params:

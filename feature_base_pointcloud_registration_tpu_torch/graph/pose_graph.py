@@ -110,14 +110,15 @@ def _gps_res(pose, meas, sigma):
 
 def _with_jacobians(fn, args, argnums):
     """fn's residuals of F independent factors (batched over F: args [F,
-    ...]) and their Jacobian blocks [F, n_out, 6] w.r.t. each args[a], a in
-    argnums, in forward mode like the JAX package's `jax.jacfwd`: the six
-    tangent directions of each differentiated argument become copies of
-    the batch, one dual-number evaluation (`torch.autograd.forward_ad`)
+    ...]) and their Jacobian blocks [F, n_out, D] w.r.t. each args[a] [F,
+    D], a in argnums, in forward mode like the JAX package's `jax.jacfwd`:
+    the D tangent directions of each differentiated argument become copies
+    of the batch, one dual-number evaluation (`torch.autograd.forward_ad`)
     gives every column, and its primal part the residuals."""
     F = args[0].shape[0]
-    n = 6 * len(argnums)
-    eye = torch.eye(6, dtype=args[0].dtype,
+    D = args[argnums[0]].shape[-1]
+    n = D * len(argnums)
+    eye = torch.eye(D, dtype=args[0].dtype,
                     device=args[0].device).repeat_interleave(F, 0)
     with fwAD.dual_level():
         # every argument dual (zero tangents but the differentiated ones):
@@ -129,10 +130,10 @@ def _with_jacobians(fn, args, argnums):
             t = torch.zeros_like(rep)
             if i in argnums:
                 k = argnums.index(i)
-                t[6 * F * k:6 * F * (k + 1)] = eye
+                t[D * F * k:D * F * (k + 1)] = eye
             duals.append(fwAD.make_dual(rep, t))
         primal, tangent = fwAD.unpack_dual(fn(*duals))
-    J = tangent.reshape(len(argnums), 6, F, -1).permute(0, 2, 3, 1)
+    J = tangent.reshape(len(argnums), D, F, -1).permute(0, 2, 3, 1)
     return primal[:F], list(J)
 
 

@@ -20,7 +20,10 @@ lower index wins ties, which `torch.topk` alone does not promise on CUDA);
 the streamed `knn` on the card against the CPU (d2 within 1e-6 of the
 cancelled terms |q-c|^2 + |m-c|^2, indices equal except at near-ties);
 `register_scan` and two `SlamPipeline.step`s on the card within 1e-4 of
-the CPU (the second on the fetch kernels).
+the CPU (the second on the fetch kernels).  The LIO path: preintegration,
+the IMU chain LM and its float64 marginal on the card against the CPU
+(deltas within 1e-5, states within 1e-4, the marginal within rtol 1e-4),
+and two `LioTopology` steps within 1e-4 in pose and IMU chain state.
 """
 
 import numpy as np
@@ -599,3 +602,119 @@ def test_slam_steps_on_gpu_match_cpu(cuda):
     np.testing.assert_allclose(poses[1], poses[3], rtol=0, atol=1e-4)
     rel = (poses[3] - poses[2])[3:] - (gts[1] - gts[0])[3:]
     assert np.abs(rel).max() < 0.06
+
+
+def _imu_chain(dev, acc, gyr, dt, mask, K=4):
+    """A K-state IMU chain on `dev`: interval k preintegrates samples [20
+    (k-1), 20 k) of the stream (a masked sample or two among them), the
+    states and pose measurements at the predicted nav states, the states
+    then moved 1e-2 off.  Returns (the stacked preintegration, its chain
+    data)."""
+    from feature_base_pointcloud_registration_tpu_torch.geom.se3 import (
+        rot_to_euler)
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tg)
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tp)
+
+    def T(a):
+        return torch.from_numpy(a).to(dev)
+    z3 = torch.zeros(3, device=dev)
+    pres = [tp.PreintState.zero(device=dev)]
+    nav = tp.NavState.identity(device=dev)
+    states = [torch.zeros(15, device=dev)]
+    for k in range(1, K):
+        sl = slice(20 * (k - 1), 20 * k)
+        pres.append(tp.preintegrate(T(acc[sl]), T(gyr[sl]), T(dt[sl]),
+                                    mask[sl], z3, z3, 1e-4, 1e-5))
+        nav = tp.predict(nav, z3, z3, pres[-1])
+        states.append(torch.cat([torch.stack(rot_to_euler(nav.R)), nav.p,
+                                 nav.v, torch.zeros(6, device=dev)]))
+    preint = tp.PreintState(*(torch.stack(f) for f in zip(*pres)))
+    truth = torch.stack(states)
+    off = np.random.RandomState(1).normal(0, 1e-2, (K, 15)) * (
+        np.arange(K) > 0)[:, None] * (np.arange(15) < 9)
+    ones = torch.ones(K, dtype=torch.bool, device=dev)
+    return preint, tg.ImuChainData(
+        states=truth + T(off.astype(np.float32)), state_mask=ones,
+        preint=preint, preint_mask=torch.arange(K, device=dev) > 0,
+        pose_meas=truth[:, :6].clone(),
+        pose_sigma=torch.full((K, 6), 1e-2, device=dev),
+        pose_meas_mask=ones, prior_state=truth[0],
+        prior_sigma=torch.tensor([1e-2] * 6 + [1e4] * 3 + [1e-3] * 6,
+                                 device=dev),
+        bias_sigma=torch.full((6,), 5e-5, device=dev),
+        gravity=torch.tensor(9.80511, device=dev))
+
+
+@pytest.mark.cuda
+def test_imu_chain_on_gpu_matches_cpu(cuda):
+    """Preintegration (live samples of a masked buffer), predict, the chain
+    LM and the float64 marginal on the card against the CPU: preintegrated
+    deltas within 1e-5, the LM's states within 1e-4 and the marginal
+    within rtol 1e-4 of its largest entry (the card's sin/cos, Cholesky
+    and matmul order)."""
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tg)
+    r = np.random.RandomState(0)
+    acc = (np.array([0.3, -0.1, 9.9]) + r.normal(0, 0.05, (60, 3)))
+    gyr = (np.array([0.1, -0.2, 0.5]) + r.normal(0, 0.01, (60, 3)))
+    acc, gyr = acc.astype(np.float32), gyr.astype(np.float32)
+    dt = np.full(60, 0.01, np.float32)
+    mask = np.ones(60, bool)
+    mask[[7, 33]] = False
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        preint, d = _imu_chain(dev, acc, gyr, dt, mask)
+        states, _ = tg.optimize_imu_chain(d, iterations=4)
+        cov = tg.state_marginal_covariance(d, states.cpu().numpy(), 2)
+        out.append((preint, states.cpu().numpy(), cov))
+    for f in ("dR", "dv", "dp", "dt", "cov"):
+        a, b = (getattr(o[0], f).cpu().numpy() for o in out)
+        np.testing.assert_allclose(a, b, rtol=0, err_msg=f,
+                                   atol=1e-5 * max(1.0, np.abs(b).max()))
+    np.testing.assert_allclose(out[0][1], out[1][1], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(out[0][2], out[1][2], rtol=0,
+                               atol=1e-4 * np.abs(out[1][2]).max())
+
+
+@pytest.mark.cuda
+def test_lio_steps_on_gpu_match_cpu(cuda):
+    """Four clouds and the raw IMU between them through LioTopology on the
+    card and on the CPU: the buffer emits two steps (the second registers
+    on the fetch kernels and is bracketed by the IMU chain), poses within
+    1e-4, the IMU chain's states within 1e-4."""
+    from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+        constant_twist_platform)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        lio as tlio)
+    params = Params(register_grid_half_extent=(30.0, 30.0, 10.0))
+    world = SyntheticWorld()
+    imu, states = constant_twist_platform(
+        0.7, ext_rot=params.ext_rot, ext_rpy=params.ext_rpy,
+        gravity=params.imu_gravity)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        topo = tlio.LioTopology(params, max_keyframes=8, imu_window=8,
+                                imu_max_samples=64, device=dev)
+        ests = []
+        for k in range(4):
+            st = 0.2 * k
+            batch = [b for b in imu if st - 0.2 < b[0] <= st + 1e-9]
+            topo.handle_imu(*(np.stack([b[i] for b in batch])
+                              for i in range(4)))
+            _, R, p = states[int(round(st * 100))]
+            rpy = [np.arctan2(R[2, 1], R[2, 2]), np.arcsin(-R[2, 0]),
+                   np.arctan2(R[1, 0], R[0, 0])]
+            s = simulate_scan(world, np.concatenate([rpy, p]), seed=60 + k)
+            raw = cloud_info.RawScan.from_numpy(
+                s["xyz"], s["intensity"], s["ring"], s["time"],
+                device=torch.device("cpu"))._replace(
+                valid=torch.from_numpy(s["valid"]))
+            e = topo.handle_cloud(st, raw)
+            if e is not None:
+                ests.append(e.copy())
+        assert len(ests) == 2 and topo.odo.system_initialized
+        runs.append((np.stack(ests), topo.odo.chain_states.copy()))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(runs[0][1], runs[1][1], atol=1e-4, rtol=0)

@@ -7,7 +7,10 @@ localization path at a small size: strict picking, deskew and one
 `LocalizationPipeline.step` against a map loaded through `write_pcd` and
 `GlobalMap.from_pcd_dir`; then `icp_align` and two `SlamPipeline.step`s
 (the first saves a keyframe and solves its graph, the second registers on
-the local map built from it) and `save_map`.
+the local map built from it) and `save_map`; then the LIO topology: four
+clouds and the raw IMU between them through `LioTopology`, whose buffer
+emits two steps (the IMU chain corrected after each), a checkpoint of its
+SLAM state saved and loaded, and one EKF update and GPS fix.
 """
 
 import os
@@ -89,6 +92,40 @@ assert np.isfinite(pose).all(), pose
 with tempfile.TemporaryDirectory() as d:
     slam.save_map(d)
     assert os.path.exists(os.path.join(d, "keyframes.npz"))
+from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+    constant_twist_platform)
+from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+    checkpoint, lio, navsat)
+imu, states = constant_twist_platform(
+    0.7, ext_rot=params.ext_rot, ext_rpy=params.ext_rpy,
+    gravity=params.imu_gravity)
+topo = lio.LioTopology(params, max_keyframes=4, imu_window=4,
+                       imu_max_samples=32, device=cpu)
+ests = []
+for k in range(4):
+    st = 0.2 * k
+    batch = [b for b in imu if st - 0.2 < b[0] <= st]
+    topo.handle_imu(*(np.stack([b[i] for b in batch]) for i in range(4)))
+    _, R, p = states[int(round(st * 100))]
+    rpy = [np.arctan2(R[2, 1], R[2, 2]), np.arcsin(-R[2, 0]),
+           np.arctan2(R[1, 0], R[0, 0])]
+    s = simulate_scan(world, np.concatenate([rpy, p]), horizon_scan=360,
+                      seed=20 + k)
+    ests.append(topo.handle_cloud(st, RawScan.from_numpy(
+        s["xyz"], s["intensity"], s["ring"], s["time"], device=cpu)))
+assert ests[0] is None and ests[1] is None, ests
+assert all(np.isfinite(e).all() for e in ests[2:]), ests
+assert topo.slam.n_keyframes >= 1 and topo.odo.system_initialized
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save_checkpoint(topo.slam, d)
+    back = checkpoint.load_checkpoint(
+        SlamPipeline(params, max_keyframes=4, device=cpu), d)
+    assert back.n_keyframes == topo.slam.n_keyframes
+ekf = navsat.EkfGps(device=cpu)
+ekf.add_odometry(0.0, ests[-1])
+fix = navsat.NavsatTransform(ekf).handle_fix(0.1, [1.0, 2.0, 0.0],
+                                             [0.05, 0.05, 0.1])
+assert np.isfinite(fix[0]).all()
 loaded = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib")
                 or k.startswith("feature_base_pointcloud_registration_tpu.")))

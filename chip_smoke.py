@@ -116,7 +116,34 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            1e-5 of the uninterrupted run; the step time and its split,
            one preintegration's and one chain LM's device operations and
            ms, host syncs a step, a profiled ImuOdometry correction, each
-           table's kind, rows and bytes, the caps reported.
+           table's kind, rows and bytes, the caps reported;
+  phase 10 the KITTI and multi-session entry points: (a) load_scan and
+           iter_scans on the three HDL-64 scans of tests/data/kitti_mini
+           bitwise equal to native.kitti_read_bin, their strict features
+           at run_kitti_slam's HDL-64 Params card == CPU; (b)
+           examples/run_kitti_slam.py on the drive io/kitti_drive
+           generates (40 motion-skewed VLP-16 scans, radius 4 m, 1.5 m/s,
+           0.1 s) with --gps --navsat --pose-cov-threshold 0, counted: 6
+           K=16 fetches a registration step, 0 GN rounds, the first 3
+           steps' fetches bitwise; ATE against the oxts track < 0.2 m and
+           the GPS factors the CPU rehearsal gives (0); the step time and
+           its split; (c) examples/run_kitti.py's pair alignment (FPFH +
+           RANSAC + ICP) on the drive's first 6 scans: the first pair's
+           stages card against CPU (FPFH within 1e-5 where no histogram
+           bin flipped, RANSAC on the same triplets and ICP within 1e-4),
+           the chained ATE beside standing still's, ms a pair and its
+           split; (d) examples/run_multisession.py:
+           two 10-scan SLAM sessions, merge_sessions(coarse=False,
+           link_radius=8, link_stride=1) counted (6 K=16 fetches a link, the
+           first 2 links' fetches bitwise; each link's fetch kinds and its
+           queries near the grid's lower faces), >= 2 links, the merged map
+           saved and loaded, a held-out scan localized within 0.06 m, the
+           merge on the CPU within 1e-3 (each link's GN stops within its
+           5e-4 m convergence step), the CPU's joint graph solved on the
+           card within 1e-5;
+           align_sessions(coarse=True) over 8 generator seeds (at least
+           one within 0.3 m / 0.02 rad of the known offset, ICP alone
+           too), timed stage by stage, profiled, its host syncs counted.
 
     python3 chip_smoke.py --gn-ab NAME=path/to/gn_round.cu ...
 
@@ -134,6 +161,7 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import glob
 import json
@@ -187,6 +215,21 @@ LIO_RESUMED = 5          # steps run from the checkpoint
 LIO_PROFILED = 30        # profiled: the first full correction from this step
 GPS_YAW_OFFSET = 0.6     # rad, the map frame's yaw in the ENU frame
 GPS_NOISE = 0.05         # m, isotropic, of the 1 Hz ENU fixes
+N_KITTI = 40             # phase 10 (b): scans of the generated drive
+KITTI_CHECKED = 3        # registration steps held against the plain fetch
+KITTI_ATE_BOUND = 0.2    # m, (b)'s ATE vs oxts (CPU rehearsal 0.157)
+KITTI_GPS_FACTORS = 0    # (b)'s GPS factors, as the CPU rehearsal gives
+KITTI_PAIRS = 6          # phase 10 (c): scans of the pair alignment
+N_MS = 10                # phase 10 (d): SLAM steps of each session
+MS_CHECKED = 2           # link registrations held against the plain fetch
+ALIGN_DRAWS = 8          # generator seeds of (d)'s coarse align_sessions
+# (d) card vs CPU, the whole merge: a link's GN stops at the first step
+# under its 5e-4 m convergence threshold, and float noise can move that stop
+# by an iteration (2.9e-4 m measured on the card; ROADMAP Queue 3)
+MERGE_TOL = 1e-3
+# (d): at least one draw within this (m, rotation) of the known offset: the
+# basin of ICP alone, 0.184 m off on the CPU in both packages (PERF.md)
+ALIGN_BOUND = (0.3, 0.02)
 
 
 def tpu_kernel_line(file_name, kernel):
@@ -1695,6 +1738,553 @@ def lio_phase(dev):
                                for name, ms in top[:5]), flush=True)
     return launches, fetch_err
 
+@contextlib.contextmanager
+def coarse_stages(timer):
+    """Time the stages of a coarse alignment (FPFH, match, RANSAC, ICP) in
+    `timer` (a StageTimer) while the block runs: the module functions that
+    ops.ransac.coarse_align_fpfh, examples/run_kitti.py and
+    pipeline/multisession.py call are wrapped, and restored after."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fpfh as tfpfh, icp as ticp, ransac as transac)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        multisession as tms)
+    patched = [(tfpfh, "fpfh", "FPFH"),
+               (tfpfh, "match_descriptors", "match"),
+               (transac, "ransac_align", "RANSAC"),
+               (ticp, "icp_align", "ICP"), (tms, "icp_align", "ICP")]
+    saved = [getattr(m, a) for m, a, _ in patched]
+    for (m, a, name), fn in zip(patched, saved):
+        setattr(m, a, timer.wrap(name, fn))
+    try:
+        yield timer
+    finally:
+        for (m, a, _), fn in zip(patched, saved):
+            setattr(m, a, fn)
+
+
+def fpfh_bins(pts, mask, k=16, chunk=2048):
+    """The K-NN of the FPFH of pts (its indices [N, k], on the host) and the
+    histogram bins of each pair's three Darboux angles (int [3, N, k]), as
+    ops/fpfh.fpfh computes them."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fpfh as tfpfh, knn as tknn)
+    d2, idx = tknn.knn(pts, pts, mask, k=k, chunk=chunk)
+    idx = idx.long()
+    n, _ = tfpfh._normals(pts, mask, d2, idx, None)
+    angles = tfpfh._pair_features(pts, n, pts[idx], n[idx])[:3]
+    return idx.cpu(), torch.stack([
+        torch.clamp(((a - lo) / (hi - lo) * tfpfh.N_BINS).to(torch.int32),
+                    0, tfpfh.N_BINS - 1).cpu()
+        for a, (lo, hi) in zip(angles, ((-1, 1), (-1, 1),
+                                        (-np.pi, np.pi)))])
+
+
+def pair_card_vs_cpu(dev, src_xyz, dst_xyz, cap=2048, leaf=0.3):
+    """run_kitti's pair alignment stage by stage, card against CPU: FPFH
+    within 1e-5 wherever neither the neighbor set differs (at exact-distance
+    ties, within 1e-3 m^2) nor a histogram bin flipped (a flip at a point
+    changes its descriptor and its neighbors').  Flips come from normals
+    that rounding turns, at points whose neighborhood is near a line (on a
+    ring scan, about half the points); flips at no such point are bounded
+    by 0.1% of the pairs.  RANSAC scoring of the same triplets and ICP from
+    the same coarse transform within 1e-4."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import native
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fpfh as tfpfh, icp as ticp, ransac as transac)
+
+    cpu = torch.device("cpu")
+    runs = []
+    for d_ in (dev, cpu):
+        run = []
+        for xyz in (src_xyz, dst_xyz):
+            pts = native.voxel_downsample(xyz, leaf)[:cap]
+            buf = np.zeros((cap, 3), np.float32)
+            buf[:len(pts)] = pts
+            x = torch.from_numpy(buf).to(d_)
+            m = (torch.arange(cap) < len(pts)).to(d_)
+            run.append((x, m, *tfpfh.fpfh(x, m), *fpfh_bins(x, m)))
+        runs.append(run)
+    flips, flips_out, n_ill, n_pairs, err, other, tie = 0, 0, 0, 0, 0.0, 0, 0.0
+    for (x, m, desc, v, idx, bins), (x_c, _, desc_c, v_c, idx_c, bins_c) in (
+            zip(*runs)):
+        if not torch.equal(v.cpu(), v_c):
+            raise AssertionError("phase 10 (c): FPFH valid card != CPU")
+        # another neighbor set (the streamed d2 differs by float32 noise):
+        # the two sets' exact distances must agree (ties of the grid-like
+        # voxel centroids of a ring scan)
+        nb = (idx != idx_c).any(1)
+        p64 = x_c.double()
+        for a in (idx, idx_c):
+            a_d = ((p64[a[nb]] - p64[nb][:, None]) ** 2).sum(-1)
+            a_d = a_d.sort(1).values
+            if a is idx:
+                card_d = a_d
+        tie = max(tie, float((card_d - a_d).abs().max()) if nb.any()
+                  else 0.0)
+        flip = (bins != bins_c).any(0) & (idx == idx_c)
+        at = nb | flip.any(1)
+        touched = at | at[idx_c].any(1)
+        # a point whose neighborhood is near a line (a ring of the scan: the
+        # two smallest covariance eigenvalues within 5% of the largest) has
+        # a normal that any rounding turns: its pairs may flip
+        dev_ = p64[idx_c] - p64[idx_c].mean(1, keepdim=True)
+        cov = torch.einsum("nki,nkj->nij", dev_, dev_)
+        lam = torch.linalg.eigvalsh(cov)
+        ill = (lam[:, 1] - lam[:, 0]) < 0.05 * lam[:, 2]
+        ill_pair = ill[:, None] | ill[idx_c]
+        flips += int(flip.sum())
+        flips_out += int((flip & ~ill_pair).sum())
+        n_ill += int(ill[m.cpu()].sum())
+        other += int(nb.sum())
+        n_pairs += flip.numel()
+        err = max(err, float((desc.cpu() - desc_c)[~touched].abs().max()))
+    (xs, ms_, sd, sv, *_), (xd, md, dd, dv, *_) = runs[1]
+    midx, sim = tfpfh.match_descriptors(sd, sv, dd, dv)
+    corr = sv & (sim > -torch.inf)
+    samples = transac.sample_triplets(torch.Generator().manual_seed(0),
+                                      corr, 256)
+    fits, icps = [], []
+    for (s_, _, *_), (d_, _, *_) in runs:
+        dv_ = s_.device
+        fits.append(transac.ransac_from_samples(
+            samples.to(dv_), s_, d_[midx.long().to(dv_)], corr.to(dv_),
+            inlier_threshold=0.5))
+    for (s_, sm_, *_), (d_, dm_, *_) in runs:
+        T = fits[1].transform.to(s_.device)
+        icps.append(ticp.icp_align(s_ @ T[:3, :3].T + T[:3, 3], sm_, d_, dm_,
+                                   max_corr_dist=2.0, max_iterations=50))
+    d_fit = float((fits[0].transform.cpu() - fits[1].transform).abs().max())
+    d_icp = float((icps[0].transform.cpu() - icps[1].transform).abs().max())
+    print(f"phase 10 (c) pair 0->1 card vs CPU: FPFH neighbor sets "
+          f"differing at ties {other} of {n_pairs // 16} points (their exact "
+          f"squared distances |diff| max {tie:.3e} m^2), bin flips {flips} "
+          f"of {n_pairs} pairs, {flips_out} of them at no ill-conditioned "
+          f"normal ({n_ill} live points near a line), descriptors |diff| max"
+          f" {err:.3e} where neither touched; RANSAC on the same triplets "
+          f"|diff| "
+          f"{d_fit:.3e}, inliers {int(fits[0].inliers)} / "
+          f"{int(fits[1].inliers)}; ICP from the CPU's coarse |diff| "
+          f"{d_icp:.3e}", flush=True)
+    if not (flips_out <= 1e-3 * n_pairs and tie <= 1e-3 and err <= 1e-5
+            and d_fit <= 1e-4 and d_icp <= 1e-4
+            and abs(int(fits[0].inliers) - int(fits[1].inliers)) <= 1):
+        raise AssertionError("phase 10 (c): pair card != CPU")
+
+
+def kitti_phase(dev):
+    """Phase 10 (a)-(c): KITTI raw I/O, examples/run_kitti_slam.py's
+    generated drive and examples/run_kitti.py's pair alignment on the card.
+    Returns (launches {wrapper: count} over the SLAM run, {kernel:
+    max_abs_err} of its checked fetches)."""
+    import tempfile
+
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import native
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.examples import (
+        run_kitti, run_kitti_slam)
+    from feature_base_pointcloud_registration_tpu_torch.io import (
+        kitti, kitti_drive)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fetch as tfetch)
+    from feature_base_pointcloud_registration_tpu_torch.ops.features import (
+        extract_features)
+    from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
+        gn_round)
+    from feature_base_pointcloud_registration_tpu_torch.ops.projection import (
+        project_scan)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        slam as tslam)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        RawScan)
+
+    cpu = torch.device("cpu")
+    # ---- (a) KITTI I/O: the loader against the host decode, bitwise; the
+    # HDL-64 frontend of run_kitti_slam's Params, card against CPU ----
+    vdir = os.path.join(REPO, "tests", "data", "kitti_mini",
+                        "velodyne_points", "data")
+    paths = kitti.scan_files(vdir)
+    hdl64 = Params(n_scan=64, horizon_scan=1800, corner_cap=7680,
+                   surf_cap=32768, sector_cap=304, map_corner_cap=16384,
+                   map_surf_cap=131072, mapping_process_interval=0.0)
+    cap = 1 << 17
+    loaded = [kitti.load_scan(p, cap, device=dev) for p in paths]
+    streamed = list(kitti.iter_scans(vdir, cap, device=dev))
+    n_feat = []
+    for p, a, b in zip(paths, loaded, streamed):
+        d = native.kitti_read_bin(p)
+        n = len(d["xyz"])
+        want = RawScan.from_numpy(d["xyz"], d["intensity"], d["ring"],
+                                  d["time"], max_points=cap, device=cpu)
+        valid = np.zeros(cap, bool)
+        valid[:n] = d["valid"] & (d["ring"] >= 0)
+        want = want._replace(valid=torch.from_numpy(valid))
+        for got in (a, b):
+            if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+                raise AssertionError(f"phase 10 (a): {p} != host decode")
+        feats = [extract_features(hdl64, project_scan(
+            hdl64, RawScan(*(t.to(d_)[None] for t in a))), strict=True)
+            for d_ in (dev, cpu)]
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(*feats)):
+            raise AssertionError(f"phase 10 (a): {p} features card != CPU")
+        n_feat.append((n, int(feats[1].corner_mask.sum()),
+                       int(feats[1].surf_mask.sum())))
+    print(f"phase 10 (a) KITTI I/O: {len(paths)} HDL-64 scans of "
+          f"tests/data/kitti_mini, load_scan and iter_scans on the card "
+          f"bitwise equal to native.kitti_read_bin; strict features at "
+          f"run_kitti_slam's HDL-64 Params card == CPU (points, corner, "
+          f"surf): {n_feat}", flush=True)
+
+    with tempfile.TemporaryDirectory() as drive:
+        # ---- (b) run_kitti_slam's generated drive, --gps --navsat ----
+        t0 = time.perf_counter()
+        kitti_drive.make_drive(drive, n_scans=N_KITTI)
+        t_gen = time.perf_counter() - t0
+        slam_args = ["--data", drive, "--sensor", "vlp16", "--gps",
+                     "--navsat", "--pose-cov-threshold", "0", "--device",
+                     dev.type]
+        # warm-up, not counted: the first solves on the card load its
+        # libraries (the first Cholesky took seconds in a first call)
+        run_kitti_slam.main(slam_args + ["--scans", "3"])
+        counted = {"block_fetch": tfetch.block_fetch,
+                   "resident_fetch": tfetch.resident_fetch,
+                   "gn_round": gn_round}
+        real = {name: getattr(tslam, name) for name in (
+            "process_scan", "grid_register_step", "optimize_pose_graph")}
+        real_fetch_rows = tfetch.fetch_rows
+        calls, check = [], {"on": False}
+        timer = StageTimer(dev)
+        per_reg = []
+
+        def registration(*a, **kw):
+            check["on"] = len(per_reg) < KITTI_CHECKED
+            before = {n_: w.launches for n_, w in counted.items()}
+            out = timer.wrap("registration", real["grid_register_step"])(
+                *a, **kw)
+            per_reg.append({n_: w.launches - before[n_]
+                            for n_, w in counted.items()})
+            return out
+
+        tslam.process_scan = timer.wrap("frontend", real["process_scan"])
+        tslam.grid_register_step = registration
+        tslam.optimize_pose_graph = timer.wrap("graph",
+                                               real["optimize_pose_graph"])
+        tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
+        try:
+            timer.sync()
+            for w in counted.values():
+                w.launches = 0
+            out = run_kitti_slam.main(slam_args + ["--scans", str(N_KITTI)])
+            timer.sync()
+            launches = {n_: w.launches for n_, w in counted.items()}
+        finally:
+            tfetch.fetch_rows = real_fetch_rows
+            for name, fn in real.items():
+                setattr(tslam, name, fn)
+        pipe = out["pipe"]
+        n_gps = len(pipe.gps_factors)
+        print(f"phase 10 (b) KITTI SLAM: {N_KITTI} VLP-16 scans of the "
+              f"generated drive (written in {t_gen:.2f} s), launches "
+              f"{launches}; per registration step {per_reg[1]}; "
+              f"{len(per_reg)} registration steps; keyframes "
+              f"{pipe.n_keyframes}; GPS factors {n_gps} (events "
+              f"{out['counts']}); ATE vs oxts {out['ate']:.4f} m (bound "
+              f"{KITTI_ATE_BOUND})", flush=True)
+        if any(r != {"block_fetch": r["block_fetch"],
+                     "resident_fetch": r["resident_fetch"], "gn_round": 0}
+               or r["block_fetch"] + r["resident_fetch"] != 6
+               for r in per_reg) or len(per_reg) != N_KITTI - 1:
+            raise AssertionError(f"phase 10 (b): launches {per_reg}")
+        if {c["K"] for c in calls} != {LOC_K}:
+            raise AssertionError("phase 10 (b): a fetch not at K=16")
+        kinds = sorted({(c["kind"], c["W"]) for c in calls})
+        checked, err_b = checked_fetches(calls)
+        print(f"phase 10 (b) fetch (kind, W): {kinds}; the first "
+              f"{KITTI_CHECKED} registration steps' fetches against their "
+              f"plain versions: {sum(c['equal'] for c in checked)}/"
+              f"{len(checked)} bitwise equal, max_abs_err {err_b}",
+              flush=True)
+        if not (len(checked) == 6 * KITTI_CHECKED
+                and all(c["equal"] for c in checked)):
+            raise AssertionError("phase 10 (b): a fetch kernel != its plain"
+                                 " version")
+        if not out["ate"] < KITTI_ATE_BOUND:
+            raise AssertionError(f"phase 10 (b): ATE {out['ate']}")
+        if n_gps != KITTI_GPS_FACTORS:
+            raise AssertionError(f"phase 10 (b): {n_gps} GPS factors, want "
+                                 f"{KITTI_GPS_FACTORS}")
+        steps = np.array(out["step_ms"])
+        split = {name: float(np.sum(v)) / len(steps)
+                 for name, v in timer.ms.items()}
+        print(f"time phase 10 (b) step: {steps.mean():.2f} ms wall a step "
+              f"(steps 0-{N_KITTI - 1}; p50 {np.median(steps):.2f}, max "
+              f"{steps.max():.2f}); loader (next scan from "
+              f"native.ScanLoader to the card) "
+              f"{np.mean(out['load_ms']):.2f} ms; per step on average "
+              f"(synchronized host clock): " + ", ".join(
+                  f"{name} {ms:.2f} ms" for name, ms in split.items()),
+              flush=True)
+
+        # ---- (c) run_kitti's pair alignment on the drive's first scans:
+        # the first pair's stages card against CPU, then the run ----
+        clouds = [(s_.xyz[s_.valid]).numpy() for s_ in (
+            kitti.load_scan(p_, 16 * 1800, n_rings=16, elev_min=-15.0,
+                            elev_max=15.0, device=cpu)
+            for p_ in kitti.scan_files(os.path.join(
+                drive, "velodyne_points", "data"))[:2])]
+        pair_card_vs_cpu(dev, clouds[1], clouds[0])
+        # warm-up, not timed: one pair (the first SVD on the card loads
+        # cuSOLVER)
+        run_kitti.main(["--data", drive, "--scans", "2", "--device",
+                        dev.type])
+        with coarse_stages(StageTimer(dev)) as stages:
+            res = run_kitti.main(["--data", drive, "--scans",
+                                  str(KITTI_PAIRS), "--device", dev.type])
+        n_pairs = len(res["pair_ms"])
+        still = run_kitti.chained_ate(np.zeros_like(res["traj"]),
+                                      kitti.load_oxts_poses(os.path.join(
+                                          drive, "oxts"))[:KITTI_PAIRS])
+        print(f"phase 10 (c) pair alignment: {n_pairs} pairs of the drive's "
+              f"first {KITTI_PAIRS} scans (voxel 0.3, cap 2048, FPFH k 16, "
+              f"RANSAC 256 x 0.5 m, ICP 50 x 2 m): chained ATE vs oxts "
+              f"{res['ate']:.4f} m (standing still {still:.4f}); steps "
+              + ", ".join(
+                  f"{np.linalg.norm(b - a):.3f}" for a, b in zip(
+                      res["traj"][:-1], res["traj"][1:]))
+              + " m (the drive moves 0.150 m a scan)", flush=True)
+        print(f"time phase 10 (c) pair: {np.mean(res['pair_ms']):.2f} ms "
+              f"wall a pair (p50 {np.median(res['pair_ms']):.2f}); per "
+              f"pair: " + ", ".join(
+                  f"{name} {sum(v) / n_pairs:.2f} ms"
+                  for name, v in stages.ms.items()),
+              flush=True)
+        if not (res["traj"].shape == (KITTI_PAIRS, 3)
+                and np.isfinite(res["traj"]).all()):
+            raise AssertionError(f"phase 10 (c): trajectory {res['traj']}")
+    return launches, err_b
+
+
+def multisession_phase(dev):
+    """Phase 10 (d): examples/run_multisession.py's configuration on the
+    card.  Returns (launches {wrapper: count} over the merge, {kernel:
+    max_abs_err} of its checked fetches)."""
+    import tempfile
+    import warnings
+
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.examples import (
+        run_multisession as rms)
+    from feature_base_pointcloud_registration_tpu_torch.geom.se3 import (
+        apply_transform, pose6_to_matrix)
+    from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+        SyntheticWorld, pose6_to_matrix_np)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fetch as tfetch, register as tregister)
+    from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
+        gn_round)
+    from feature_base_pointcloud_registration_tpu_torch.ops.hashgrid import (
+        grid_origin)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        multisession as tms)
+
+    cpu = torch.device("cpu")
+    params = Params(map_corner_cap=8192, map_surf_cap=65536)
+    world = SyntheticWorld()
+    t0 = time.perf_counter()
+    pipes = [rms.run_session(params, world, fn, N_MS, seed0=s0, device=dev)
+             for fn, s0 in ((rms.track_a, 100), (rms.track_b, 500))]
+    t_sess = time.perf_counter() - t0
+    sa, sb = (tms.session_from_pipeline(p) for p in pipes)
+    print(f"phase 10 (d) sessions: 2 x {N_MS} SLAM steps on the card in "
+          f"{t_sess:.2f} s; keyframes {sa.n} and {sb.n}", flush=True)
+
+    # ---- the merge, counted: each link's fetches recorded ----
+    counted = {"block_fetch": tfetch.block_fetch,
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+    real_step = tregister.grid_register_step
+    real_fetch_rows = tfetch.fetch_rows
+    calls, check = [], {"on": False}
+    links, timer = [], StageTimer(dev)
+
+    def link_step(local_map, features, pose6, *, half_extent, **kw):
+        check["on"] = len(links) < MS_CHECKED
+        n0 = len(calls)
+        before = {n_: w.launches for n_, w in counted.items()}
+        # link queries within half a cell (1 m) of the grid's lower faces
+        origin = grid_origin(pose6[0, 3:6], half_extent, device=dev)
+        T = pose6_to_matrix(pose6[0])
+        q = torch.cat([
+            apply_transform(T, features.corner_xyz[0])[
+                features.corner_mask[0]],
+            apply_transform(T, features.surf_xyz[0])[features.surf_mask[0]]])
+        near = int(((q - origin) < 1.0).any(1).sum())
+        out = timer.wrap("link registration", real_step)(
+            local_map, features, pose6, half_extent=half_extent, **kw)
+        links.append({"launches": {n_: w.launches - before[n_]
+                                   for n_, w in counted.items()},
+                      "fetches": [(c["kind"], c["W"], c["rows"])
+                                  for c in calls[n0:]],
+                      "queries": int(q.shape[0]), "lower_face": near})
+        return out
+
+    merge_kw = dict(params=params, link_radius=8.0, link_stride=1,
+                    coarse=False)
+    tregister.grid_register_step = link_step
+    tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
+    try:
+        timer.sync()
+        for w in counted.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        res = tms.merge_sessions(None, sa, sb, device=dev, **merge_kw)
+        timer.sync()
+        t_merge = time.perf_counter() - t0
+        launches = {n_: w.launches for n_, w in counted.items()}
+    finally:
+        tregister.grid_register_step = real_step
+        tfetch.fetch_rows = real_fetch_rows
+    print(f"phase 10 (d) merge: launches {launches}; {len(res.links)} links"
+          f" of {len(links)} registrations: " + "; ".join(
+              f"A[{ln.idx_a}]-B[{ln.idx_b}] {ln.correction * 100:.1f} cm"
+              for ln in res.links) + f"; align fitness "
+          f"{res.align_fitness:.5f}", flush=True)
+    for j, lk in enumerate(links):
+        print(f"phase 10 (d) link registration {j}: launches "
+              f"{lk['launches']}, fetches (kind, W, rows) {lk['fetches']}, "
+              f"{lk['queries']} queries, {lk['lower_face']} within half a "
+              f"cell of the grid's lower faces", flush=True)
+    checked, err_d = checked_fetches(calls)
+    print(f"phase 10 (d) the first {MS_CHECKED} link registrations' fetches "
+          f"against their plain versions: "
+          f"{sum(c['equal'] for c in checked)}/{len(checked)} bitwise "
+          f"equal, max_abs_err {err_d}", flush=True)
+    if not (len(checked) == 6 * min(MS_CHECKED, len(links))
+            and all(c["equal"] for c in checked)):
+        raise AssertionError("phase 10 (d): a fetch kernel != its plain "
+                             "version")
+    if any(lk["launches"]["gn_round"] or lk["launches"]["block_fetch"]
+           + lk["launches"]["resident_fetch"] != 6 for lk in links):
+        raise AssertionError(f"phase 10 (d): launches {links}")
+    if len(res.links) < 2:
+        raise AssertionError(f"phase 10 (d): {len(res.links)} links")
+
+    # ---- the merged map, saved, loaded, and the held-out scan ----
+    with tempfile.TemporaryDirectory() as out:
+        tms.save_merged_map(out, res, sa, sb)
+        pose, gt_map = rms.held_out(world, out, params, device=dev)
+    err = float(np.linalg.norm(pose[3:] - gt_map[3:]))
+    print(f"phase 10 (d) held-out localization against the merged map: "
+          f"{err:.4f} m (bound 0.06)", flush=True)
+    if not err < 0.06:
+        raise AssertionError(f"phase 10 (d): held-out error {err}")
+
+    # ---- card against CPU: the same merge from the same Sessions; the
+    # CPU's joint graph solved again on the card ----
+    graphs, real_lm = [], tms.optimize_pose_graph
+
+    def recorded_lm(g, **kw):
+        graphs.append((g, kw))
+        return real_lm(g, **kw)
+
+    tms.optimize_pose_graph = recorded_lm
+    try:
+        t0 = time.perf_counter()
+        res_c = tms.merge_sessions(None, sa, sb, device=cpu, **merge_kw)
+        t_cpu = time.perf_counter() - t0
+    finally:
+        tms.optimize_pose_graph = real_lm
+    g_c, kw_c = graphs[-1]
+    lm_card = real_lm(type(g_c)(*(t_.to(dev) for t_ in g_c)), **kw_c)[0]
+    d_lm = float((lm_card.cpu() - real_lm(g_c, **kw_c)[0]).abs().max())
+    same = ([(ln.idx_a, ln.idx_b) for ln in res.links]
+            == [(ln.idx_a, ln.idx_b) for ln in res_c.links])
+    d_cpu = max(float(np.abs(res.poses_a - res_c.poses_a).max()),
+                float(np.abs(res.poses_b - res_c.poses_b).max()))
+    d_align = float(np.abs(res.transform_ab - res_c.transform_ab).max())
+    d_meas = max(float(np.abs(a.meas - b.meas).max())
+                 for a, b in zip(res.links, res_c.links))
+    print(f"phase 10 (d) card vs CPU: the merge from the same Sessions: "
+          f"same links {same}, poses |diff| max {d_cpu:.3e} (bound "
+          f"{MERGE_TOL}); the alignment (ICP) |diff| {d_align:.3e}, the "
+          f"links' measurements (GN) {d_meas:.3e}; the CPU's joint graph "
+          f"solved on the card |diff| {d_lm:.3e} (bound 1e-5); the CPU "
+          f"merge took {t_cpu:.2f} s", flush=True)
+    if not (same and d_cpu <= MERGE_TOL and d_lm <= 1e-5):
+        raise AssertionError(f"phase 10 (d): card vs CPU {d_cpu} {d_lm}")
+
+    # ---- align_sessions with the coarse FPFH + RANSAC stage: the frames'
+    # known offset is A's first ground-truth pose against B's.  RANSAC's
+    # outcome depends on its draws, so ALIGN_DRAWS generator seeds run; the
+    # first is timed stage by stage ----
+    true_ab = (np.linalg.inv(pose6_to_matrix_np(rms.track_a(0)))
+               @ pose6_to_matrix_np(rms.track_b(0)))
+    gen = torch.Generator(device=dev)
+
+    def align(seed, coarse=True):
+        gen.manual_seed(seed)
+        return tms.align_sessions(gen, sa, sb, coarse=coarse, device=dev)
+
+    def offset_error(ar):
+        e = ar.transform @ np.linalg.inv(true_ab) - np.eye(4)
+        return float(np.abs(e[:3, 3]).max()), float(np.abs(e[:3, :3]).max())
+
+    with coarse_stages(StageTimer(dev)) as stages:
+        timer.sync()
+        t0 = time.perf_counter()
+        draws = [align(0)]
+        timer.sync()
+        t_align = (time.perf_counter() - t0) * 1e3
+    draws += [align(s) for s in range(1, ALIGN_DRAWS)]
+    errs = [offset_error(ar) for ar in draws]
+    fine = offset_error(align(0, coarse=False))
+    hits = sum(e_t < ALIGN_BOUND[0] and e_r < ALIGN_BOUND[1]
+               for e_t, e_r in errs)
+    print(f"phase 10 (d) align_sessions(coarse=True, leaf 0.4, cap 4096, "
+          f"512 hypotheses at 0.5 m), seeds 0-{ALIGN_DRAWS - 1}: offset "
+          f"error (m, rotation) and fitness " + "; ".join(
+              f"{e_t:.4f} {e_r:.4f} {ar.fitness:.4f}"
+              for (e_t, e_r), ar in zip(errs, draws))
+          + f"; {hits} within {ALIGN_BOUND}; within 0.05 m and 0.02 "
+          f"(tests/test_multisession.py's bounds on its own sessions) "
+          f"{sum(e_t < 0.05 and e_r < 0.02 for e_t, e_r in errs)}; "
+          f"coarse=False (ICP alone) {fine[0]:.4f} {fine[1]:.4f}",
+          flush=True)
+    print(f"time phase 10 (d): align_sessions {t_align:.2f} ms wall (" +
+          ", ".join(f"{name} {sum(v):.2f} ms" for name, v in
+                    stages.ms.items()) + f"); merge (coarse=False) "
+          f"{t_merge * 1e3:.2f} ms wall, link registrations " +
+          ", ".join(f"{v:.2f}" for v in timer.ms["link registration"])
+          + " ms", flush=True)
+    if not (hits >= 1 and fine[0] < ALIGN_BOUND[0]
+            and fine[1] < ALIGN_BOUND[1]):
+        raise AssertionError(f"phase 10 (d): coarse alignment {errs}, "
+                             f"ICP alone {fine}")
+    wall_p, busy, top = profile_call(lambda: align(0))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            align(0)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w_.message) for w_ in caught)
+    print(f"profile phase 10 (d) align_sessions (torch.profiler): wall "
+          f"{wall_p:.2f} ms, device busy {busy:.2f} ms "
+          f"({busy / wall_p:.1%}), host syncs {syncs} (sync debug mode); by "
+          f"device time: " + "; ".join(f"{name[:50]} {ms:.3f}"
+                                       for name, ms in top[:5]), flush=True)
+    return launches, err_d
+
+
 def main():
     import torch
 
@@ -2106,6 +2696,8 @@ def main():
     loc_launches, loc_fetch, loc_err = localization_phase(dev)
     slam_launches, slam_err = slam_phase(dev)
     lio_launches, lio_err = lio_phase(dev)
+    kitti_launches, kitti_err = kitti_phase(dev)
+    ms_launches, ms_err = multisession_phase(dev)
     loc = {}
     for kind, (name, ms, plain_ms, b_ms, b_by) in loc_fetch.items():
         loc.setdefault(name, {})[kind] = {
@@ -2119,7 +2711,11 @@ def main():
                 "launches_slam": slam_launches[name],
                 "max_abs_err_slam": slam_err.get(name),
                 "launches_lio": lio_launches[name],
-                "max_abs_err_lio": lio_err.get(name)}
+                "max_abs_err_lio": lio_err.get(name),
+                "launches_kitti": kitti_launches[name],
+                "max_abs_err_kitti": kitti_err.get(name),
+                "launches_multisession": ms_launches[name],
+                "max_abs_err_multisession": ms_err.get(name)}
 
     def entry(name, source, replaces, launches_, err, timed, **extra):
         return {"name": name, "route": "cuda",

@@ -20,9 +20,12 @@ and the SLAM back end (`pipeline.slam.SlamPipeline`: keyframes,
 host C++ runtime), and the LIO mode (`pipeline.lio.LioTopology`:
 `imu.preintegration`, `graph.imu_graph`, `pipeline.imu_odometry`; the GPS
 chain `pipeline.navsat`; `pipeline.checkpoint` and `utils.supervise` for
-crash-safe resume).  The three TPU kernels are hand-written CUDA in `csrc/`
-(see `kernels.py`).  Functions take a leading
-batch dimension where the JAX package vmaps over scans.
+crash-safe resume), and the KITTI and multi-session entry points
+(`io.kitti` raw I/O, `io.kitti_drive` the generated drive, `ops.fpfh` and
+`ops.ransac` global registration, `pipeline.multisession` session merging,
+`utils.timing` and `utils.viz`; the runners in `examples`).  The three TPU
+kernels are hand-written CUDA in `csrc/` (see `kernels.py`).  Functions
+take a leading batch dimension where the JAX package vmaps over scans.
 """
 
 from . import device  # noqa: F401  (sets the TF32 guards)

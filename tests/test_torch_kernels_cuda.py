@@ -23,7 +23,12 @@ cancelled terms |q-c|^2 + |m-c|^2, indices equal except at near-ties);
 the CPU (the second on the fetch kernels).  The LIO path: preintegration,
 the IMU chain LM and its float64 marginal on the card against the CPU
 (deltas within 1e-5, states within 1e-4, the marginal within rtol 1e-4),
-and two `LioTopology` steps within 1e-4 in pose and IMU chain state.
+and two `LioTopology` steps within 1e-4 in pose and IMU chain state.  The
+KITTI and multi-session slice: the pair alignment stage by stage (FPFH
+within 1e-5 where no histogram bin flipped, flips at most 1% of the
+pairs; RANSAC scoring and ICP within 1e-4)
+and `merge_sessions` within 1e-4 of the CPU, the links on the K=16 fetch
+kernels.
 """
 
 import numpy as np
@@ -718,3 +723,155 @@ def test_lio_steps_on_gpu_match_cpu(cuda):
         runs.append((np.stack(ests), topo.odo.chain_states.copy()))
     np.testing.assert_allclose(runs[0][0], runs[1][0], atol=1e-4, rtol=0)
     np.testing.assert_allclose(runs[0][1], runs[1][1], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_pair_alignment_on_gpu_matches_cpu(cuda):
+    """examples/run_kitti's pair alignment, stage by stage: FPFH on the card
+    within 1e-5 of the CPU's wherever no histogram bin flipped (a 1-ulp
+    angle difference moves a pair into the next bin, which changes the
+    point's descriptor and its neighbors'; flipped pairs at most 1%: 4.7%
+    of the descriptors differed by more than 1e-5 in a first run on the
+    card), RANSAC scoring of the same triplets and ICP from the same coarse
+    transform within 1e-4, and the whole pair on the card within 0.05 m of
+    the truth."""
+    from feature_base_pointcloud_registration_tpu_torch import native
+    from feature_base_pointcloud_registration_tpu_torch.examples import (
+        run_kitti)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fpfh as tfp, icp as ticp, knn as tknn, ransac as tra)
+
+    world = run_kitti.synth_outdoor_world()
+    gts = [np.array([0, 0, 0.05 * k, 0.8 * k, 0.3 * k, 0.0], np.float32)
+           for k in range(2)]
+    clouds = [run_kitti.synth_scan(world, g, seed=k)
+              for k, g in enumerate(gts)]
+
+    def prep(xyz, dev):
+        pts = native.voxel_downsample(xyz, 0.3)[:2048]
+        buf = np.zeros((2048, 3), np.float32)
+        buf[:len(pts)] = pts
+        return (torch.from_numpy(buf).to(dev),
+                (torch.arange(2048) < len(pts)).to(dev))
+
+    def bins(pts, m):
+        """The K-NN and each pair's histogram bins, as fpfh computes them."""
+        d2, idx = tknn.knn(pts, pts, m, k=16, chunk=2048)
+        idx = idx.long()
+        n, _ = tfp._normals(pts, m, d2, idx, None)
+        angles = tfp._pair_features(pts, n, pts[idx], n[idx])[:3]
+        return idx.cpu(), torch.stack([
+            torch.clamp(((a - lo) / (hi - lo) * 11).to(torch.int32), 0,
+                        10).cpu()
+            for a, (lo, hi) in zip(angles, ((-1, 1), (-1, 1),
+                                            (-np.pi, np.pi)))])
+
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        (src, sm), (dst, dm) = prep(clouds[1], dev), prep(clouds[0], dev)
+        sd, sv = tfp.fpfh(src, sm)
+        dd, dv = tfp.fpfh(dst, dm)
+        out.append((src, sm, dst, dm, sd, sv, dd, dv, bins(src, sm),
+                    bins(dst, dm)))
+    g, c = out
+    for a, b, (idx, bn), (idx_c, bn_c) in ((g[4], c[4], g[8], c[8]),
+                                           (g[6], c[6], g[9], c[9])):
+        flip = (bn != bn_c).any(0) | (idx != idx_c)
+        assert flip.sum() <= 0.01 * flip.numel()
+        at = flip.any(1)
+        touched = at | at[idx_c].any(1)
+        assert ((a.cpu() - b)[~touched].abs() <= 1e-5).all()
+    assert torch.equal(g[5].cpu(), c[5]) and torch.equal(g[7].cpu(), c[7])
+    midx, sim = tfp.match_descriptors(*c[4:8])
+    corr = c[5] & (sim > -torch.inf)
+    samples = tra.sample_triplets(torch.Generator().manual_seed(0), corr,
+                                  256)
+    fits = [tra.ransac_from_samples(samples.to(d[0].device), d[0],
+                                    d[2][midx.long().to(d[0].device)],
+                                    corr.to(d[0].device),
+                                    inlier_threshold=0.5) for d in (g, c)]
+    np.testing.assert_allclose(fits[0].transform.cpu().numpy(),
+                               fits[1].transform.numpy(), atol=1e-4)
+    assert abs(int(fits[0].inliers) - int(fits[1].inliers)) <= 1
+    T = fits[1].transform
+    icps = [ticp.icp_align(d[0] @ T[:3, :3].T.to(d[0].device)
+                           + T[:3, 3].to(d[0].device), d[1], d[2], d[3],
+                           max_corr_dist=2.0, max_iterations=50)
+            for d in (g, c)]
+    np.testing.assert_allclose(icps[0].transform.cpu().numpy(),
+                               icps[1].transform.numpy(), atol=1e-4)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    T_rel, fitness = run_kitti.pair_align(gen, clouds[1], clouds[0],
+                                          device=cuda)
+    truth = np.linalg.inv(pose6_to_matrix_np(gts[0])) @ pose6_to_matrix_np(
+        gts[1])
+    assert np.abs(T_rel[:3, 3] - truth[:3, 3]).max() < 0.05
+    assert fitness < 0.05
+
+
+def _observed_sessions():
+    """Two 5-keyframe sessions observing the synthetic world's map points
+    (within 14 m, 5 mm noise) from parallel tracks; B's stored frame offset
+    by a yaw and a translation."""
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        multisession as tms)
+
+    world = SyntheticWorld()
+    pts = np.concatenate([world.corner_map_points(0.5),
+                          world.surf_map_points(1.0)]).astype(np.float32)
+    off = pose6_to_matrix_np(np.array([0, 0, 0.1, 0.6, -0.4, 0.05]))
+    out = []
+    for y, T_off, seed in ((-1.5, np.eye(4), 1), (1.0, off, 2)):
+        rng = np.random.RandomState(seed)
+        n, cc, sc = 5, 256, 2048
+        s = dict(poses=np.zeros((n, 6), np.float32), times=np.arange(
+            n, dtype=np.float64), corner=np.zeros((n, cc, 3), np.float32),
+            corner_mask=np.zeros((n, cc), bool),
+            surf=np.zeros((n, sc, 3), np.float32),
+            surf_mask=np.zeros((n, sc), bool))
+        for k in range(n):
+            T = pose6_to_matrix_np(np.array([0, 0, 0.02 * k, 0.6 * k - 2.0,
+                                             y, 0.0]))
+            local = (pts - T[:3, 3]) @ T[:3, :3]
+            near = local[np.linalg.norm(local, axis=1) < 14.0]
+            near = near + rng.normal(0, 0.005, near.shape)
+            rng.shuffle(near)
+            s["corner"][k, :cc] = near[:cc]
+            s["corner_mask"][k, :cc] = True
+            m = min(sc, len(near) - cc)
+            s["surf"][k, :m] = near[cc:cc + m]
+            s["surf_mask"][k, :m] = True
+            Ts = T_off @ T
+            s["poses"][k] = [np.arctan2(Ts[2, 1], Ts[2, 2]),
+                             np.arcsin(-Ts[2, 0]),
+                             np.arctan2(Ts[1, 0], Ts[0, 0]), *Ts[:3, 3]]
+        out.append(tms.Session(**s))
+    return out
+
+
+@pytest.mark.cuda
+def test_merge_on_gpu_matches_cpu(cuda):
+    """merge_sessions(coarse=False) on the card and on the CPU from the same
+    Sessions: the same link pairs, poses within 1e-4 (the links'
+    registrations on the K=16 fetch kernels on the card)."""
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        multisession as tms)
+
+    sa, sb = _observed_sessions()
+    params = Params(register_grid_half_extent=(30.0, 30.0, 10.0))
+    res, launches = [], []
+    for dev in (cuda, torch.device("cpu")):
+        before = tfetch.resident_fetch.launches + tfetch.block_fetch.launches
+        res.append(tms.merge_sessions(None, sa, sb, params=params,
+                                      coarse=False, link_radius=8.0,
+                                      link_stride=1, device=dev))
+        launches.append(tfetch.resident_fetch.launches
+                        + tfetch.block_fetch.launches - before)
+    links = [[(ln.idx_a, ln.idx_b) for ln in r.links] for r in res]
+    assert links[0] == links[1] and len(links[0]) >= 2
+    assert launches[1] == 0 and launches[0] >= 6 * len(links[0])
+    np.testing.assert_allclose(res[0].transform_ab, res[1].transform_ab,
+                               atol=1e-4)
+    np.testing.assert_allclose(res[0].poses_a, res[1].poses_a, atol=1e-4)
+    np.testing.assert_allclose(res[0].poses_b, res[1].poses_b, atol=1e-4)

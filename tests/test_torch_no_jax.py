@@ -10,7 +10,9 @@ localization path at a small size: strict picking, deskew and one
 the local map built from it) and `save_map`; then the LIO topology: four
 clouds and the raw IMU between them through `LioTopology`, whose buffer
 emits two steps (the IMU chain corrected after each), a checkpoint of its
-SLAM state saved and loaded, and one EKF update and GPS fix.
+SLAM state saved and loaded, and one EKF update and GPS fix; then FPFH and
+RANSAC on a tiny cloud, `load_scan` on tests/data/kitti_mini and a
+one-link `merge_sessions` of the SLAM run's session with itself.
 """
 
 import os
@@ -126,6 +128,25 @@ ekf.add_odometry(0.0, ests[-1])
 fix = navsat.NavsatTransform(ekf).handle_fix(0.1, [1.0, 2.0, 0.0],
                                              [0.05, 0.05, 0.1])
 assert np.isfinite(fix[0]).all()
+from feature_base_pointcloud_registration_tpu_torch.io import kitti
+from feature_base_pointcloud_registration_tpu_torch.ops import fpfh, ransac
+from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+    multisession)
+pts = torch.from_numpy(r.uniform(-2, 2, (64, 3)).astype(np.float32))
+ones = torch.ones(64, dtype=torch.bool)
+desc, dvalid = fpfh.fpfh(pts, ones, k=8, chunk=64)
+assert desc.shape == (64, 33) and bool(dvalid.all())
+fit = ransac.ransac_align(torch.Generator().manual_seed(0), pts, pts + 0.1,
+                          dvalid, num_hypotheses=16, inlier_threshold=0.3)
+assert torch.isfinite(fit.transform).all() and int(fit.inliers) == 64, fit
+vdir = os.path.join("tests", "data", "kitti_mini", "velodyne_points", "data")
+scan = kitti.load_scan(kitti.scan_files(vdir)[0], 512, device=cpu)
+assert int(scan.valid.sum()) == 320, int(scan.valid.sum())
+sess = multisession.session_from_pipeline(slam)
+merged = multisession.merge_sessions(
+    None, sess, sess, params=params, link_stride=1,
+    transform_ab=np.eye(4, dtype=np.float32), device=cpu)
+assert len(merged.links) == 1 and np.isfinite(merged.poses_b).all(), merged
 loaded = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib")
                 or k.startswith("feature_base_pointcloud_registration_tpu.")))

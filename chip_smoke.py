@@ -143,7 +143,31 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            card within 1e-5;
            align_sessions(coarse=True) over 8 generator seeds (at least
            one within 0.3 m / 0.02 rad of the known offset, ICP alone
-           too), timed stage by stage, profiled, its host syncs counted.
+           too), timed stage by stage, profiled, its host syncs counted;
+  phase 11 the sharded solvers and the XLA solver variants at the bench's
+           width: (a) shard_register_tables(make_mesh("cuda"),
+           solver="fused") on a one-rank NCCL group (a FileStore), on the
+           raw and on the resident tables, counted (4 fetches and 2 GN
+           rounds a call), bitwise equal to batch_register_fused on the
+           same inputs, n_total 256, timed beside it; (b)
+           map_sharded_register_tables on a one-rank ("data", "map") mesh
+           with build_sharded_block_tables(S=1), whose table must be
+           build_map_planar_tables', counted (4 block_fetch), bitwise
+           equal to batch_register_pallas on those tables; (c) four
+           striped shards' block_fetch calls on phase 1's round-1 surf
+           queries merged by merge_topk: bitwise equal to the plain
+           fetches' merge (the share of queries whose d2 equal the
+           replicated table's printed); (d) batch_register_rounds (the
+           octant-sentinel fetch) and batch_register_fast_grid (packed
+           1 m tables, cap 48) at B=256 and batch_register_fast (the
+           streamed prefetch, chunk 1024) at B=32, plain PyTorch: ATE
+           against the oracle (<= 1e-3 m; both prefetch solves <= 4e-3 m,
+           the bound of tests/test_register.py) and each oracle scan's
+           error, ms a scan of one call by CUDA events, peak memory, the
+           difference from phase 6's poses; the fast-grid solve of the
+           oracle scans on the CPU beside the card's;
+           (e) dryrun_multichip(1, backend="nccl"): one spawned rank
+           running every sharded stage on the card.
 
     python3 chip_smoke.py --gn-ab NAME=path/to/gn_round.cu ...
 
@@ -170,6 +194,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -227,6 +252,15 @@ ALIGN_DRAWS = 8          # generator seeds of (d)'s coarse align_sessions
 # under its 5e-4 m convergence threshold, and float noise can move that stop
 # by an iteration (2.9e-4 m measured on the card; ROADMAP Queue 3)
 MERGE_TOL = 1e-3
+N_FAST = 32              # phase 11 (d): scans of batch_register_fast
+# m, the oracle gate of both prefetch solves (fast and fast-grid): the JAX
+# package's own bound for the prefetch solve (tests/test_register.py:164-166).
+# Both miss the bench's 1e-3 on these scans: each stops on scan 5 after 5
+# iterations 5.0e-3 / 5.4e-3 m from the oracle (the rounds solve 5e-6),
+# the same on the CPU (PERF.md, ROADMAP Queue 3)
+FAST_BUDGET = 4e-3
+FAST_CHUNK = 1024        # its streamed k-NN chunk (bounds the [B,Q,C] d2)
+FAST_GRID_CAP = 48       # phase 11 (d): cell cap of the packed 1 m tables
 # (d): at least one draw within this (m, rotation) of the known offset: the
 # basin of ICP alone, 0.184 m off on the CPU in both packages (PERF.md)
 ALIGN_BOUND = (0.3, 0.02)
@@ -2284,6 +2318,220 @@ def multisession_phase(dev):
                                        for name, ms in top[:5]), flush=True)
     return launches, err_d
 
+def sharded_phase(dev, bench):
+    """Phase 11: the sharded solvers on torch.distributed and the XLA solver
+    variants, on the card at the bench's width (bench: phase 3's features,
+    guesses, map, tables and helpers from main).  Returns (launches
+    {wrapper: count} of (a) and (b), {kernel: max_abs_err} of (a)-(c))."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from feature_base_pointcloud_registration_tpu_torch.ops.fetch import (
+        block_fetch, block_fetch_reference)
+    from feature_base_pointcloud_registration_tpu_torch.ops.hashgrid import (
+        build_grid_packed, default_grid_spec, grid_origin,
+        grid_overflow_fraction)
+    from feature_base_pointcloud_registration_tpu_torch.parallel import (
+        batch as pbatch, dryrun, map_sharded as pms)
+
+    f, g, fmap = bench.feats, bench.guesses, bench.fmap
+    ctab, stab, origin, dims = bench.tabs
+    kw = dict(grid_dims=dims, iters_per_round=ITERS, num_candidates=K,
+              round1_surf_stride=R1S, round1_corner_stride=R1C)
+    caps = dict(corner_cell_cap=CCAP, surf_cell_cap=SCAP)
+    rounds = dict(num_rounds=2, iters_per_round=ITERS, num_candidates=K)
+    launches = {"block_fetch": 0, "resident_fetch": 0, "gn_round": 0}
+    err = {}
+
+    def same(a, b):
+        """(bitwise equal, max |pose diff|) of two RegisterResults."""
+        return (all(torch.equal(x, y) for x, y in zip(a, b)),
+                float((a.pose6 - b.pose6).abs().max()))
+
+    def count(phase, want):
+        got = bench.read_counts(phase, want)
+        for k, v in got.items():
+            launches[k] += v
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            # (a) the fused solver data-parallel on a one-rank NCCL mesh
+            mesh = pbatch.make_mesh("cuda")
+            for name, (ct, st), want in (
+                    ("raw", (ctab, stab), {"block_fetch": 4,
+                                           "resident_fetch": 0,
+                                           "gn_round": 2}),
+                    ("resident", bench.rtabs[:2], {"block_fetch": 0,
+                                                   "resident_fetch": 4,
+                                                   "gn_round": 2})):
+                ref = pbatch.batch_register_fused(f, ct, st, origin, g, **kw)
+                bench.zero_counts()
+                res, stats = pbatch.shard_register_tables(
+                    mesh, f, ct, st, origin, g, solver="fused", **caps, **kw)
+                count(f"11 (a) {name}", want)
+                eq, d = same(res, ref)
+                print(f"phase 11 (a) shard_register_tables(solver='fused') "
+                      f"{name} tables on a one-rank NCCL mesh: bitwise "
+                      f"{eq} (pose |diff| {d}) vs batch_register_fused; "
+                      f"n_total {int(stats['n_total'])} n_converged "
+                      f"{int(stats['n_converged'])} mean iterations "
+                      f"{float(stats['mean_iterations']):.3f}", flush=True)
+                if not eq or int(stats["n_total"]) != B:
+                    raise AssertionError(f"phase 11 (a) {name}: {d}, "
+                                         f"n_total {stats['n_total']}")
+                kern = "block_fetch" if name == "raw" else "resident_fetch"
+                err[kern] = max(err.get(kern, 0.0), d)
+                err["gn_round"] = max(err.get("gn_round", 0.0), d)
+            t_sh = cuda_ms(lambda: pbatch.shard_register_tables(
+                mesh, f, ctab, stab, origin, g, solver="fused", **caps,
+                **kw), 3)
+            t_un = cuda_ms(lambda: pbatch.batch_register_fused(
+                f, ctab, stab, origin, g, **kw), 3)
+            print(f"time phase 11 (a): shard_register_tables {t_sh / B:.4f} "
+                  f"ms/scan, batch_register_fused {t_un / B:.4f} ms/scan "
+                  f"({bench.gpu})", flush=True)
+
+            # (b) the map-sharded tables on a one-rank ("data", "map") mesh
+            mesh2 = pms.make_2d_mesh("cuda", 1, data=1)
+            cts, sts, o1, d1 = pms.build_sharded_block_tables(
+                fmap, bench.center, bench.half, 1, **caps)
+            one = torch.equal(cts[0], ctab) and torch.equal(sts[0], stab)
+            ref = pbatch.batch_register_pallas(f, ctab, stab, origin, g,
+                                               grid_dims=dims, **caps,
+                                               **rounds)
+            bench.zero_counts()
+            res, stats = pms.map_sharded_register_tables(
+                mesh2, f, cts, sts, o1, g, grid_dims=d1, **caps, **rounds)
+            count("11 (b)", {"block_fetch": 4, "resident_fetch": 0,
+                             "gn_round": 0})
+            eq, d = same(res, ref)
+            print(f"phase 11 (b) map_sharded_register_tables, S=1: tables "
+                  f"= build_map_planar_tables' {one}; bitwise {eq} (pose "
+                  f"|diff| {d}) vs batch_register_pallas on those tables; "
+                  f"n_converged {int(stats['n_converged'])}", flush=True)
+            if not (one and eq):
+                raise AssertionError(f"phase 11 (b): tables {one}, {d}")
+            err["block_fetch"] = max(err["block_fetch"], d)
+        finally:
+            dist.destroy_process_group()
+
+    # (c) four striped shards' fetches in this process, merged
+    cts, sts, _, _ = pms.build_sharded_block_tables(
+        fmap, bench.center, bench.half, 4, **caps)
+    q = bench.queries_surf
+    parts = [block_fetch(t, *q, K=K, planes_out=False) for t in sts]
+    merged = pms.merge_topk(torch.stack([p[0] for p in parts]),
+                            torch.stack([p[1] for p in parts]), K)
+    torch.cuda.synchronize()
+    plain = []
+    for t in sts:
+        d2, cand = block_fetch_reference(t, *q, K=K)
+        plain.append((d2, cand.view(3, K, -1).permute(2, 1, 0)))
+    pmerged = pms.merge_topk(torch.stack([p[0] for p in plain]),
+                             torch.stack([p[1] for p in plain]), K)
+    eq = all(torch.equal(a, b) for a, b in zip(merged, pmerged))
+    d_c = max(float((a - b).abs().max()) for a, b in zip(merged, pmerged))
+    full = block_fetch_reference(stab, *q, K=K)[0]
+    live = q[0] != stab.shape[0] - 1
+    print(f"phase 11 (c) 4 striped surf shards (W "
+          f"{sts.shape[2] // 3}), {int(live.sum())} live round-1 queries: "
+          f"merged kernel fetch bitwise {eq} (max_abs_err {d_c}) vs the "
+          f"plain fetches' merge; d2 equal to the replicated table's on "
+          f"{float((merged[0] == full).all(1)[live].float().mean()):.4f} of "
+          f"live queries", flush=True)
+    if not eq:
+        raise AssertionError(f"phase 11 (c): merged fetch {d_c}")
+    err["block_fetch"] = max(err["block_fetch"], d_c)
+
+    # (d) the XLA solver variants (plain PyTorch on the card)
+    sent = pbatch.build_map_grids(fmap, bench.center, bench.half, **caps)
+    dims1 = default_grid_spec(bench.half, 1.0)
+    org1 = grid_origin(bench.center, bench.half, device=dev)
+    packed = [build_grid_packed(x, m, org1, 1.0, dims=dims1,
+                                cell_cap=FAST_GRID_CAP)
+              for x, m in ((fmap.corner_xyz, fmap.corner_mask),
+                           (fmap.surf_xyz, fmap.surf_mask))]
+    ovf = [float(grid_overflow_fraction(x, m, org1, 1.0, dims=dims1,
+                                        cell_cap=FAST_GRID_CAP))
+           for x, m in ((fmap.corner_xyz, fmap.corner_mask),
+                        (fmap.surf_xyz, fmap.surf_mask))]
+    sub = type(f)(*(a[:N_FAST] for a in f))
+    solvers = {
+        "batch_register_rounds": (lambda: pbatch.batch_register_rounds(
+            f, sent[0], sent[1], sent[2], g, grid_dims=sent[3], **caps,
+            **rounds), B, PARITY_BUDGET),
+        "batch_register_fast_grid": (lambda: pbatch.batch_register_fast_grid(
+            f, fmap, packed[0], packed[1], org1, g, grid_dims=dims1,
+            cell_size=1.0, cell_cap=FAST_GRID_CAP), B, FAST_BUDGET),
+        "batch_register_fast": (lambda: pbatch.batch_register_fast(
+            sub, fmap, g[:N_FAST], chunk=FAST_CHUNK), N_FAST, FAST_BUDGET),
+    }
+    print(f"phase 11 (d) packed 1 m tables cap {FAST_GRID_CAP}: dims "
+          f"{dims1}, grid_overflow {ovf}", flush=True)
+    for name, (fn, n, budget) in solvers.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        pose = res.pose6.cpu().numpy()
+        if not (np.isfinite(pose).all() and pose.shape == (n, 6)):
+            raise AssertionError(f"phase 11 (d) {name}: poses")
+        ate = bench.ate_oracle_of(pose)
+        n_or = min(len(bench.oracle_poses), n)
+        lane_err = np.linalg.norm(pose[:n_or, 3:]
+                                  - bench.oracle_poses[:n_or, 3:], axis=1)
+        print(f"phase 11 (d) {name}: translation error against the oracle "
+              f"on scans 0-{n_or - 1} {np.round(lane_err, 6).tolist()}, "
+              f"iterations {res.iterations[:n_or].tolist()}", flush=True)
+        d6 = float(np.abs(pose - bench.pose6[:n]).max())
+        print(f"phase 11 (d) {name} B={n}: ate_vs_oracle_m {ate} (gate "
+              f"{budget}); pose |diff| vs phase 6 batch_register_pallas max "
+              f"{d6}; n_converged {int(res.converged.sum())}/{n} mean "
+              f"iterations {res.iterations.float().mean().item():.2f}; "
+              f"time {ms / n:.4f} ms/scan ({ms:.1f} ms, first call, "
+              f"{bench.gpu}); peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+              flush=True)
+        if not ate <= budget:
+            raise AssertionError(f"phase 11 (d) {name}: ate_vs_oracle_m "
+                                 f"{ate} > {budget}")
+        if name == "batch_register_fast_grid":
+            cpu = torch.device("cpu")
+            lanes = slice(0, n_or)
+            res_c = pbatch.batch_register_fast_grid(
+                type(f)(*(a[lanes].cpu() for a in f)),
+                type(fmap)(*(a.cpu() for a in fmap)), packed[0].cpu(),
+                packed[1].cpu(), org1.cpu(), g[lanes].cpu(), grid_dims=dims1,
+                cell_size=1.0, cell_cap=FAST_GRID_CAP)
+            d = np.abs(pose[lanes] - res_c.pose6.numpy()).max(1)
+            print(f"phase 11 (d) {name}: the same {n_or} scans on the CPU: "
+                  f"ate_vs_oracle_m {bench.ate_oracle_of(res_c.pose6.numpy())}"
+                  f", card vs CPU pose |diff| per scan "
+                  f"{[float(f'{x:.3e}') for x in d]}, iterations "
+                  f"{res_c.iterations.tolist()}", flush=True)
+
+    # (e) the dry run's spawned NCCL rank (one card): every stage
+    t1 = time.perf_counter()
+    out = dryrun.dryrun_multichip(1, backend="nccl")[0]
+    for name, (res, stats) in out.items():
+        if not np.isfinite(res.pose6).all():
+            raise AssertionError(f"phase 11 (e) {name}: poses")
+    print(f"phase 11 (e) dryrun_multichip(1, backend='nccl'): stages "
+          f"{sorted(out)} in {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, err
+
 
 def main():
     import torch
@@ -2698,6 +2946,12 @@ def main():
     lio_launches, lio_err = lio_phase(dev)
     kitti_launches, kitti_err = kitti_phase(dev)
     ms_launches, ms_err = multisession_phase(dev)
+    sh_launches, sh_err = sharded_phase(dev, types.SimpleNamespace(
+        feats=feats3, guesses=guesses_t, fmap=fmap, center=center, half=half,
+        tabs=tabs, rtabs=rtabs, queries_surf=queries["surf"][1],
+        ate_oracle_of=ate_oracle_of, oracle_poses=oracle_poses,
+        pose6=pose6, gpu=smi,
+        zero_counts=zero_counts, read_counts=read_counts))
     loc = {}
     for kind, (name, ms, plain_ms, b_ms, b_by) in loc_fetch.items():
         loc.setdefault(name, {})[kind] = {
@@ -2715,7 +2969,9 @@ def main():
                 "launches_kitti": kitti_launches[name],
                 "max_abs_err_kitti": kitti_err.get(name),
                 "launches_multisession": ms_launches[name],
-                "max_abs_err_multisession": ms_err.get(name)}
+                "max_abs_err_multisession": ms_err.get(name),
+                "launches_sharded": sh_launches[name],
+                "max_abs_err_sharded": sh_err.get(name)}
 
     def entry(name, source, replaces, launches_, err, timed, **extra):
         return {"name": name, "route": "cuda",

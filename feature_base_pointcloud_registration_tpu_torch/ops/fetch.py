@@ -158,7 +158,10 @@ def _fetch(launch, plain, table, bcell, qx, qy, qz, K, planes_out):
         raise ValueError(f"unsupported device {table.device}")
     if planes_out:
         return d2, cand
-    return d2, cand.view(3, K, Q).permute(2, 1, 0)
+    # a contiguous copy: a solver's reductions over K then meet the layout
+    # every other candidate source gives them (on the card a reduction's
+    # order can follow the layout, and with it the last bits)
+    return d2, cand.view(3, K, Q).permute(2, 1, 0).contiguous()
 
 
 def block_fetch(table, bcell, qx, qy, qz, *, K: int = 8,

@@ -4,13 +4,19 @@ and the IMU fusion epilogue.
 
 Port of the JAX package's `ops/register.py` (`RegisterResult`,
 `register_core`, `register_scan`, `register_scan_with_params`,
-`register_rounds_core`, `grid_register_step`, `transform_update`).  The
-fused solve of the batched main path lives in `parallel/batch.py`; the
-rounds solver is the body of `batch_register_blocks` and
-`batch_register_pallas` there, and of `grid_register_step` here.
+`prefetch_candidates`, `make_candidate_knn`, `register_scan_fast`,
+`register_grid_core`, `register_scan_fast_grid`, `register_rounds_core`,
+`grid_register_step`, `transform_update`).  The fused solve of the batched
+main path lives in `parallel/batch.py`; the rounds solver is the body of
+`batch_register_blocks`, `batch_register_pallas` and
+`batch_register_rounds` there, and of `grid_register_step` here.
 `register_scan` is the exactness check: every GN iteration streams the
 whole map through `ops/knn.py` (scan2MapOptimization with the reference's
-KD-tree search, ref: src/mapOptmization.h:1403-1442).
+KD-tree search, ref: src/mapOptmization.h:1403-1442).  The candidate
+prefetch solvers (`register_scan_fast` on the streamed k-NN,
+`register_scan_fast_grid` on the packed grid) fetch K candidates once and
+again whenever a lane's pose has moved more than `refetch_dist` from where
+it fetched; each GN iteration takes its 5-NN from those candidates.
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ from ..geom.se3 import (euler_from_quat, euler_to_rot, quat_from_euler,
 from .correspondence import (corner_correspondence,
                              corner_correspondence_cand, surf_correspondence,
                              surf_correspondence_cand)
-from .hashgrid import default_grid_spec, grid_origin, grid_overflow_fraction
-from .knn import make_local_knn
+from .hashgrid import (default_grid_spec, grid_origin,
+                       grid_overflow_fraction, make_packed_grid_knn)
+from .knn import _extract_topk, _rows, knn, make_local_knn
 from .solver import GNState, gn_step
 
 
@@ -184,6 +191,227 @@ def register_scan_with_params(params, features, local_map, init_pose6,
         z_tolerance=params.z_tolerance)
     return res._replace(pose6=torch.where(res.valid[:, None], pose,
                                           res.pose6))
+
+
+def prefetch_candidates(query_w, ref, ref_mask, K: int, chunk: int):
+    """One streamed pass over the map: the K nearest candidates of each
+    query.  query_w [..., Q, 3]; ref [M, 3] shared or [..., M, 3] one map
+    per set (M a multiple of `chunk`) -> (cand [..., Q, K, 3], valid
+    [..., Q, K]).
+
+    The GN loop then takes its 5-NN within these candidates instead of
+    streaming the whole map every iteration (the map is fixed; only the
+    pose moves, by centimeters an iteration)."""
+    d2, idx = knn(query_w, ref, ref_mask, k=K, chunk=chunk)
+    return _rows(ref, idx), d2 < 1e37
+
+
+def make_candidate_knn(cand_xyz, cand_valid):
+    """knn closure over per-query candidates cand_xyz [..., Q, K, 3]:
+    q [..., Q, 3] -> (d2 [..., Q, 5], nn [..., Q, 5, 3]), the exact 5-NN
+    among each query's valid candidates (invalid ones rank at 3e38)."""
+
+    def f(q):
+        diff = q[..., None, :] - cand_xyz
+        d2 = torch.where(cand_valid, (diff * diff).sum(-1), 3.0e38)
+        vals, pos = _extract_topk(d2, 5)
+        return vals, torch.gather(
+            cand_xyz, -2, pos.long()[..., None].expand(*pos.shape, 3))
+
+    return f
+
+
+def _lanes_knn(knn_fn):
+    """A knn closure on flat queries [Q, 3] as a closure on world points of
+    lanes [B, P, 3], the interface of `register_core`."""
+
+    def f(q):
+        d2, nn = knn_fn(q.reshape(-1, 3))
+        return (d2.view(*q.shape[:-1], -1),
+                nn.view(*q.shape[:-1], -1, 3))
+
+    return f
+
+
+def _prefetch_solve(features, fetch, init_pose6, *, refetch_dist,
+                    max_iterations, min_correspondences, eigen_threshold,
+                    edge_min_valid, surf_min_valid, converge_rot_deg,
+                    converge_trans_cm) -> RegisterResult:
+    """The candidate-prefetch solve of `register_scan_fast` and
+    `register_scan_fast_grid` over a batch of lanes.
+
+    fetch(pose [b, 6], lanes [b] int64) -> (corner cand [b, Pc, K, 3],
+    valid [b, Pc, K], surf cand [b, Ps, K, 3], valid [b, Ps, K]) for the
+    given lanes at their poses.  Per lane, as the JAX package's vmapped
+    while-loop: fetch at the initial pose; at the start of each iteration,
+    refetch when the translation has moved more than refetch_dist from
+    where the lane last fetched (JAX's `lax.cond`, which runs both branches
+    under vmap and selects per lane: here only the lanes that moved fetch,
+    and a mask keeps the others' candidates); then one candidate-GN
+    iteration.  The loop stops per lane as `register_core`'s does."""
+    B, Pc, _ = features.corner_xyz.shape
+    Ps = features.surf_xyz.shape[1]
+    gate, state = _initial(features, init_pose6, edge_min_valid,
+                           surf_min_valid)
+    it = torch.zeros(B, dtype=torch.int32, device=gate.device)
+    pts_all = torch.cat([features.corner_xyz, features.surf_xyz], dim=1)
+    cmask = features.corner_mask.reshape(B * Pc)
+    smask = features.surf_mask.reshape(B * Ps)
+    cands = list(fetch(state.pose6, torch.arange(B, device=gate.device)))
+    fetched_at = state.pose6[:, 3:6].clone()
+    for _ in range(max_iterations):
+        active = gate & ~state.converged
+        if not bool(active.any()):
+            break
+        moved = active & (torch.linalg.vector_norm(
+            state.pose6[:, 3:6] - fetched_at, dim=1) > refetch_dist)
+        lanes = torch.nonzero(moved)[:, 0]
+        if lanes.numel():
+            for c, new in zip(cands, fetch(state.pose6[lanes], lanes)):
+                c[lanes] = new
+            fetched_at[lanes] = state.pose6[lanes, 3:6]
+        cc, ccv, sc, scv = cands
+        K = cc.shape[2]
+        c_coeff, c_resid, c_mask = corner_correspondence_cand(
+            _to_world(state.pose6, features.corner_xyz), cmask,
+            cc.reshape(B * Pc, K, 3), ccv.reshape(B * Pc, K))
+        s_coeff, s_resid, s_mask = surf_correspondence_cand(
+            _to_world(state.pose6, features.surf_xyz), smask,
+            sc.reshape(B * Ps, K, 3), scv.reshape(B * Ps, K))
+        new = gn_step(
+            state, pts_all,
+            torch.cat([c_coeff.view(B, Pc, 3), s_coeff.view(B, Ps, 3)], 1),
+            torch.cat([c_resid.view(B, Pc), s_resid.view(B, Ps)], 1),
+            torch.cat([c_mask.view(B, Pc), s_mask.view(B, Ps)], 1),
+            it, min_correspondences=min_correspondences,
+            eigen_threshold=eigen_threshold,
+            converge_rot_deg=converge_rot_deg,
+            converge_trans_cm=converge_trans_cm)
+        state = _freeze(active, new, state)
+        it = it + active.to(torch.int32)
+    return RegisterResult(
+        pose6=state.pose6,
+        converged=state.converged,
+        iterations=it,
+        n_corr=state.n_corr,
+        is_degenerate=state.is_degenerate,
+        valid=gate,
+    )
+
+
+def register_scan_fast(features, local_map, init_pose6, *,
+                       max_iterations: int = 30,
+                       min_correspondences: int = 50,
+                       eigen_threshold: float = 100.0,
+                       edge_min_valid: int = 10, surf_min_valid: int = 100,
+                       chunk: int = 4096, num_candidates: int = 16,
+                       refetch_dist: float = 0.15,
+                       converge_rot_deg: float = 0.05,
+                       converge_trans_cm: float = 0.05) -> RegisterResult:
+    """Candidate-prefetch scan-to-map solve on the streamed k-NN: the math
+    of `register_scan`, with the K = num_candidates nearest map points of
+    each feature fetched by one streamed pass (`prefetch_candidates`) at the
+    initial pose and again whenever the lane moves more than refetch_dist
+    from its fetch point; each GN iteration takes its 5-NN among them.
+
+    features [B, ...]; local_map shared ([M, 3]) or one per lane ([B, M, 3]),
+    M a multiple of `chunk`; init_pose6 [B, 6]."""
+    def per_lane(a, lanes, dim):
+        return a[lanes] if a.dim() == dim else a
+
+    def fetch(pose, lanes):
+        out = []
+        for xyz, ref, msk in (
+                (features.corner_xyz, local_map.corner_xyz,
+                 local_map.corner_mask),
+                (features.surf_xyz, local_map.surf_xyz,
+                 local_map.surf_mask)):
+            out += prefetch_candidates(
+                torch.stack(world_components(pose, xyz[lanes]), -1),
+                per_lane(ref, lanes, 3), per_lane(msk, lanes, 2),
+                num_candidates, chunk)
+        return out
+
+    return _prefetch_solve(
+        features, fetch, init_pose6, refetch_dist=refetch_dist,
+        max_iterations=max_iterations,
+        min_correspondences=min_correspondences,
+        eigen_threshold=eigen_threshold, edge_min_valid=edge_min_valid,
+        surf_min_valid=surf_min_valid, converge_rot_deg=converge_rot_deg,
+        converge_trans_cm=converge_trans_cm)
+
+
+def register_grid_core(features, local_map, corner_grid_table,
+                       surf_grid_table, grid_origin_xyz, init_pose6, *,
+                       grid_dims, cell_size: float = 1.0, cell_cap: int = 16,
+                       max_iterations: int = 30,
+                       min_correspondences: int = 50,
+                       eigen_threshold: float = 100.0,
+                       edge_min_valid: int = 10, surf_min_valid: int = 100,
+                       converge_rot_deg: float = 0.05,
+                       converge_trans_cm: float = 0.05) -> RegisterResult:
+    """`register_core` on the packed grid's exact 27-cell 5-NN: tables from
+    `ops.hashgrid.build_grid_packed` (one per map, amortized over every scan
+    and iteration).  Exact against `register_scan` for every gated
+    correspondence (the 27 cells cover the 1 m accept radius).  local_map
+    is the JAX signature's; the tables carry the map."""
+    del local_map
+    knn = [_lanes_knn(make_packed_grid_knn(t, grid_origin_xyz, cell_size,
+                                           dims=grid_dims,
+                                           cell_cap=cell_cap))
+           for t in (corner_grid_table, surf_grid_table)]
+    return register_core(
+        features, knn[0], knn[1], init_pose6,
+        max_iterations=max_iterations,
+        min_correspondences=min_correspondences,
+        eigen_threshold=eigen_threshold,
+        edge_min_valid=edge_min_valid,
+        surf_min_valid=surf_min_valid,
+        converge_rot_deg=converge_rot_deg,
+        converge_trans_cm=converge_trans_cm,
+    )
+
+
+def register_scan_fast_grid(features, local_map, corner_grid_table,
+                            surf_grid_table, grid_origin_xyz, init_pose6, *,
+                            grid_dims, cell_size: float = 1.0,
+                            cell_cap: int = 16, num_candidates: int = 16,
+                            refetch_dist: float = 0.15,
+                            max_iterations: int = 30,
+                            min_correspondences: int = 50,
+                            eigen_threshold: float = 100.0,
+                            edge_min_valid: int = 10,
+                            surf_min_valid: int = 100,
+                            converge_rot_deg: float = 0.05,
+                            converge_trans_cm: float = 0.05
+                            ) -> RegisterResult:
+    """Packed-grid candidate prefetch + in-candidate 5-NN: the solve of
+    `register_scan_fast` with each fetch one 27-cell lookup
+    (`grid_knn_packed` at k = num_candidates) on the packed tables.
+    local_map is the JAX signature's; the tables carry the map."""
+    del local_map
+    knn = [make_packed_grid_knn(t, grid_origin_xyz, cell_size,
+                                dims=grid_dims, cell_cap=cell_cap,
+                                k=num_candidates)
+           for t in (corner_grid_table, surf_grid_table)]
+
+    def fetch(pose, lanes):
+        out = []
+        for xyz, fn in ((features.corner_xyz, knn[0]),
+                        (features.surf_xyz, knn[1])):
+            b, P = lanes.shape[0], xyz.shape[1]
+            d2, nn = fn(_to_world(pose, xyz[lanes]))
+            out += [nn.view(b, P, num_candidates, 3),
+                    (d2 < 1e37).view(b, P, num_candidates)]
+        return out
+
+    return _prefetch_solve(
+        features, fetch, init_pose6, refetch_dist=refetch_dist,
+        max_iterations=max_iterations,
+        min_correspondences=min_correspondences,
+        eigen_threshold=eigen_threshold, edge_min_valid=edge_min_valid,
+        surf_min_valid=surf_min_valid, converge_rot_deg=converge_rot_deg,
+        converge_trans_cm=converge_trans_cm)
 
 
 def register_rounds_core(

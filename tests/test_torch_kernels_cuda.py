@@ -28,7 +28,11 @@ KITTI and multi-session slice: the pair alignment stage by stage (FPFH
 within 1e-5 where no histogram bin flipped, flips at most 1% of the
 pairs; RANSAC scoring and ICP within 1e-4)
 and `merge_sessions` within 1e-4 of the CPU, the links on the K=16 fetch
-kernels.
+kernels.  The sharded solvers on a one-rank NCCL group:
+`shard_register_tables(solver="fused")` bitwise `batch_register_fused`
+(raw and resident tables, the kernels counted), `map_sharded_register_tables`
+bitwise `batch_register_pallas` on its one shard's table, and four striped
+shards' fetch kernels merged by `merge_topk` bitwise the plain fetches'.
 """
 
 import numpy as np
@@ -875,3 +879,95 @@ def test_merge_on_gpu_matches_cpu(cuda):
                                atol=1e-4)
     np.testing.assert_allclose(res[0].poses_a, res[1].poses_a, atol=1e-4)
     np.testing.assert_allclose(res[0].poses_b, res[1].poses_b, atol=1e-4)
+
+
+@pytest.fixture
+def nccl_group(cuda, tmp_path):
+    """A one-rank NCCL group (a FileStore in tmp_path) for the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    yield cuda
+    dist.destroy_process_group()
+
+
+def _sharded_inputs(dev, resident=False):
+    feats, fmap, guess = _scene(dev, B=4, Pc=512, Ps=2048, seed=3)
+    tabs = tbatch.build_map_planar_tables(
+        fmap, np.zeros(3), np.array([8.0, 8.0, 4.0]), corner_cell_cap=32,
+        surf_cell_cap=48, resident=resident)
+    return feats, fmap, guess, tabs
+
+
+def _counts():
+    return (tfetch.block_fetch.launches, tfetch.resident_fetch.launches,
+            tgn.gn_round.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resident", [False, True])
+def test_shard_register_tables_fused_on_gpu(nccl_group, resident):
+    """shard_register_tables(solver="fused") on a one-rank NCCL mesh runs
+    the fetch and GN kernels (4 fetches, 2 GN rounds) and returns
+    batch_register_fused's result bitwise."""
+    feats, _, guess, (ct, st, origin, dims) = _sharded_inputs(nccl_group,
+                                                              resident)
+    kw = dict(grid_dims=dims, round1_surf_stride=8, round1_corner_stride=4)
+    want = tbatch.batch_register_fused(feats, ct, st, origin, guess, **kw)
+    before = _counts()
+    got, stats = tbatch.shard_register_tables(
+        tbatch.make_mesh("cuda"), feats, ct, st, origin, guess,
+        solver="fused", corner_cell_cap=32, surf_cell_cap=48, **kw)
+    torch.cuda.synchronize()
+    delta = tuple(a - b for a, b in zip(_counts(), before))
+    assert delta == ((0, 4, 2) if resident else (4, 0, 2))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(stats["n_total"]) == 4
+
+
+@pytest.mark.cuda
+def test_map_sharded_tables_on_gpu(nccl_group):
+    """map_sharded_register_tables on a one-rank ("data", "map") mesh: its
+    one shard's table is build_map_planar_tables', its fetch the
+    block_fetch kernel, its result batch_register_pallas' bitwise."""
+    from feature_base_pointcloud_registration_tpu_torch.parallel import (
+        map_sharded as tms)
+
+    feats, fmap, guess, (ct, st, origin, dims) = _sharded_inputs(nccl_group)
+    cts, sts, o1, d1 = tms.build_sharded_block_tables(
+        fmap, np.zeros(3), np.array([8.0, 8.0, 4.0]), 1, corner_cell_cap=32,
+        surf_cell_cap=48)
+    assert torch.equal(cts[0], ct) and torch.equal(sts[0], st)
+    kw = dict(corner_cell_cap=32, surf_cell_cap=48)
+    want = tbatch.batch_register_pallas(feats, ct, st, origin, guess,
+                                        grid_dims=dims, **kw)
+    before = _counts()
+    got, _ = tms.map_sharded_register_tables(
+        tms.make_2d_mesh("cuda", 1), feats, cts, sts, o1, guess,
+        grid_dims=d1, **kw)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (4, 0, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_merged_shard_fetch_on_gpu(cuda):
+    """Four striped shards' block_fetch kernels merged by merge_topk equal
+    the plain fetches' merge bitwise."""
+    from feature_base_pointcloud_registration_tpu_torch.parallel import (
+        map_sharded as tms)
+
+    feats, fmap, guess, (_, st, origin, dims) = _sharded_inputs(cuda)
+    _, sts, _, _ = tms.build_sharded_block_tables(
+        fmap, np.zeros(3), np.array([8.0, 8.0, 4.0]), 4, corner_cell_cap=32,
+        surf_cell_cap=48)
+    q = tbatch.fetch_queries(guess, feats.surf_xyz, feats.surf_mask, st,
+                             origin, 2.0, dims)
+    kern = [tfetch.block_fetch(t, *q, K=8, planes_out=False) for t in sts]
+    plain = [tfetch.block_fetch_reference(t, *q, K=8) for t in sts]
+    plain = [(d, c.view(3, 8, -1).permute(2, 1, 0)) for d, c in plain]
+    got, want = (tms.merge_topk(torch.stack([p[0] for p in ps]),
+                                torch.stack([p[1] for p in ps]), 8)
+                 for ps in (kern, plain))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

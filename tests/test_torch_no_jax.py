@@ -12,7 +12,9 @@ clouds and the raw IMU between them through `LioTopology`, whose buffer
 emits two steps (the IMU chain corrected after each), a checkpoint of its
 SLAM state saved and loaded, and one EKF update and GPS fix; then FPFH and
 RANSAC on a tiny cloud, `load_scan` on tests/data/kitti_mini and a
-one-link `merge_sessions` of the SLAM run's session with itself.
+one-link `merge_sessions` of the SLAM run's session with itself; then one
+`batch_register_rounds` solve on `build_map_grids`' tables and a one-rank
+gloo group (a `FileStore`) running `shard_register_tables(solver="blocks")`.
 """
 
 import os
@@ -147,6 +149,28 @@ merged = multisession.merge_sessions(
     None, sess, sess, params=params, link_stride=1,
     transform_ab=np.eye(4, dtype=np.float32), device=cpu)
 assert len(merged.links) == 1 and np.isfinite(merged.poses_b).all(), merged
+import torch.distributed as dist
+from feature_base_pointcloud_registration_tpu_torch.parallel import (
+    batch as pbatch, dryrun)
+feats, fmap, poses, center, half = dryrun.problem_1d(1, device=cpu)
+ctab, stab, origin, dims = pbatch.build_map_grids(fmap, center, half)
+res = pbatch.batch_register_rounds(feats, ctab, stab, origin, poses,
+                                   grid_dims=dims, num_rounds=1,
+                                   iters_per_round=3)
+assert res.pose6.shape == (1, 6) and bool(torch.isfinite(res.pose6).all())
+with tempfile.TemporaryDirectory() as d:
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(d, "store"), 1), rank=0, world_size=1)
+    try:
+        ctab, stab, origin, dims = pbatch.build_map_block_tables(
+            fmap, center, half, corner_cell_cap=16, surf_cell_cap=32)
+        res, stats = pbatch.shard_register_tables(
+            pbatch.make_mesh("cpu"), feats, ctab, stab, origin, poses,
+            grid_dims=dims, solver="blocks", corner_cell_cap=16,
+            surf_cell_cap=32, num_rounds=1, iters_per_round=3)
+    finally:
+        dist.destroy_process_group()
+assert int(stats["n_total"]) == 1 and res.pose6.shape == (1, 6), stats
 loaded = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib")
                 or k.startswith("feature_base_pointcloud_registration_tpu.")))

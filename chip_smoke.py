@@ -76,6 +76,18 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            0.05 m against the ground truth; times of the step and its
            stages, picking's host syncs, each table's kind and bytes, the
            fetch beside its bound, ptxas of the K=16 fetch instances;
+           each table on grid_register_step's row space (lower_pad: a
+           row for every octant base from -1) beside the batched solvers';
+           (g) grid_register_step with the grid's lower x face 0.5 m behind
+           the room's x = -25 m wall (tests/test_torch_register_fast.py's
+           scene, half extent (25.8, 30, 10)), counted (6 K=16 fetches, 0
+           GN rounds, each bitwise its plain version); at the guess the
+           queries within half a cell of a lower face counted, and the
+           candidates kept for them by resident_fetch and block_fetch (the
+           step's compact and raw tables) and by their plain versions,
+           bitwise equal and equal to grid_knn_oct_sentinel's, beside the
+           batched row space's (none); the pose within 1e-4 of the CPU's;
+           `launches_lower_face` in the kernels line;
   phase 8  the SLAM back end: SlamPipeline at its default capacities with
            loop closure on (default Params), 60 scans 0.7 s apart around a
            3 m circle that closes after 41.9 s, skewed by the motion,
@@ -226,6 +238,12 @@ N_LOC = 20               # phase 7: localization steps
 LOC_SPACING = 0.2        # s between scans (constant_twist_platform)
 LOC_CHECKED = 3          # steps held against the plain fetch and the CPU
 LOC_K = 16               # candidates per fetch of grid_register_step
+# phase 7 (g): tests/test_torch_register_fast.py's scene, the grid's lower x
+# face 0.5 m behind the room's x = -25 m wall
+LF_POSE_GT = np.array([0.0, 0.0, 0.25, 2.0, -1.0, 0.0], np.float32)
+LF_GUESS = LF_POSE_GT + np.array([0.015, -0.01, 0.04, 0.3, -0.25, 0.1],
+                                 np.float32)
+LF_HALF = (25.8, 30.0, 10.0)
 N_SLAM = 60              # phase 8: SLAM steps, one loop of the circle
 SLAM_SPACING = 0.7       # s between scans
 SLAM_SPEED = 0.45        # m/s: a 3 m circle at SLAM_YAW_RATE
@@ -632,8 +650,10 @@ def localization_phase(dev):
         gn_round)
     from feature_base_pointcloud_registration_tpu_torch.ops.projection import (
         project_scan)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        hashgrid as th)
     from feature_base_pointcloud_registration_tpu_torch.ops.register import (
-        grid_register_step, world_components)
+        grid_register_step, register_rounds_core, world_components)
     from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
         build_map_planar_tables)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
@@ -883,7 +903,8 @@ def localization_phase(dev):
                                   map_corner_cap=params.map_corner_cap,
                                   map_surf_cap=params.map_surf_cap)
         ev[2].record()
-        build_map_planar_tables(lmap, guess[0, 3:6], rhe, resident=True)
+        build_map_planar_tables(lmap, guess[0, 3:6], rhe, resident=True,
+                                lower_pad=True)
         ev[3].record()
         grid_register_step(lmap, feats, guess, half_extent=rhe)
         ev[4].record()
@@ -918,22 +939,31 @@ def localization_phase(dev):
                               map_corner_cap=params.map_corner_cap,
                               map_surf_cap=params.map_surf_cap)
     ctab, stab, origin, dims = build_map_planar_tables(
-        lmap, guess[0, 3:6], rhe, resident=True)
-    n_cells = dims[0] * dims[1] * dims[2]
+        lmap, guess[0, 3:6], rhe, resident=True, lower_pad=True)
+    batched = build_map_planar_tables(lmap, guess[0, 3:6], rhe,
+                                      resident=True)[:2]
+    n_rows = (dims[0] + 1) * (dims[1] + 1) * (dims[2] + 1)
     _, feats = process_scan(params, raw_of(scans[0][0], dev, batch=True),
                             DeskewInfo(*(a.to(dev) for a in inputs[0][1])))
     fetch_t = {}
-    for name, tab, cap, xyz in (("corner", ctab, 16, feats.corner_xyz),
-                                ("surf", stab, 64, feats.surf_xyz)):
+    n_cells = dims[0] * dims[1] * dims[2]
+    for name, tab, old, cap, xyz in (
+            ("corner", ctab, batched[0], 16, feats.corner_xyz),
+            ("surf", stab, batched[1], 64, feats.surf_xyz)):
         kind, rows, W, nbytes = table_info(tab)
         print(f"phase 7 table {name}: {kind}, {rows} rows of W {W} "
-              f"({nbytes} B; the raw planar table {(n_cells + 1) * 12 * W} "
+              f"({nbytes} B; the raw planar table {(n_rows + 1) * 12 * W} "
               f"B, the sentinel table {(n_cells + 1) * 12 * cap} B; dims "
-              f"{dims}); fits the {tfetch.RESIDENT_TABLE_CAP} B resident cap"
-              f" {kind == 'resident'}", flush=True)
+              f"{dims}, {n_rows} block rows with the lower pad); fits the "
+              f"{tfetch.RESIDENT_TABLE_CAP} B resident cap "
+              f"{kind == 'resident'}; on the batched solvers' row space "
+              f"(no lower pad): {table_info(old)[0]}, {table_info(old)[1]} "
+              f"rows, {table_info(old)[3]} B, raw "
+              f"{(n_cells + 1) * 12 * W} B", flush=True)
         qx, qy, qz = (c.reshape(-1).contiguous()
                       for c in world_components(guess, xyz))
-        bcell = tfetch.block_cell_of_xyz(qx, qy, qz, origin, 2.0, dims=dims)
+        bcell = tfetch.block_cell_of_xyz(qx, qy, qz, origin, 2.0, dims=dims,
+                                         lower_pad=True)
         if kind == "resident":
             fn, plain = tfetch.resident_fetch, tfetch.resident_fetch_reference
             table, bc = tab.table, tab.rows_index[bcell.long()]
@@ -959,7 +989,178 @@ def localization_phase(dev):
             len("libfbpr_"):], log, only=used)
     print(f"phase 7 fetch shared memory at W 512, K {LOC_K}: "
           f"{fetch_smem(512, LOC_K)} B a block", flush=True)
+    # step 0 on the batched solvers' row space: no query of it lies within
+    # half a cell of a lower face, so the solve must be the step's, bitwise
+    q0 = torch.cat([torch.stack(world_components(guess, x), -1)[0][m[0]]
+                    for x, m in ((feats.corner_xyz, feats.corner_mask),
+                                 (feats.surf_xyz, feats.surf_mask))])
+    near = int((th._octant_base(q0, origin, 2.0) == -1).any(1).sum())
+    step = grid_register_step(lmap, feats, guess, half_extent=rhe)
+    old = register_rounds_core(feats, *[
+        tfetch.make_pallas_block_knn(t, origin, 2.0, dims=dims, cell_cap=0,
+                                     k=LOC_K) for t in batched], guess)
+    same = (torch.equal(step.pose6, old.pose6)
+            and torch.equal(step.n_corr, old.n_corr))
+    print(f"phase 7 step 0 on the batched row space: {near} of "
+          f"{q0.shape[0]} queries within half a cell of a lower face; pose "
+          f"and n_corr bitwise the step's {same}", flush=True)
+    if not (near == 0 and same):
+        raise AssertionError("phase 7: the lower pad moved a step")
     return launches, fetch_t, fetch_err
+
+
+def lower_face_phase(dev):
+    """Phase 7 (g): `grid_register_step` on a grid whose lower x face lies
+    0.5 m behind the room's x = -25 m wall (tests/test_torch_register_fast
+    .py's scene: the seed-9 scan at LF_POSE_GT from LF_GUESS, the grid
+    +-LF_HALF around the guess), the world's feature map at default
+    Params, strict picking.  The step counted (6 K=16 fetches, 0 GN
+    rounds), its fetches bitwise their plain versions, its pose within
+    1e-4 of the same step on the CPU; at round 0's queries, the near-face
+    ones (octant base -1 on an axis) counted, and the candidates the
+    kernels (`resident_fetch` on the step's compact tables, `block_fetch`
+    on their raw form) and their plain versions keep for them, bitwise
+    equal and equal to the octant rule's (`grid_knn_oct_sentinel`: d2
+    bitwise, real picks' coordinates bitwise), beside what the batched
+    solvers' row space keeps (none).  Returns (launches {wrapper: count}
+    of the step, {kernel: max_abs_err} of every checked fetch)."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+        SyntheticWorld, build_feature_map, simulate_scan)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fetch as tfetch, hashgrid as th)
+    from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
+        gn_round)
+    from feature_base_pointcloud_registration_tpu_torch.ops.register import (
+        grid_register_step, world_components)
+    from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
+        build_map_grids, build_map_planar_tables)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        FeatureMap, RawScan, ScanFeatures)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
+        process_scan)
+
+    cpu = torch.device("cpu")
+    params = Params()
+    world = SyntheticWorld()
+    s = simulate_scan(world, LF_POSE_GT, seed=9)
+    raw = RawScan.from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                             device=dev)._replace(
+        valid=torch.from_numpy(s["valid"]).to(dev))
+    _, feats = process_scan(params, RawScan(*(a[None] for a in raw)))
+    lmap = FeatureMap(*(torch.from_numpy(a).to(dev) for a in build_feature_map(
+        world, params.map_corner_cap, params.map_surf_cap)))
+    guess = torch.from_numpy(LF_GUESS[None]).to(dev)
+
+    # ---- the step, counted; its fetches against their plain versions ----
+    counted = {"block_fetch": tfetch.block_fetch,
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+    real_fetch_rows = tfetch.fetch_rows
+    calls = []
+    tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, {"on": True})
+    try:
+        for w in counted.values():
+            w.launches = 0
+        res = grid_register_step(lmap, feats, guess, half_extent=LF_HALF)
+        launches = {n: w.launches for n, w in counted.items()}
+    finally:
+        tfetch.fetch_rows = real_fetch_rows
+    checked, fetch_err = checked_fetches(calls)
+    print(f"phase 7 (g) lower face: grid_register_step at half extent "
+          f"{LF_HALF}, launches {launches}, fetches (kind, W, rows) "
+          f"{sorted({(c['kind'], c['W'], c['rows']) for c in calls})}; "
+          f"{sum(c['equal'] for c in checked)}/{len(checked)} bitwise equal"
+          f" to their plain versions, max_abs_err {fetch_err}", flush=True)
+    if not (launches["block_fetch"] + launches["resident_fetch"] == 6
+            and launches["gn_round"] == 0 and len(checked) == 6
+            and all(c["equal"] for c in checked)):
+        raise AssertionError("phase 7 (g): the step's fetches")
+
+    # ---- round 0's queries: the near-face ones and what each path keeps --
+    center = guess[0, 3:6]
+    origin = th.grid_origin(center, LF_HALF, device=dev)
+    dims = th.default_grid_spec(LF_HALF, 2.0)
+    sent = build_map_grids(lmap, center, LF_HALF)[:2]
+    step = {"resident": build_map_planar_tables(
+                lmap, center, LF_HALF, resident=True, lower_pad=True)[:2],
+            "raw": build_map_planar_tables(lmap, center, LF_HALF,
+                                           lower_pad=True)[:2]}
+    batched = build_map_planar_tables(lmap, center, LF_HALF,
+                                      resident=True)[:2]
+    near_total = 0
+    for i, (name, cap, xyz, mask) in enumerate((
+            ("corner", 16, feats.corner_xyz, feats.corner_mask),
+            ("surf", 64, feats.surf_xyz, feats.surf_mask))):
+        q = torch.stack(world_components(guess, xyz), -1)[0][mask[0]]
+        qx, qy, qz = (q[:, j].contiguous() for j in range(3))
+        near = (th._octant_base(q, origin, 2.0) == -1).any(1)
+        near_total += int(near.sum())
+        want_d2, want_nn = th.grid_knn_oct_sentinel(
+            q, sent[i], origin, 2.0, dims=dims, cell_cap=cap, k=LOC_K)
+        real = want_d2 < 1e30
+        rows = tfetch.block_cell_of_xyz(qx, qy, qz, origin, 2.0, dims=dims,
+                                        lower_pad=True)
+        kept = {}
+        for kind, tabs in step.items():
+            tab = tabs[i]
+            is_res = isinstance(tab, tfetch.PlanarTable)
+            if is_res != (kind == "resident"):
+                raise AssertionError(f"phase 7 (g): the {name} table is not "
+                                     f"{kind}")
+            d2, nn = tfetch.fetch_rows(tab, rows, qx, qy, qz, K=LOC_K,
+                                       planes_out=False)
+            table, bc = ((tab.table, tab.rows_index[rows.long()]) if is_res
+                         else (tab, rows))
+            d2r, cr = tfetch.block_fetch_reference(table, bc, qx, qy, qz,
+                                                   K=LOC_K)
+            nnr = cr.view(3, LOC_K, -1).permute(2, 1, 0)
+            equal = torch.equal(d2, d2r) and torch.equal(nn, nnr)
+            octant = (torch.equal(d2, want_d2)
+                      and torch.equal(nn[real], want_nn[real]))
+            kept[kind] = (int((d2[near] < 1e30).sum()),
+                          int((d2r[near] < 1e30).sum()))
+            err = max((d2 - d2r).abs().max().item(),
+                      (nn - nnr).abs().max().item())
+            kname = "resident_fetch" if is_res else "block_fetch"
+            fetch_err[kname] = max(fetch_err.get(kname, 0.0), err)
+            print(f"phase 7 (g) {name} {kind} table ({kname}, "
+                  f"{table_info(tab)[1]} rows of W {table_info(tab)[2]}): "
+                  f"{q.shape[0]} queries, {int(near.sum())} within half a "
+                  f"cell of a lower face; candidates kept for them: kernel "
+                  f"{kept[kind][0]}, plain {kept[kind][1]}, octant rule "
+                  f"{int(real[near].sum())}; kernel == plain {equal}, == "
+                  f"octant rule {octant}", flush=True)
+            if not (equal and octant and kept[kind][0] == kept[kind][1]
+                    == int(real[near].sum())):
+                raise AssertionError(f"phase 7 (g): {name} {kind} fetch at "
+                                     "the lower face")
+        bd2, _ = tfetch.fetch_rows(
+            batched[i], tfetch.block_cell_of_xyz(qx, qy, qz, origin, 2.0,
+                                                 dims=dims),
+            qx, qy, qz, K=LOC_K, planes_out=False)
+        print(f"phase 7 (g) {name}: the batched solvers' row space keeps "
+              f"{int((bd2[near] < 1e30).sum())} candidates for the "
+              f"near-face queries", flush=True)
+    if near_total < 50:
+        raise AssertionError(f"phase 7 (g): {near_total} near-face queries")
+
+    # ---- the same step on the CPU ----
+    res_cpu = grid_register_step(
+        FeatureMap(*(a.to(cpu) for a in lmap)),
+        ScanFeatures(*(a.to(cpu) for a in feats)), guess.to(cpu),
+        half_extent=LF_HALF)
+    pose, pose_cpu = res.pose6[0].cpu().numpy(), res_cpu.pose6[0].numpy()
+    d = float(np.abs(pose - pose_cpu).max())
+    print(f"phase 7 (g) card vs CPU: pose |diff| {d:.3e}, n_corr "
+          f"{int(res.n_corr[0])} / {int(res_cpu.n_corr[0])}, iterations "
+          f"{int(res.iterations[0])} / {int(res_cpu.iterations[0])}; "
+          f"translation error {np.linalg.norm(pose[3:] - LF_POSE_GT[3:]):.4f}"
+          f" m ({near_total} near-face queries at the guess)", flush=True)
+    if not (d <= 1e-4 and bool(res.valid[0])):
+        raise AssertionError(f"phase 7 (g): card vs CPU {d}")
+    return launches, fetch_err
 
 
 class StageTimer:
@@ -2942,6 +3143,7 @@ def main():
                                               origin, 2.0, dims))
 
     loc_launches, loc_fetch, loc_err = localization_phase(dev)
+    lf_launches, lf_err = lower_face_phase(dev)
     slam_launches, slam_err = slam_phase(dev)
     lio_launches, lio_err = lio_phase(dev)
     kitti_launches, kitti_err = kitti_phase(dev)
@@ -2962,6 +3164,8 @@ def main():
         return {"launches_localization": loc_launches[name],
                 "max_abs_err_localization": loc_err.get(name),
                 "localization": loc.get(name),
+                "launches_lower_face": lf_launches[name],
+                "max_abs_err_lower_face": lf_err.get(name),
                 "launches_slam": slam_launches[name],
                 "max_abs_err_slam": slam_err.get(name),
                 "launches_lio": lio_launches[name],

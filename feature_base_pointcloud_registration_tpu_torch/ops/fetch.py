@@ -14,6 +14,17 @@ Empty slots hold FAR=1e9 m, so no validity plane is needed: their d2 is
 candidate").  A `PlanarTable` keeps only the populated rows of such a table
 plus an index from raw block ids to compact rows.
 
+Row space.  Row b of the batched solvers' tables is the block whose lower
+corner cell is b, for b in [0, G) on each axis (the JAX package's rule): a
+query within half a cell of a lower face (octant base -1 on an axis) reads
+the sentinel and gets no candidate.  `lower_pad=True` (the tables of
+`grid_register_step`) adds one padded cell layer below each lower face, so
+that every octant base in [-1, G) has a row, (Gx+1)(Gy+1)(Gz+1) rows in
+all: the padded cells are empty, and a query with base -1 reads the
+in-grid cells of its octant, the candidates of
+`ops/hashgrid.py::grid_knn_oct_sentinel`.  The rows of bases in [0, G) are
+the same in both layouts.
+
 `block_fetch` (raw table) and `resident_fetch` (compact table) launch the
 CUDA kernels `csrc/block_fetch.cu` and `csrc/resident_fetch.cu` on CUDA
 tensors and run their plain versions on CPU tensors.  Both keep one
@@ -23,6 +34,7 @@ coordinates.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -34,50 +46,67 @@ _FAR = 1.0e9
 _REF_CHUNK = 1 << 16  # queries per step of the plain version (bounds memory)
 
 
-def build_block_table_planar(sentinel_table, *, dims, compact: bool = True):
-    """[n_cells+1, 3*cap] sentinel table -> [n_cells+1, 3*W] block rows.
+def _row_space(dims, lower_pad: bool):
+    """(lowest octant base, rows per axis) of a block-row space."""
+    lo = -1 if lower_pad else 0
+    return lo, tuple(g - lo for g in dims)
+
+
+def build_block_table_planar(sentinel_table, *, dims, compact: bool = True,
+                             lower_pad: bool = False):
+    """[n_cells+1, 3*cap] sentinel table -> [n_rows+1, 3*W] block rows.
 
     Row b covers cells b+(0..1)^3; out-of-grid neighbours take the sentinel
-    row.  With compact=True each row's valid points move to the front (a
-    stable sort, so in cell-then-slot order) and the row width shrinks from
-    8*cap to W = max valid count over blocks rounded up to 128 (the JAX
-    package's rule, so both packages build tables of one shape).  The
-    candidate SET per query is unchanged; only slot order within a row is.
+    row.  n_rows is n_cells, or with lower_pad=True one row for each
+    octant base in -1..G-1 of each axis (the module docstring's row space).
+    With compact=True each row's valid points move to the front (a stable
+    sort, so in cell-then-slot order) and the row width shrinks from 8*cap
+    to W = max valid count over blocks rounded up to 128 (the JAX package's
+    rule, so both packages build tables of one shape; a padded row holds a
+    subset of an in-grid row's cells, so lower_pad keeps W).  The candidate
+    SET per query is unchanged; only slot order within a row is.
     """
     Gx, Gy, Gz = dims
     n_cells = Gx * Gy * Gz
+    lo, (Px, Py, Pz) = _row_space(dims, lower_pad)
+    n_rows = Px * Py * Pz
     cap = sentinel_table.shape[1] // 3
     dev = sentinel_table.device
 
-    cid = torch.arange(n_cells, device=dev)
-    cx, cy, cz = cid // (Gy * Gz), (cid // Gz) % Gy, cid % Gz
+    rid = torch.arange(n_rows, device=dev)
+    bx, by, bz = rid // (Py * Pz) + lo, (rid // Pz) % Py + lo, rid % Pz + lo
     nbr = []
     for dx in (0, 1):
         for dy in (0, 1):
             for dz in (0, 1):
-                nx, ny, nz = cx + dx, cy + dy, cz + dz
-                ok = (nx < Gx) & (ny < Gy) & (nz < Gz)
+                nx, ny, nz = bx + dx, by + dy, bz + dz
+                ok = ((nx >= 0) & (ny >= 0) & (nz >= 0)
+                      & (nx < Gx) & (ny < Gy) & (nz < Gz))
                 nbr.append(torch.where(ok, (nx * Gy + ny) * Gz + nz,
                                        n_cells))
     rows = sentinel_table[torch.stack(nbr, 1)]           # [n, 8, 3*cap]
-    planes = rows.reshape(n_cells, 8, 3, cap).transpose(1, 2).reshape(
-        n_cells, 3, 8 * cap)                             # [n, 3, 8*cap]
+    planes = rows.reshape(n_rows, 8, 3, cap).transpose(1, 2).reshape(
+        n_rows, 3, 8 * cap)                              # [n, 3, 8*cap]
     W = 8 * cap
     if compact:
         invalid = (planes[:, 0] >= 1e8).to(torch.uint8)
         _, order = torch.sort(invalid, dim=1, stable=True)
         planes = torch.gather(planes, 2, order[:, None, :].expand(-1, 3, -1))
-        max_valid = int((1 - invalid).sum(1).max()) if n_cells else 0
+        max_valid = int((1 - invalid).sum(1).max()) if n_rows else 0
         W = min(max(128, -(-max_valid // 128) * 128), 8 * cap)
         planes = planes[:, :, :W]
     sent = torch.full((1, 3 * W), _FAR, dtype=sentinel_table.dtype,
                       device=dev)
-    return torch.cat([planes.reshape(n_cells, 3 * W), sent], 0).contiguous()
+    return torch.cat([planes.reshape(n_rows, 3 * W), sent], 0).contiguous()
 
 
-def block_cell_of_xyz(qx, qy, qz, origin, cell_size, *, dims):
-    """Block-corner row id per query (octant rule; out-of-grid -> the
-    sentinel row n_cells), int32, on component arrays of any shape."""
+def block_cell_of_xyz(qx, qy, qz, origin, cell_size, *, dims,
+                      lower_pad: bool = False):
+    """Block-corner row id per query (octant rule; an octant base outside
+    the row space -> the sentinel row n_rows), int32, on component arrays of
+    any shape.  lower_pad selects the row space of
+    `build_block_table_planar`."""
+    lo, (Px, Py, Pz) = _row_space(dims, lower_pad)
     Gx, Gy, Gz = dims
 
     def base_of(q, o):
@@ -85,11 +114,12 @@ def block_cell_of_xyz(qx, qy, qz, origin, cell_size, *, dims):
         ijk = torch.floor(rel).to(torch.int32)
         return ijk - (rel - ijk < 0.5).to(torch.int32)
 
-    bx = base_of(qx, origin[0])
-    by = base_of(qy, origin[1])
-    bz = base_of(qz, origin[2])
-    ok = (bx >= 0) & (by >= 0) & (bz >= 0) & (bx < Gx) & (by < Gy) & (bz < Gz)
-    return torch.where(ok, (bx * Gy + by) * Gz + bz, Gx * Gy * Gz).to(
+    bx = base_of(qx, origin[0]) - lo
+    by = base_of(qy, origin[1]) - lo
+    bz = base_of(qz, origin[2]) - lo
+    ok = ((bx >= 0) & (by >= 0) & (bz >= 0)
+          & (bx < Gx - lo) & (by < Gy - lo) & (bz < Gz - lo))
+    return torch.where(ok, (bx * Py + by) * Pz + bz, Px * Py * Pz).to(
         torch.int32)
 
 
@@ -200,8 +230,8 @@ class PlanarTable(NamedTuple):
     """Row-compacted planar block table for the resident fetch.
 
     table: [Rp+1, 3*W] — populated block rows only, the all-FAR sentinel
-    last.  rows_index: [n_cells+1] int32 — raw block-cell id -> compact row
-    (unpopulated and sentinel cells -> Rp).
+    last.  rows_index: [n_rows+1] int32 — raw block row id -> compact row
+    (unpopulated and sentinel rows -> Rp).
     """
     table: torch.Tensor
     rows_index: torch.Tensor
@@ -255,11 +285,12 @@ def resident_fetch(table, bcell, qx, qy, qz, *, K: int = 8,
 resident_fetch.launches = 0
 
 
-def block_cell_of(query, origin, cell_size, *, dims):
-    """Block-corner row id per query [..., 3] (octant rule; out-of-grid ->
-    the sentinel row n_cells)."""
+def block_cell_of(query, origin, cell_size, *, dims,
+                  lower_pad: bool = False):
+    """Block-corner row id per query [..., 3] (`block_cell_of_xyz`)."""
     return block_cell_of_xyz(query[..., 0], query[..., 1], query[..., 2],
-                             origin, cell_size, dims=dims)
+                             origin, cell_size, dims=dims,
+                             lower_pad=lower_pad)
 
 
 def fetch_rows(table, bcell, qx, qy, qz, *, K: int, planes_out: bool = True):
@@ -273,16 +304,33 @@ def fetch_rows(table, bcell, qx, qy, qz, *, K: int, planes_out: bool = True):
     return block_fetch(table, bcell, qx, qy, qz, K=K, planes_out=planes_out)
 
 
+def lower_pad_of(table, dims) -> bool:
+    """The row space a table of either kind was built on (its row count
+    tells): True for `build_block_table_planar(lower_pad=True)`'s."""
+    rows = (table.rows_index if isinstance(table, PlanarTable)
+            else table).shape[0] - 1
+    for lower_pad in (False, True):
+        if rows == math.prod(_row_space(dims, lower_pad)[1]):
+            return lower_pad
+    raise ValueError(f"a table of {rows} block rows fits neither row space "
+                     f"of dims {tuple(dims)}")
+
+
 def make_pallas_block_knn(table_planar, origin, cell_size, *, dims, cell_cap,
                           k: int = 8):
     """Fetch closure (query [Q,3] -> (d2 [Q,k], nn [Q,k,3])) on the fetch
-    kernels (`fetch_rows`); same contract as
-    ops.hashgrid.make_block_grid_knn.  cell_cap is the JAX signature's; the
-    width comes with the table."""
+    kernels (`fetch_rows`), on the table's row space (`lower_pad_of`):
+    the contract of ops.hashgrid.make_block_grid_knn, or on a lower_pad
+    table that of ops.hashgrid.make_oct_sentinel_knn (the same d2 and real
+    candidates; a pick with no candidate, d2 3e38, carries FAR there and
+    FAR or, on the sentinel row, zero here).  cell_cap is the JAX
+    signature's; the width comes with the table."""
     del cell_cap
+    lower_pad = lower_pad_of(table_planar, dims)
 
     def f(q):
-        bcell = block_cell_of(q, origin, cell_size, dims=dims)
+        bcell = block_cell_of(q, origin, cell_size, dims=dims,
+                              lower_pad=lower_pad)
         return fetch_rows(table_planar, bcell,
                           *[q[:, i].contiguous() for i in range(3)], K=k,
                           planes_out=False)

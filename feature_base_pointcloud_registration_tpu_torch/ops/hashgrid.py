@@ -303,10 +303,12 @@ def grid_knn_oct_sentinel(query, packed, origin, cell_size, *, dims,
     cells read the all-FAR sentinel row, and picks with d2 > 1e17 (FAR
     slots) report 3e38, their coordinates FAR.
 
-    Unlike the block fetches (`grid_knn_block`, `ops/fetch.py`), a query
-    whose octant block starts below the grid's lower face (base index -1
-    on an axis) keeps its in-grid cells here; a block fetch gives it no
-    candidate."""
+    Unlike the batched solvers' block fetches (`grid_knn_block`, and
+    `ops/fetch.py` on its default row space), a query whose octant block
+    starts below the grid's lower face (base index -1 on an axis) keeps
+    its in-grid cells here; such a block fetch gives it no candidate.  The
+    fetch of `grid_register_step` (`ops/fetch.py`, lower_pad) keeps them
+    too."""
     Gx, Gy, Gz = dims
     n_cells = Gx * Gy * Gz
 

@@ -509,20 +509,22 @@ def grid_register_step(local_map, features, pose6, *, half_extent,
     local_map: FeatureMap [M] in the world frame; features: ScanFeatures of
     one scan [1, ...]; pose6 [1, 6].  The tables span pose +- half_extent
     (plus a 2 m margin) in cells of `cell_size`, built by
-    `build_map_planar_tables(resident=True)`: a table whose compact form
-    fits the resident cap runs `resident_fetch`, a larger one
+    `build_map_planar_tables(resident=True, lower_pad=True)`: a table whose
+    compact form fits the resident cap runs `resident_fetch`, a larger one
     `block_fetch` (CUDA kernels on CUDA tensors).  Then
     ceil(max_iterations / 10) rounds of (K=16 candidate fetch, up to 10 GN
     iterations).  The JAX step gathers the same 2x2x2 cells in the same
     order from its octant-sentinel tables and keeps the same K smallest
-    d2, so the candidate sets agree up to exact d2 ties."""
+    d2 with ties to the lower slot, so the candidates agree; lower_pad
+    gives a query within half a cell of a lower face the in-grid cells of
+    its octant, as the octant rule does."""
     # parallel.batch imports this module
     from ..parallel.batch import build_map_planar_tables
     from .fetch import make_pallas_block_knn
 
     ctab, stab, origin, dims = build_map_planar_tables(
         local_map, pose6[0, 3:6], half_extent, cell_size, corner_cell_cap,
-        surf_cell_cap, resident=True)
+        surf_cell_cap, resident=True, lower_pad=True)
     iters_per_round = 10
     knn = [make_pallas_block_knn(t, origin, cell_size, dims=dims,
                                  cell_cap=cap, k=16)

@@ -66,18 +66,22 @@ def _sentinel_tables(local_map: FeatureMap, center, half_extent, cell_size,
 def build_map_planar_tables(local_map: FeatureMap, center, half_extent,
                             cell_size: float = 2.0, corner_cell_cap: int = 16,
                             surf_cell_cap: int = 64, margin: float = 2.0,
-                            resident: bool = False):
+                            resident: bool = False, lower_pad: bool = False):
     """Plane-major block tables for the fetch kernels, on the map's device.
     Returns (corner_table, surf_table, origin, dims).
 
     resident=True row-compacts each table into a `PlanarTable` for
     `resident_fetch` when the compact table takes at most
     RESIDENT_TABLE_CAP bytes (the JAX package's rule and value); a larger
-    one stays a raw table for `block_fetch`."""
+    one stays a raw table for `block_fetch`.  lower_pad=True gives the
+    octant rule's row space (`ops.fetch.build_block_table_planar`; the
+    tables of `grid_register_step`); the batched solvers take the JAX
+    package's, lower_pad=False."""
     (cst, sst), origin, dims = _sentinel_tables(
         local_map, center, half_extent, cell_size, corner_cell_cap,
         surf_cell_cap, margin)
-    tables = [build_block_table_planar(st, dims=dims) for st in (cst, sst)]
+    tables = [build_block_table_planar(st, dims=dims, lower_pad=lower_pad)
+              for st in (cst, sst)]
     if resident:
         compact = [compact_row_space(t) for t in tables]
         tables = [c if c.table.numel() * 4 <= RESIDENT_TABLE_CAP else t
@@ -100,7 +104,8 @@ def build_map_block_tables(local_map: FeatureMap, center, half_extent,
 
 
 def sentinel_of(table) -> int:
-    """Raw block id that reads no row: n_cells for either table kind."""
+    """Raw block id that reads no row, the last of the row space, for either
+    table kind."""
     if isinstance(table, PlanarTable):
         return table.rows_index.shape[0] - 1
     return table.shape[0] - 1

@@ -6,7 +6,9 @@ top-K on the CPU) and against brute force over each query's block, as
 tests/test_pallas_fetch.py checks the TPU kernel.  Tolerance: d2 rtol 1e-6
 (XLA's CPU backend contracts dx*dx + dy*dy + dz*dz into FMAs), and the
 candidate coordinates equal exactly wherever the query's K-th and (K+1)-th
-distances are not tied.
+distances are not tied.  The row space of `grid_register_step`'s tables
+(`lower_pad=True`, a row for every octant base from -1) keeps every row of
+the batched row space bitwise (`test_lower_pad_row_space`).
 
 The CUDA kernel against its plain version is tests/test_torch_kernels_cuda.py.
 """
@@ -146,3 +148,59 @@ def test_fetch_rejects_bad_inputs(tables):
         tfetch.block_fetch(planar, bc, q, q, torch.zeros(5), K=K)
     with pytest.raises(ValueError):
         tfetch.block_fetch(planar, bc, q, q, q, K=planar.shape[1])
+
+
+def test_lower_pad_row_space():
+    """`lower_pad=True` (the tables of `grid_register_step`): one row for
+    every octant base from -1 to G-1 on each axis; the rows of bases in
+    [0, G) bitwise the batched tables' rows, the width unchanged; a padded
+    row holds the points of its octant's in-grid cells; `lower_pad_of`
+    reads the row space off either table kind and refuses a table of other
+    dims; the row index of a query is its octant base's (the sentinel
+    outside), and on the batched row space it is unchanged."""
+    pts, mask = _world()
+    tst = thg.build_grid_sentinel(torch.from_numpy(pts),
+                                  torch.from_numpy(mask),
+                                  torch.from_numpy(ORIGIN), CELL, dims=DIMS,
+                                  cell_cap=CAP)
+    plain = tfetch.build_block_table_planar(tst, dims=DIMS)
+    padded = tfetch.build_block_table_planar(tst, dims=DIMS, lower_pad=True)
+    Gx, Gy, Gz = DIMS
+    Px, Py, Pz = Gx + 1, Gy + 1, Gz + 1
+    assert padded.shape == (Px * Py * Pz + 1, plain.shape[1])
+    b = torch.stack(torch.meshgrid(
+        torch.arange(-1, Gx), torch.arange(-1, Gy), torch.arange(-1, Gz),
+        indexing="ij"), -1).reshape(-1, 3)
+    prow = ((b[:, 0] + 1) * Py + b[:, 1] + 1) * Pz + b[:, 2] + 1
+    inner = (b >= 0).all(1)
+    bi = b[inner]
+    assert torch.equal(padded[prow[inner]],
+                       plain[(bi[:, 0] * Gy + bi[:, 1]) * Gz + bi[:, 2]])
+    counts = (tst[:-1, :CAP] < 1e8).sum(1).reshape(DIMS)
+    for bx, by, bz in b[~inner].tolist()[::7]:
+        want = sum(int(counts[x, y, z]) for x in (bx, bx + 1)
+                   for y in (by, by + 1) for z in (bz, bz + 1)
+                   if 0 <= x < Gx and 0 <= y < Gy and 0 <= z < Gz)
+        row = ((bx + 1) * Py + by + 1) * Pz + bz + 1
+        assert int((padded[row, :plain.shape[1] // 3] < 1e8).sum()) == want
+    assert (padded[-1] == 1e9).all()
+    for tab, pad in ((plain, False), (padded, True)):
+        assert tfetch.lower_pad_of(tab, DIMS) is pad
+        assert tfetch.lower_pad_of(tfetch.compact_row_space(tab), DIMS) is pad
+    with pytest.raises(ValueError, match="neither row space"):
+        tfetch.lower_pad_of(padded, (Gx, Gy, Gz + 2))
+    rng = np.random.RandomState(4)
+    q = torch.from_numpy((ORIGIN + rng.uniform(-1.5, 0.75, (2000, 3))
+                          * CELL).astype(np.float32))
+    base = thg._octant_base(q, torch.from_numpy(ORIGIN), CELL)
+    rows = tfetch.block_cell_of(q, torch.from_numpy(ORIGIN), CELL, dims=DIMS,
+                                lower_pad=True).long()
+    ok = (base >= -1).all(1)
+    assert ((base == -1).any(1) & ok).sum() > 300
+    want = ((base[:, 0] + 1) * Py + base[:, 1] + 1) * Pz + base[:, 2] + 1
+    assert torch.equal(rows, torch.where(ok, want, Px * Py * Pz))
+    old = tfetch.block_cell_of(q, torch.from_numpy(ORIGIN), CELL,
+                               dims=DIMS).long()
+    ok0 = (base >= 0).all(1)
+    assert torch.equal(old, torch.where(
+        ok0, (base[:, 0] * Gy + base[:, 1]) * Gz + base[:, 2], Gx * Gy * Gz))

@@ -13,9 +13,16 @@ block tables at 2 m cells (cap 32), the grid from -12 m.
   * the lower-face rule: with the grid moved to start at -7 m (inside the
     map), the queries within half a cell of a lower face (octant base -1
     on an axis) keep the candidates of their in-grid cells in both
-    packages' `grid_knn_oct_sentinel` (counts equal), while the block-row
-    fetch (`grid_knn_block`, the rule of the port's `grid_register_step`
-    and of the fetch kernels) gives them none; the counts are printed.
+    packages' `grid_knn_oct_sentinel` (counts equal), while the batched
+    solvers' block-row fetch (`grid_knn_block`, the JAX package's rule)
+    gives them none; the fetch of the port's `grid_register_step`
+    (`ops/fetch.py::make_pallas_block_knn` on tables built with
+    lower_pad=True, raw and compact, the fetch kernels' plain versions)
+    returns JAX `grid_knn_oct_sentinel`'s d2 bitwise for every query, and
+    its coordinates bitwise wherever the query's row is not the sentinel
+    (a query whose octant holds no in-grid cell reads the sentinel: d2
+    3e38 in both, zero coordinates by the fetch's contract, FAR there);
+    the counts are printed.
 
 JAX compiles each function at one shape (the query set and table shapes
 are the same throughout; the moved grid changes only the traced origin).
@@ -29,7 +36,8 @@ import torch
 
 import test_hashgrid as thg
 from feature_base_pointcloud_registration_tpu.ops import hashgrid as jh
-from feature_base_pointcloud_registration_tpu_torch.ops import hashgrid as th
+from feature_base_pointcloud_registration_tpu_torch.ops import (
+    fetch as tfetch, hashgrid as th)
 from test_torch_batch import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
@@ -162,22 +170,40 @@ def test_chunked_lookup_equals_whole(cases, monkeypatch, family):
 
 
 def test_lower_face_rule(cases):
-    """Queue 3's lower-face rule, measured: JAX grid_knn_oct_sentinel and the
-    port's keep the in-grid cells of a query whose octant block starts
-    below the grid; the block-row fetch gives it no candidate."""
+    """The lower-face rule at k = 5 and 16: JAX grid_knn_oct_sentinel and
+    the port's keep the in-grid cells of a query whose octant block starts
+    below the grid; the batched solvers' block-row fetch gives it no
+    candidate; the fetch of the port's `grid_register_step` (lower_pad
+    tables, raw and compact) returns the octant rule's candidates."""
     (j, p), (_, _, q) = cases[0]["lower_face"], cases[1]
-    base = th._octant_base(q, torch.full((3,), ORIGINS["lower_face"]), 2.0)
+    g, packed, sent, origin, dims = p["made"]
+    base = th._octant_base(q, origin, 2.0)
     near = (base == -1).any(1).numpy()
     assert near.sum() >= 20
-    jd = j["k16"]["oct_sentinel"][0]
-    td = p["k16"]["oct_sentinel"][0].numpy()
-    bd = p["k16"]["block"][0].numpy()
-    n_j, n_t, n_b = ((d[near] < 1e30).sum() for d in (jd, td, bd))
-    print(f"lower face: {near.sum()} of {q.shape[0]} queries within half a "
-          f"cell (octant base -1); candidates kept at K=16: JAX "
-          f"grid_knn_oct_sentinel {n_j}, port {n_t}, block-row fetch {n_b}; "
-          f"elsewhere equal: "
-          f"{np.array_equal(td[~near] < 1e30, bd[~near] < 1e30)}")
-    np.testing.assert_array_equal(td < 1e30, jd < 1e30)
-    assert n_t == n_j > 0 and n_b == 0
-    np.testing.assert_array_equal(td[~near], bd[~near])
+    raw = tfetch.build_block_table_planar(sent, dims=dims, lower_pad=True)
+    tables = {"raw": raw, "compact": tfetch.compact_row_space(raw)}
+    read = (tfetch.block_cell_of(q, origin, 2.0, dims=dims, lower_pad=True)
+            < raw.shape[0] - 1).numpy()
+    for k in (5, 16):
+        jd, jn = j[f"k{k}"]["oct_sentinel"]
+        td = p[f"k{k}"]["oct_sentinel"][0].numpy()
+        bd = p[f"k{k}"]["block"][0].numpy()
+        kept = {}
+        for kind, tab in tables.items():
+            fd, fn = (a.numpy() for a in tfetch.make_pallas_block_knn(
+                tab, origin, 2.0, dims=dims, cell_cap=CAP2, k=k)(q))
+            np.testing.assert_array_equal(fd, jd)
+            np.testing.assert_array_equal(fn[read], jn[read])
+            np.testing.assert_array_equal(fn[jd < 1e30], jn[jd < 1e30])
+            kept[kind] = int((fd[near] < 1e30).sum())
+        n_j, n_t, n_b = (int((d[near] < 1e30).sum()) for d in (jd, td, bd))
+        print(f"lower face: {near.sum()} of {q.shape[0]} queries within half"
+              f" a cell (octant base -1), {int((~read).sum())} on the "
+              f"sentinel row; candidates kept at K={k}: JAX "
+              f"grid_knn_oct_sentinel {n_j}, port {n_t}, block-row fetch "
+              f"{n_b}, lower_pad fetch {kept}; elsewhere equal: "
+              f"{np.array_equal(td[~near] < 1e30, bd[~near] < 1e30)}")
+        np.testing.assert_array_equal(td < 1e30, jd < 1e30)
+        assert n_t == n_j > 0 and n_b == 0
+        assert kept["raw"] == kept["compact"] == n_j
+        np.testing.assert_array_equal(td[~near], bd[~near])

@@ -12,8 +12,10 @@ reduction order; both use the library acos) with equal n_corr and flags,
 and bitwise equal to itself across two calls (a fixed-order reduction);
 the solvers on the GPU within 1e-4 of the same solvers on the CPU (the
 GN kernel's arithmetic, and `torch.linalg.eigh` on the card).  The
-localization path: strict picks on the card bitwise equal to the CPU's on
-the same cloud, deskewed clouds within 2e-5 m (the card's sin/cos), one
+localization path: the fetch kernels on `grid_register_step`'s lower_pad
+tables bitwise their plain versions and the octant rule's candidates for
+queries below each lower face; strict picks on the card bitwise equal to
+the CPU's on the same cloud, deskewed clouds within 2e-5 m (the card's sin/cos), one
 `LocalizationPipeline.step` within 1e-4 of the CPU's.  The exact solver
 and the SLAM path: `_extract_topk` on the card equal to a stable sort (the
 lower index wins ties, which `torch.topk` alone does not promise on CUDA);
@@ -447,6 +449,68 @@ def test_fetch_kernels_at_localization_shapes(cuda, kernel, W, Q):
     d2r, candr = tfetch.block_fetch_reference(*args, K=16)
     assert torch.equal(d2, d2r) and torch.equal(cand, candr)
     assert (d2[Q - Q // 3:] == np.float32(3e38)).all()
+
+
+def _lower_face_inputs(face, seed):
+    """A random map in a (6, 5, 4)-cell grid of 2 m cells (a third of it in
+    the lowest cell layer of each axis) and 1000 queries within half a cell
+    below the lower faces named in `face` (octant base -1 on those axes),
+    inside the grid on the others: (points, mask, queries, origin, dims)
+    on the CPU."""
+    r = np.random.RandomState(seed)
+    dims, cs = (6, 5, 4), 2.0
+    origin = np.array([-3.0, 1.0, -2.0], np.float32)
+    u = r.uniform(0, 1, (3000, 3)) * np.array(dims)
+    u[np.arange(1000), r.randint(0, 3, 1000)] = r.uniform(0, 1, 1000)
+    pts = (origin + cs * u).astype(np.float32)
+    uq = r.uniform(0.5, np.array(dims) - 0.5, (1000, 3))
+    for a in ("xyz".index(c) for c in face):
+        uq[:, a] = r.uniform(-0.49, -0.01, 1000)
+    q = (origin + cs * uq).astype(np.float32)
+    return (torch.from_numpy(pts), torch.ones(3000, dtype=torch.bool),
+            torch.from_numpy(q), torch.from_numpy(origin), dims)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("face", ["x", "y", "z", "xyz"])
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("K", [8, 16])
+def test_fetch_kernels_at_lower_faces(cuda, face, resident, K):
+    """The fetch of `grid_register_step` (lower_pad tables) for queries
+    within half a cell below a lower face: the kernel (`block_fetch` on the
+    raw table, `resident_fetch` on the compact one) bitwise its plain
+    version, and the octant rule's candidates (`grid_knn_oct_sentinel`:
+    d2 bitwise, the real picks' coordinates bitwise, some kept)."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        hashgrid as th)
+    pts, mask, q, origin, dims = _lower_face_inputs(face, 10 * K + resident)
+    base = th._octant_base(q, origin, 2.0)
+    assert ((base == -1) == torch.tensor(
+        [c in face for c in "xyz"])).all()
+    sent = th.build_grid_sentinel(pts, mask, origin, 2.0, dims=dims,
+                                  cell_cap=32)
+    raw = tfetch.build_block_table_planar(sent, dims=dims, lower_pad=True)
+    tab = tfetch.compact_row_space(raw) if resident else raw
+    gtab = (tfetch.PlanarTable(*(t.to(cuda) for t in tab)) if resident
+            else tab.to(cuda))
+    fn = tfetch.resident_fetch if resident else tfetch.block_fetch
+    before = fn.launches
+    rows = tfetch.block_cell_of(q.to(cuda), origin.to(cuda), 2.0,
+                                dims=dims, lower_pad=True)
+    args = [rows if not resident else gtab.rows_index[rows.long()],
+            *[q[:, i].contiguous().to(cuda) for i in range(3)]]
+    table = gtab.table if resident else gtab
+    d2, cand = fn(table, *args, K=K)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    d2r, candr = tfetch.block_fetch_reference(table, *args, K=K)
+    assert torch.equal(d2, d2r) and torch.equal(cand, candr)
+    wd, wn = th.grid_knn_oct_sentinel(q, sent, origin, 2.0, dims=dims,
+                                      cell_cap=32, k=K)
+    d2, nn = d2.cpu(), cand.cpu().view(3, K, -1).permute(2, 1, 0)
+    real = wd < 1e30
+    assert torch.equal(d2, wd) and torch.equal(nn[real], wn[real])
+    assert real.sum() > 100
 
 
 def _skewed_scan(dev):

@@ -22,11 +22,18 @@ equal iterations:
   * `batch_register_rounds` (the octant-sentinel rounds solver on
     `build_map_grids`' 2 m tables, K=16), tables bitwise; and the same
     solve with the grid's lower x face moved through the scan, beside the
-    block-row fetch on that grid (Queue 3's lower-face rule: the pose
-    difference between the two rules is printed).  On that grid one
-    correspondence sits at a gate, and XLA's FMAs flip it (n_corr 2948
-    against the port's 2947; the pose 1.557e-4 apart): the test allows
-    that one flip there (ROADMAP Queue 3), and only there.
+    batched solvers' block-row fetch on that grid (the JAX package's rule:
+    the pose difference between the two rules is printed) and beside the
+    fetch of the port's `grid_register_step` (lower_pad tables), which
+    must give the octant solve's pose within 1e-4 and its n_corr.  On that
+    grid one correspondence sits at a gate, and XLA's FMAs flip it (n_corr
+    2948 against the port's 2947; the pose 1.557e-4 apart): the test
+    allows that one flip there (ROADMAP Queue 3), and only there;
+  * `grid_register_step` on a grid whose lower x face lies 0.5 m behind
+    the room's x = -25 m wall (half extent (25.8, 30, 10) around lane 0's
+    guess: the wall's surf features within half a cell of the face)
+    against JAX `grid_register_step`: pose within 1e-4, iterations and
+    n_corr equal.
 
 JAX compiles each function at one shape: the batch variants on the two
 lanes, the single-scan functions on lane 0.
@@ -46,7 +53,7 @@ from feature_base_pointcloud_registration_tpu.pipeline.cloud_info import (
     FeatureMap, ScanFeatures)
 from feature_base_pointcloud_registration_tpu_torch.convert import to_torch
 from feature_base_pointcloud_registration_tpu_torch.ops import (
-    hashgrid as th, register as treg)
+    fetch as tfetch, hashgrid as th, register as treg)
 from feature_base_pointcloud_registration_tpu_torch.parallel import (
     batch as tb)
 from test_torch_batch import one_torch_thread  # noqa: F401
@@ -268,9 +275,11 @@ def test_batch_register_rounds_matches_jax(scene, rounds, grid):
 
 def test_lower_face_pose_difference(scene, rounds):
     """The same solve on the grid whose lower x face crosses the scan, with
-    the block-row fetch (the rule of the port's `grid_register_step` and of
-    the fetch kernels) in place of the octant-sentinel lookup: the features
-    within a cell of that face lose their candidates, and the pose moves."""
+    the batched solvers' block-row fetch in place of the octant-sentinel
+    lookup: the features within half a cell of that face lose their
+    candidates, and the pose moves.  With the fetch of the port's
+    `grid_register_step` (lower_pad tables) they keep them, and the solve
+    is the octant solve's."""
     _, fmap, f2, _ = scene
     (jc, js, _, want), (tc, ts, to), dims, center = rounds["lower_face"]
     np.testing.assert_array_equal(tc.numpy(), jc)
@@ -304,3 +313,58 @@ def test_lower_face_pose_difference(scene, rounds):
           f"{octant.n_corr.tolist()} vs {blocks.n_corr.tolist()}")
     assert (near > 50).all()
     assert (octant.n_corr > blocks.n_corr).all()
+    pc, ps, po, pdims = tb.build_map_planar_tables(
+        _port(fmap), center, HALF, resident=True, lower_pad=True)
+    assert pdims == dims and torch.equal(po, to)
+    knn = [tfetch.make_pallas_block_knn(t, po, 2.0, dims=dims, cell_cap=0,
+                                        k=16)
+           for t in (pc, ps)]
+    padded = treg.register_rounds_core(feats, knn[0], knn[1],
+                                       torch.from_numpy(GUESSES),
+                                       num_rounds=2, iters_per_round=15)
+    dp = (octant.pose6 - padded.pose6).abs().max(1).values
+    print(f"lower_pad fetch vs the octant solve: pose |diff| per lane "
+          f"{dp.tolist()}, n_corr {padded.n_corr.tolist()}")
+    assert (dp <= POSE_TOL).all()
+    assert torch.equal(padded.n_corr, octant.n_corr)
+    assert torch.equal(padded.iterations, octant.iterations)
+
+
+def test_lower_face_grid_register_step_matches_jax(scene):
+    """`grid_register_step` with the grid's lower x face 0.5 m behind the
+    room's x = -25 m wall: the wall's surf features lie within half a cell
+    of the face (octant base -1), and the port's step (the lower_pad
+    tables) keeps their candidates as JAX's octant-sentinel step does."""
+    feats, fmap, f2, _ = scene
+    he = (25.8, 30.0, 10.0)
+    want = jax.tree.map(np.asarray, jreg.grid_register_step(
+        jax.tree.map(jnp.asarray, fmap), jax.tree.map(jnp.asarray, feats),
+        jnp.asarray(GUESSES[0]), half_extent=he))
+    tf1 = _port(jax.tree.map(lambda a: a[:1], f2))
+    g = torch.from_numpy(GUESSES[:1])
+    got = treg.grid_register_step(_port(fmap), tf1, g, half_extent=he)
+    origin = th.grid_origin(g[0, 3:6], he, device=CPU)
+    rel = (treg._to_world(g, tf1.surf_xyz).view(-1, 3)[:, 0]
+           - origin[0]) / 2.0
+    near = int((tf1.surf_mask[0] & (rel >= 0) & (rel < 0.5)).sum())
+    d = float(np.abs(got.pose6[0].numpy() - want.pose6).max())
+    # the same solve on the batched solvers' row space, for the record
+    ct, st, to, dims = tb.build_map_planar_tables(_port(fmap), g[0, 3:6],
+                                                  he, resident=True)
+    old = treg.register_rounds_core(
+        tf1, *[tfetch.make_pallas_block_knn(t, to, 2.0, dims=dims,
+                                            cell_cap=0, k=16)
+               for t in (ct, st)], g, num_rounds=3, iters_per_round=10)
+    print(f"lower face at x = {float(origin[0]):.2f} m: {near} surf features"
+          f" within half a cell; pose |diff| vs JAX {d:.3e}, n_corr "
+          f"{int(got.n_corr[0])} / {int(want.n_corr)}, iterations "
+          f"{int(got.iterations[0])} / {int(want.iterations)}; on the "
+          f"batched row space (no lower_pad): pose |diff| vs JAX "
+          f"{float(np.abs(old.pose6[0].numpy() - want.pose6).max()):.3e}, "
+          f"n_corr {int(old.n_corr[0])}")
+    assert near > 50
+    assert int(old.n_corr[0]) < int(want.n_corr)
+    assert d <= POSE_TOL
+    assert int(got.n_corr[0]) == int(want.n_corr)
+    assert int(got.iterations[0]) == int(want.iterations)
+    assert bool(got.valid[0]) and bool(want.valid)

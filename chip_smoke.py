@@ -39,7 +39,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            launch): each kernel beside its plain version at these
            shapes (the GN round at both rounds' inputs), with its bound
            (bytes read once over 3.35 TB/s or operations over 67 TFLOP/s
-           fp32, whichever is larger; the GN round reads the mask of every
+           fp32, whichever is larger; a fetch reads each table row its
+           live queries name once; the GN round reads the mask of every
            point and the xyz and candidates of live ones; also the floor of a
            design that streams the candidates every iteration: lane-
            iterations x live points x (16 + 12K) B over 3.35 TB/s);
@@ -88,6 +89,23 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            bitwise equal and equal to grid_knn_oct_sentinel's, beside the
            batched row space's (none); the pose within 1e-4 of the CPU's;
            `launches_lower_face` in the kernels line;
+           (h) phase 7's first 10 steps on an undownsampled map (the
+           room's surf points at 0.2 m, GlobalMap.from_pcd_dir(downsample=
+           False), Params(map_surf_cap=131072), examples/run_kitti_slam.py's
+           HDL-64 cap): the crop keeps every surf point, its compact table
+           passes the 10 MiB resident cap, so the surf table stays raw
+           (W 512, ~683 MB) and block_fetch runs at K=16 on the path;
+           counted: 3 block_fetch and 3 resident_fetch (the compact corner
+           table) a step, 0 GN rounds; the fetches of steps 0-2 bitwise
+           their plain versions; steps 0-2 within 1e-3 of the CPU, and
+           within 1e-4 with collinear 5-NN plane fits rejected (on the
+           lattice the rank gate passes some on rounding noise); max
+           translation error after step 0 < 0.06 m, ATE < 0.05 m; each
+           step's pose beside phase 7's; the step time and its split, a
+           profiled step, the table kinds, rows and bytes, the K=16 W=512
+           fetch beside its bound and plain version, ptxas of its
+           instance; `launches_raw_step` and `raw_step` in the kernels
+           line;
   phase 8  the SLAM back end: SlamPipeline at its default capacities with
            loop closure on (default Params), 60 scans 0.7 s apart around a
            3 m circle that closes after 41.9 s, skewed by the motion,
@@ -198,6 +216,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import glob
 import json
@@ -244,6 +263,22 @@ LF_POSE_GT = np.array([0.0, 0.0, 0.25, 2.0, -1.0, 0.0], np.float32)
 LF_GUESS = LF_POSE_GT + np.array([0.015, -0.01, 0.04, 0.3, -0.25, 0.1],
                                  np.float32)
 LF_HALF = (25.8, 30.0, 10.0)
+# phase 7 (h): phase 7's first steps on an undownsampled map, its surf
+# points at 0.2 m (finer than the 0.4 m surf leaf), cropped at the HDL-64
+# surf cap of examples/run_kitti_slam.py: the step's surf table stays raw
+N_DENSE = 10
+DENSE_SURF_SPACING = 0.2
+DENSE_SURF_CAP = 131072
+DENSE_W = 512            # slots a row of that surf table holds
+# (h) card vs CPU at the reference's settings: on the 0.2 m lattice ~1% of
+# the surf features' 5-NN are collinear, and the plane fit's rank gate
+# (|r00 r11 r22| > 1e-5, the JAX package's) passes some of them on rounding
+# noise, with a noise normal; the card's and the CPU's roundings differ, so
+# a step moves by up to ~4e-4 m (ROADMAP Queue 3).  With those fits
+# rejected (surf_min_planar_spread = DENSE_SPREAD) the steps are held to
+# 1e-4.
+DENSE_CPU_TOL = 1e-3
+DENSE_SPREAD = 0.01      # m: rejects collinear 5-NN only (the lattice: 0.2)
 N_SLAM = 60              # phase 8: SLAM steps, one loop of the circle
 SLAM_SPACING = 0.7       # s between scans
 SLAM_SPEED = 0.45        # m/s: a 3 m circle at SLAM_YAW_RATE
@@ -476,13 +511,17 @@ def gn_bound(args, stat_out, K):
 
 
 def fetch_bound(table, bcell, K):
-    """Bound of one fetch call: inputs (table, bcell, q) read once, d2 and
-    candidates written once; 9 operations per slot of each live row."""
+    """Bound of one fetch call: the table rows the live queries read, each
+    once (a raw table holds a row for every block of the grid, most of them
+    never read), the queries (bcell, q) read once, d2 and candidates
+    written once; 9 operations per slot of each live query's row."""
+    import torch
     Q = bcell.shape[0]
     W = table.shape[1] // 3
-    live = int((bcell != table.shape[0] - 1).sum())
-    nbytes = table.numel() * 4 + Q * 16 + Q * K * 16
-    return bound(nbytes, live * W * FETCH_OPS_PER_SLOT)
+    live = bcell != table.shape[0] - 1
+    rows = torch.unique(bcell[live]).numel()
+    nbytes = rows * 12 * W + Q * 16 + Q * K * 16
+    return bound(nbytes, int(live.sum()) * W * FETCH_OPS_PER_SLOT)
 
 
 def tile_rows(bcell, sentinel, tile):
@@ -624,12 +663,73 @@ def checked_fetches(calls):
     return checked, fetch_err
 
 
+def raw_of(s, device, batch=False):
+    """A simulated scan (io.synthetic.simulate_scan's dict) as a RawScan on
+    `device`, with a batch dim of 1 when `batch`."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        RawScan)
+    raw = RawScan.from_numpy(
+        s["xyz"], s["intensity"], s["ring"], s["time"],
+        device=device)._replace(valid=torch.from_numpy(s["valid"]).to(device))
+    return RawScan(*(a[None] for a in raw)) if batch else raw
+
+
+def step_split(params, gm, runs):
+    """Mean device ms of a localization step's stages (frontend, crop,
+    tables, solve; CUDA events) over runs = [(scan, deskew table,
+    previous pose)] on gm's device, the step's calls made one by one."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.ops.register import (
+        grid_register_step)
+    from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
+        build_map_planar_tables)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        DeskewInfo)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
+        process_scan)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.localization import (  # noqa: E501
+        _crop_local_map)
+
+    dev = gm.surf_xyz.device
+    he, rhe = params.local_map_half_extent, params.register_grid_half_extent
+    split = np.zeros(4)
+    for s, dsk_cpu, prev in runs:
+        raw = raw_of(s, dev, batch=True)
+        dsk = DeskewInfo(*(a.to(dev) for a in dsk_cpu))
+        guess = torch.from_numpy(prev[None]).to(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        _, feats = process_scan(params, raw, dsk)
+        ev[1].record()
+        lmap, _ = _crop_local_map(gm.corner_xyz, gm.corner_mask,
+                                  gm.surf_xyz, gm.surf_mask, guess[0, 3:6],
+                                  half_extent=he,
+                                  map_corner_cap=params.map_corner_cap,
+                                  map_surf_cap=params.map_surf_cap)
+        ev[2].record()
+        build_map_planar_tables(lmap, guess[0, 3:6], rhe, resident=True,
+                                lower_pad=True)
+        ev[3].record()
+        grid_register_step(lmap, feats, guess, half_extent=rhe)
+        ev[4].record()
+        torch.cuda.synchronize()
+        e = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+        split += [e[0], e[1], e[2], e[3] - e[2]]
+    return split / len(runs)
+
+
 def localization_phase(dev):
     """Phase 7: the single-scan localization pipeline on the card at the
     reference's settings (default Params).  Returns (launches {wrapper:
     count} over the N_LOC steps, {feature kind: (kernel, ms, plain_ms,
     bound_ms, bound_by)} of the fetch at step 0's queries, {kernel:
-    max_abs_err} of the checked fetches)."""
+    max_abs_err} of the checked fetches, the first N_DENSE steps' inputs
+    and poses [(scan, ground truth, time, deskew table on the CPU, pose)]
+    for phase 7 (h))."""
     import torch
 
     from feature_base_pointcloud_registration_tpu_torch import kernels
@@ -657,7 +757,7 @@ def localization_phase(dev):
     from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
         build_map_planar_tables)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
-        DeskewInfo, RawScan)
+        DeskewInfo)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
         make_deskew_info, process_scan)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.localization import (  # noqa: E501
@@ -713,13 +813,6 @@ def localization_phase(dev):
         i = int(round(t * 100))
         return simulate_scan(world, gt6[i], seed=seed, spin_rpy_rate=w_body,
                              vel_world=states[i][1] @ v_body), gt6[i]
-
-    def raw_of(s, device, batch=False):
-        raw = RawScan.from_numpy(
-            s["xyz"], s["intensity"], s["ring"], s["time"],
-            device=device)._replace(valid=torch.from_numpy(s["valid"]).to(
-                device))
-        return RawScan(*(a[None] for a in raw)) if batch else raw
 
     scans = [scan_at(k * LOC_SPACING, seed=k) for k in range(n_scans)]
 
@@ -885,33 +978,9 @@ def localization_phase(dev):
 
     # ---- timings: the step split with CUDA events, tables, fetches ----
     he, rhe = params.local_map_half_extent, params.register_grid_half_extent
-    split = np.zeros(4)
     n_split = 5
-    for j in range(3, 3 + n_split):
-        t, dsk_cpu = inputs[j]
-        raw = raw_of(scans[j][0], dev, batch=True)
-        dsk = DeskewInfo(*(a.to(dev) for a in dsk_cpu))
-        guess = torch.from_numpy(ests[j - 1][None]).to(dev)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        _, feats = process_scan(params, raw, dsk)
-        ev[1].record()
-        lmap, _ = _crop_local_map(gm.corner_xyz, gm.corner_mask,
-                                  gm.surf_xyz, gm.surf_mask, guess[0, 3:6],
-                                  half_extent=he,
-                                  map_corner_cap=params.map_corner_cap,
-                                  map_surf_cap=params.map_surf_cap)
-        ev[2].record()
-        build_map_planar_tables(lmap, guess[0, 3:6], rhe, resident=True,
-                                lower_pad=True)
-        ev[3].record()
-        grid_register_step(lmap, feats, guess, half_extent=rhe)
-        ev[4].record()
-        torch.cuda.synchronize()
-        e = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
-        split += [e[0], e[1], e[2], e[3] - e[2]]
-    split /= n_split
+    split = step_split(params, gm, [(scans[j][0], inputs[j][1], ests[j - 1])
+                                    for j in range(3, 3 + n_split)])
     print(f"time phase 7 step: {np.mean(wall[1:]) * 1e3:.2f} ms wall "
           f"(steps 1-{N_LOC - 1}; min {np.min(wall) * 1e3:.2f}, max "
           f"{np.max(wall) * 1e3:.2f}); split over {n_split} steps (CUDA "
@@ -1006,7 +1075,9 @@ def localization_phase(dev):
           f"and n_corr bitwise the step's {same}", flush=True)
     if not (near == 0 and same):
         raise AssertionError("phase 7: the lower pad moved a step")
-    return launches, fetch_t, fetch_err
+    steps = [(scans[j][0], scans[j][1], *inputs[j], ests[j])
+             for j in range(N_DENSE)]
+    return launches, fetch_t, fetch_err, steps
 
 
 def lower_face_phase(dev):
@@ -1161,6 +1232,281 @@ def lower_face_phase(dev):
     if not (d <= 1e-4 and bool(res.valid[0])):
         raise AssertionError(f"phase 7 (g): card vs CPU {d}")
     return launches, fetch_err
+
+
+def collinear_fits(q, knn):
+    """(the queries q [Q, 3] whose 5-NN from the fetch closure `knn` are
+    collinear: the scatter's middle spread under 1 mm, of them those the
+    surf plane fit's gates accept)."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        correspondence as corr)
+    d2, nn = knn(q)
+    valid = d2 < 1e37
+    _, _, fit = corr.surf_correspondence_cand(
+        q, torch.ones(q.shape[0], dtype=torch.bool, device=q.device), nn,
+        valid)
+    sel, _ = corr.select_smallest(corr._cand_d2(q, nn, valid), 5)
+    w = sel.to(nn.dtype)[..., None]
+    d = (nn - (nn * w).sum(1, keepdim=True) / 5) * w
+    mid = torch.linalg.eigvalsh((d.transpose(1, 2) @ d).double() / 5)[:, 1]
+    col = mid.clamp(min=0).sqrt() < 1e-3
+    return int(col.sum()), int((col & fit).sum())
+
+
+def dense_map_phase(dev, steps):
+    """Phase 7 (h): phase 7's first N_DENSE steps (`steps`: scan, ground
+    truth, time, deskew table, phase 7's pose) through
+    `LocalizationPipeline.step` on an undownsampled map: the room's surf
+    points at DENSE_SURF_SPACING, written with write_pcd and loaded with
+    `GlobalMap.from_pcd_dir(downsample=False)`, at Params(map_surf_cap=
+    DENSE_SURF_CAP), all else default.  The crop keeps every surf point,
+    whose compact table passes the resident cap, so the step's surf table
+    stays raw and `block_fetch` runs at K=16, W=DENSE_W on the path.
+    Counted: 3 `block_fetch` (the raw surf table) and 3 `resident_fetch`
+    (the compact corner table) a step, 0 GN rounds; the fetches of steps
+    0-2 bitwise their plain versions; steps 0-2 within DENSE_CPU_TOL of
+    the same steps on the CPU, and within 1e-4 with collinear 5-NN plane
+    fits rejected (surf_min_planar_spread=DENSE_SPREAD); max translation
+    error after step 0 < 0.06 m, ATE < 0.05 m.  Returns (launches
+    {wrapper: count} over the steps, {kernel: max_abs_err} of the checked
+    fetches, the K=16 W=DENSE_W block_fetch at step 0's surf queries {ms,
+    plain_ms, bound_ms, bound_by, ...})."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.io.pcd import (
+        write_pcd)
+    from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+        SyntheticWorld)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fetch as tfetch)
+    from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
+        gn_round)
+    from feature_base_pointcloud_registration_tpu_torch.ops.register import (
+        world_components)
+    from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
+        build_map_planar_tables)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        DeskewInfo)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
+        process_scan)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.localization import (  # noqa: E501
+        GlobalMap, LocalizationPipeline, _crop_local_map)
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    params = Params(map_surf_cap=DENSE_SURF_CAP)
+    world = SyntheticWorld()
+    map_dir = os.path.join(REPO, "build", "localization_map_dense")
+    os.makedirs(map_dir, exist_ok=True)
+    for name, pts in (("cloudCorner.pcd", world.corner_map_points()),
+                      ("cloudSurf.pcd",
+                       world.surf_map_points(DENSE_SURF_SPACING))):
+        write_pcd(os.path.join(map_dir, name), dict(
+            x=pts[:, 0], y=pts[:, 1], z=pts[:, 2],
+            intensity=np.zeros(len(pts), np.float32)))
+    t0 = time.perf_counter()
+    gm = GlobalMap.from_pcd_dir(params, map_dir, device=dev,
+                                downsample=False)
+    torch.cuda.synchronize()
+    print(f"phase 7 (h) map: corner {int(gm.corner_mask.sum())} surf "
+          f"{int(gm.surf_mask.sum())} points as written (downsample=False), "
+          f"loaded in {(time.perf_counter() - t0) * 1e3:.1f} ms; Params("
+          f"map_surf_cap={DENSE_SURF_CAP})", flush=True)
+
+    def deskew(dsk_cpu, device):
+        return DeskewInfo(*(a.to(device) for a in dsk_cpu))
+
+    # ---- the main path, counted; the fetches of steps 0-2 checked ----
+    counted = {"block_fetch": tfetch.block_fetch,
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+    real_fetch_rows = tfetch.fetch_rows
+    calls, check = [], {"on": True}
+    pipe = LocalizationPipeline(params, gm)
+    pipe.pose = steps[0][1].copy()
+    ests, wall, its = [], [], []
+    want = {"block_fetch": 3, "resident_fetch": 3, "gn_round": 0}
+    tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
+    try:
+        torch.cuda.synchronize()
+        for w in counted.values():
+            w.launches = 0
+        for j, (s, _, t, dsk_cpu, _) in enumerate(steps):
+            raw, dsk = raw_of(s, dev), deskew(dsk_cpu, dev)
+            check["on"] = j < LOC_CHECKED
+            before = {n: w.launches for n, w in counted.items()}
+            n_calls = len(calls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ests.append(pipe.step(raw, t, dsk).copy())
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            its.append((int(pipe.last_result.iterations[0]),
+                        int(pipe.last_result.n_corr[0])))
+            got = {n: w.launches - before[n] for n, w in counted.items()}
+            step_calls = calls[n_calls:]
+            raw_w = [c["W"] for c in step_calls if c["kind"] == "raw"]
+            if (got != want or {c["K"] for c in step_calls} != {LOC_K}
+                    or raw_w != [DENSE_W] * 3):
+                raise AssertionError(f"phase 7 (h) step {j}: launches {got}, "
+                                     f"raw table W {raw_w}")
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in counted.items()}
+    finally:
+        tfetch.fetch_rows = real_fetch_rows
+    tabs = sorted({(c["kind"], c["W"], c["rows"], c["bytes"])
+                   for c in calls})
+    print(f"phase 7 (h) launches: {launches} over {len(steps)} steps; fetch "
+          f"tables (kind, W, rows, bytes): {tabs}", flush=True)
+    checked, fetch_err = checked_fetches(calls)
+    print(f"phase 7 (h) fetches of steps 0-{LOC_CHECKED - 1} against their "
+          f"plain versions: {sum(c['equal'] for c in checked)}/"
+          f"{len(checked)} bitwise equal, max_abs_err {fetch_err}",
+          flush=True)
+    if not (len(checked) == 6 * LOC_CHECKED
+            and all(c["equal"] for c in checked)):
+        raise AssertionError("phase 7 (h): a fetch kernel != its plain "
+                             "version")
+
+    # ---- accuracy against the ground truth; beside phase 7's poses ----
+    gt = np.stack([st[1] for st in steps])
+    est = np.stack(ests)
+    err = np.linalg.norm(est[:, 3:] - gt[:, 3:], axis=1)
+    ate = float(np.sqrt((err ** 2).mean()))
+    d7 = np.abs(est - np.stack([st[4] for st in steps])).max(1)
+    print(f"phase 7 (h) accuracy: max translation error after step 0 "
+          f"{err[1:].max():.6f} m, ate_vs_gt_m {ate}; |pose - phase 7's "
+          f"(downsampled map)| a step {[float(f'{d:.3e}') for d in d7]}",
+          flush=True)
+    if not (np.isfinite(est).all() and err[1:].max() < 0.06 and ate < 0.05):
+        raise AssertionError(f"phase 7 (h): errors {err}")
+
+    # ---- the same steps on the CPU (the plain fetch versions), at the
+    # reference's settings and with collinear 5-NN fits rejected ----
+    def run_steps(p, gmap, device):
+        pl = LocalizationPipeline(p, gmap)
+        pl.pose = steps[0][1].copy()
+        out = []
+        for s, _, t, dsk_cpu, _ in steps[:LOC_CHECKED]:
+            out.append((pl.step(raw_of(s, device), t,
+                                deskew(dsk_cpu, device)).copy(),
+                        int(pl.last_result.iterations[0]),
+                        int(pl.last_result.n_corr[0])))
+        return out
+
+    t0 = time.perf_counter()
+    gm_cpu = GlobalMap.from_pcd_dir(params, map_dir, device=cpu,
+                                    downsample=False)
+    ref = run_steps(params, gm_cpu, cpu)
+    t_cpu = time.perf_counter() - t0
+    d_cpu = max(float(np.abs(r[0] - e).max()) for r, e in zip(ref, ests))
+    print(f"phase 7 (h) card vs CPU: steps 0-{LOC_CHECKED - 1} pose |diff| "
+          f"max {d_cpu:.3e}; (iterations, n_corr) card "
+          f"{its[:LOC_CHECKED]}, CPU {[r[1:] for r in ref]} (the CPU's "
+          f"steps took {t_cpu:.1f} s)", flush=True)
+    spread = dataclasses.replace(params, surf_min_planar_spread=DENSE_SPREAD)
+    card, ref = run_steps(spread, gm, dev), run_steps(spread, gm_cpu, cpu)
+    d_spread = max(float(np.abs(a[0] - b[0]).max())
+                   for a, b in zip(card, ref))
+    print(f"phase 7 (h) card vs CPU with collinear 5-NN fits rejected "
+          f"(surf_min_planar_spread {DENSE_SPREAD}): steps 0-"
+          f"{LOC_CHECKED - 1} pose |diff| max {d_spread:.3e}; (iterations,"
+          f" n_corr) card {[a[1:] for a in card]}, CPU "
+          f"{[b[1:] for b in ref]}", flush=True)
+    if not (d_cpu <= DENSE_CPU_TOL and d_spread <= 1e-4):
+        raise AssertionError(f"phase 7 (h): card vs CPU poses differ by "
+                             f"{d_cpu} ({d_spread} with collinear fits "
+                             "rejected)")
+
+    # ---- times: the step split with CUDA events, a profiled step ----
+    he, rhe = params.local_map_half_extent, params.register_grid_half_extent
+    split_steps = range(3, 6)
+    split = step_split(params, gm, [(steps[j][0], steps[j][3], ests[j - 1])
+                                    for j in split_steps])
+    print(f"time phase 7 (h) step: {np.mean(wall[1:]) * 1e3:.2f} ms wall "
+          f"(steps 1-{len(steps) - 1}; min {np.min(wall) * 1e3:.2f}, max "
+          f"{np.max(wall) * 1e3:.2f}); split over {len(split_steps)} steps "
+          f"(CUDA events): frontend (strict + deskew) {split[0]:.2f} ms, "
+          f"crop {split[1]:.2f} ms, tables {split[2]:.2f} ms, solve "
+          f"{split[3]:.2f} ms", flush=True)
+    s, _, t, dsk_cpu, _ = steps[-1]
+    raw, dsk = raw_of(s, dev), deskew(dsk_cpu, dev)
+    pipe.time_last_processing = -1.0
+    wall_p, busy, top = profile_call(lambda: pipe.step(raw, t, dsk))
+    print(f"profile phase 7 (h) step (torch.profiler): wall {wall_p:.2f} ms,"
+          f" device busy {busy:.2f} ms ({busy / wall_p:.1%}); by device "
+          f"time: " + "; ".join(f"{name[:60]} {ms:.3f}"
+                                for name, ms in top[:6]), flush=True)
+
+    # ---- the K=16 W=DENSE_W fetch at step 0's surf queries ----
+    guess = torch.from_numpy(steps[0][1][None]).to(dev)
+    lmap, in_box = _crop_local_map(
+        gm.corner_xyz, gm.corner_mask, gm.surf_xyz, gm.surf_mask,
+        guess[0, 3:6], half_extent=he, map_corner_cap=params.map_corner_cap,
+        map_surf_cap=params.map_surf_cap)
+    ctab, stab, origin, dims = build_map_planar_tables(
+        lmap, guess[0, 3:6], rhe, resident=True, lower_pad=True)
+    if not (isinstance(ctab, tfetch.PlanarTable)
+            and not isinstance(stab, tfetch.PlanarTable)
+            and stab.shape[1] == 3 * DENSE_W):
+        raise AssertionError("phase 7 (h): step 0's table kinds")
+    compact = tfetch.compact_row_space(stab).table
+    _, feats = process_scan(params, raw_of(steps[0][0], dev, batch=True),
+                            deskew(steps[0][3], dev))
+    qx, qy, qz = (c.reshape(-1).contiguous()
+                  for c in world_components(guess, feats.surf_xyz))
+    bcell = tfetch.block_cell_of_xyz(qx, qy, qz, origin, 2.0, dims=dims,
+                                     lower_pad=True)
+    ms = cuda_ms(lambda: tfetch.block_fetch(stab, bcell, qx, qy, qz,
+                                            K=LOC_K), 20)
+    plain_ms = cuda_ms(lambda: tfetch.block_fetch_reference(
+        stab, bcell, qx, qy, qz, K=LOC_K), 2)
+    b_ms, b_by = fetch_bound(stab, bcell, LOC_K)
+    whole_ms = (stab.numel() * 4 + bcell.shape[0] * 16 * (1 + LOC_K)) / (
+        HBM_BYTES_PER_S) * 1e3
+    timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+              "bound_by": b_by, "K": LOC_K, "W": DENSE_W,
+              "Q": bcell.shape[0], "rows": stab.shape[0] - 1,
+              "table_bytes": stab.numel() * 4}
+    print(f"phase 7 (h) step 0 tables: crop kept corner "
+          f"{int(lmap.corner_mask.sum())} surf {int(lmap.surf_mask.sum())} "
+          f"(in the box {in_box.tolist()}); surf raw {stab.shape[0] - 1} "
+          f"rows of W {DENSE_W} ({stab.numel() * 4} B; compact it would "
+          f"take {compact.numel() * 4} B in {compact.shape[0] - 1} rows, "
+          f"over the {tfetch.RESIDENT_TABLE_CAP} B resident cap); corner "
+          f"compact {table_info(ctab)[1]} rows of W {table_info(ctab)[2]} "
+          f"({table_info(ctab)[3]} B)", flush=True)
+    # the surf features whose 5-NN are collinear, at step 0's guess: the
+    # plane fit's rank gate decides them on each device's rounding
+    q = torch.stack([qx, qy, qz], -1)[feats.surf_mask[0]]
+    lmap_cpu = type(lmap)(*(a.cpu() for a in lmap))
+    col = {d.type: collinear_fits(q.to(d), tfetch.make_pallas_block_knn(
+        t, o, 2.0, dims=dims, cell_cap=64, k=LOC_K))
+        for d, t, o in ((dev, stab, origin), (cpu, *build_map_planar_tables(
+            lmap_cpu, guess[0, 3:6].cpu(), rhe, resident=True,
+            lower_pad=True)[1:3]))}
+    print(f"phase 7 (h) step 0's {q.shape[0]} surf features: collinear "
+          f"5-NN (middle spread < 1 mm) / of them accepted by the plane "
+          f"fit's gates: card {col[dev.type]}, CPU {col['cpu']}",
+          flush=True)
+    print(f"time phase 7 (h) fetch surf (block_fetch, Q {bcell.shape[0]}, W "
+          f"{DENSE_W}, K {LOC_K}, {-(-bcell.shape[0] // kernels.FETCH_TILE)}"
+          f" tiles, {int((bcell != stab.shape[0] - 1).sum())} live, "
+          f"{torch.unique(bcell[bcell != stab.shape[0] - 1]).numel()} "
+          f"distinct rows): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms"
+          f" ({b_by}; the whole table read once: {whole_ms:.4f} ms); "
+          f"{fetch_smem(DENSE_W, LOC_K)} B of shared memory a block",
+          flush=True)
+    for log in sorted(glob.glob(os.path.join(kernels.BUILD_DIR,
+                                             "libfbpr_block_fetch-*.log"))):
+        print_ptxas("phase 7 (h) block_fetch", log, only={
+            f"fetch_tile_kernel<{LOC_K},{-(-DENSE_W // 128) * 4}>"})
+    print(f"phase 7 (h): {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, fetch_err, timing
 
 
 class StageTimer:
@@ -3142,8 +3488,9 @@ def main():
                  lambda xyz, m: fetch_queries(stat[:, :6], xyz, m, stab,
                                               origin, 2.0, dims))
 
-    loc_launches, loc_fetch, loc_err = localization_phase(dev)
+    loc_launches, loc_fetch, loc_err, loc_steps = localization_phase(dev)
     lf_launches, lf_err = lower_face_phase(dev)
+    dense_launches, dense_err, dense_fetch = dense_map_phase(dev, loc_steps)
     slam_launches, slam_err = slam_phase(dev)
     lio_launches, lio_err = lio_phase(dev)
     kitti_launches, kitti_err = kitti_phase(dev)
@@ -3166,6 +3513,8 @@ def main():
                 "localization": loc.get(name),
                 "launches_lower_face": lf_launches[name],
                 "max_abs_err_lower_face": lf_err.get(name),
+                "launches_raw_step": dense_launches[name],
+                "max_abs_err_raw_step": dense_err.get(name),
                 "launches_slam": slam_launches[name],
                 "max_abs_err_slam": slam_err.get(name),
                 "launches_lio": lio_launches[name],
@@ -3190,7 +3539,7 @@ def main():
         entry("block_fetch", "block_fetch.cu",
               tpu_kernel_line("pallas_fetch.py", "_fetch_kernel"),
               launches["block_fetch"], fetch_err, "fetch_surf",
-              **localization("block_fetch")),
+              raw_step=dense_fetch, **localization("block_fetch")),
         entry("gn_round", "gn_round.cu",
               tpu_kernel_line("pallas_gn.py", "_gn_round_kernel"),
               launches["gn_round"], gn_err, "gn_round",

@@ -15,6 +15,7 @@ below and masked.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 
@@ -265,3 +266,7 @@ class Params:
             kwargs[field] = v
         return cls(**kwargs)
 
+
+FLT_MAX = 3.4028234663852886e38   # the largest float32
+DEG2RAD = math.pi / 180.0
+RAD2DEG = 180.0 / math.pi

@@ -3,7 +3,8 @@
 Port of the JAX package's `pipeline/frontend.py` (ImageProjection ->
 FeatureExtraction, ref: src/imageProjection.cpp:182-226 cloudHandler).  The
 returned features are voxel-downsampled with the mapping leaf sizes
-(downsampleCurrentScan, ref: src/mapOptmization.h:981-993).
+(downsampleCurrentScan, ref: src/mapOptmization.h:981-993) unless the caller
+asks for them as picked.
 `make_deskew_info` builds a scan's IMU table on the host.
 """
 
@@ -23,16 +24,19 @@ from .cloud_info import CloudInfo, DeskewInfo, RawScan, ScanFeatures
 
 def process_scan(params: Params, scan: RawScan,
                  deskew_info: DeskewInfo | None = None,
-                 enable_deskew: bool = True
+                 enable_deskew: bool = True,
+                 downsample: bool = True
                  ) -> Tuple[CloudInfo, ScanFeatures]:
     """Project (deskewed when `deskew_info` is given), extract features
-    (strict or fast by `params.strict_feature_pick`) and downsample a batch
-    of scans."""
+    (strict or fast by `params.strict_feature_pick`) and, unless
+    `downsample` is False, downsample a batch of scans."""
     cloud = project_scan(params, scan, deskew_info,
                          enable_deskew=enable_deskew)
     feats = extract_features(params, cloud,
                              strict=params.strict_feature_pick)
-    return cloud, downsample_features(params, feats)
+    if downsample:
+        feats = downsample_features(params, feats)
+    return cloud, feats
 
 
 def downsample_features(params: Params, feats: ScanFeatures) -> ScanFeatures:

@@ -5,7 +5,7 @@ Port of the JAX package's `pipeline/localization.py`, the reference's
 cloudHandler at src/imageProjection.cpp:203-225):
 
   1. load a prebuilt global corner/surf map (PCD) and voxel-downsample it
-     (ref :245-260),
+     (ref :245-260; `downsample=False` keeps a map its producer voxelized),
   2. per scan (rate-gated by mappingProcessInterval, ref :279): crop a
      +-(30, 30, 10) m local map around the pose guess (ref :283-304),
   3. run the scan-to-map solve (`ops.register.grid_register_step`: grid
@@ -52,11 +52,12 @@ class GlobalMap:
 
     @classmethod
     def from_arrays(cls, params: Params, corner, surf,
-                    corner_cap: int = 1 << 19, surf_cap: int = 1 << 20, *,
-                    device):
+                    corner_cap: int = 1 << 19, surf_cap: int = 1 << 20,
+                    downsample: bool = True, *, device):
         """Numpy [N, 3] corner and surf points, padded to the caps, placed
-        on `device` (required) and voxel-downsampled with the mapping leaf
-        sizes."""
+        on `device` (required) and, unless `downsample` is False (a map
+        whose producer already voxelized it), voxel-downsampled with the
+        mapping leaf sizes."""
         def pad(a, cap):
             a = np.asarray(a, np.float32)
             if a.shape[0] > cap:
@@ -68,16 +69,18 @@ class GlobalMap:
                     torch.from_numpy(m).to(device))
 
         (cx, cm), (sx, sm) = pad(corner, corner_cap), pad(surf, surf_cap)
-        cx, cm, _ = voxel_downsample(cx, cm, params.mapping_corner_leaf_size,
-                                     corner_cap)
-        sx, sm, _ = voxel_downsample(sx, sm, params.mapping_surf_leaf_size,
-                                     surf_cap)
+        if downsample:
+            cx, cm, _ = voxel_downsample(
+                cx, cm, params.mapping_corner_leaf_size, corner_cap)
+            sx, sm, _ = voxel_downsample(
+                sx, sm, params.mapping_surf_leaf_size, surf_cap)
         return cls(cx, cm, sx, sm)
 
     @classmethod
     def from_pcd_dir(cls, params: Params, directory: str, *, device, **kw):
         """Load cloudCorner.pcd / cloudSurf.pcd like the reference (ref:
-        src/mapOptmization.h:245-260)."""
+        src/mapOptmization.h:245-260); `kw` goes to `from_arrays` (caps,
+        `downsample`)."""
         from ..io.pcd import read_pcd
 
         pts = []

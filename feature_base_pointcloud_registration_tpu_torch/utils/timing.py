@@ -93,7 +93,7 @@ class StageTimer:
 
 
 @contextlib.contextmanager
-def trace_profile(log_dir: str):
+def trace_profile(log_dir: str = "/tmp/fbpr_trace"):
     """torch.profiler trace around a block; writes a Chrome trace
     (`trace.json`, open in chrome://tracing or Perfetto) into `log_dir`.
     Records CUDA activity when PyTorch sees a CUDA device."""

@@ -13,6 +13,8 @@ Tolerances:
   * downsample_features: masks equal, coordinates within 1e-5 m.
   * process_scan(Params()) picks strictly, as the JAX package's does: the
     same tolerances (corner sets bitwise before downsampling).
+  * process_scan(downsample=False) returns the picked features as the JAX
+    package's does, held as extract_features is above.
 """
 
 import dataclasses
@@ -165,3 +167,25 @@ def test_process_scan_default_params_picks_strictly(scans):
             np.testing.assert_allclose(getattr(feats, name)[b],
                                        getattr(want, name), rtol=0,
                                        atol=1e-5)
+
+
+@pytest.mark.parametrize("params", [PARAMS, FAST], ids=["strict", "fast"])
+def test_process_scan_without_downsample(scans, params):
+    """process_scan(downsample=False) in both packages: extract_features'
+    output, corner sets and surf masks bitwise."""
+    jraws, traw = scans
+    cloud, feats = tfront.process_scan(params, traw, downsample=False)
+    raw_feats = tfeat.extract_features(params, cloud,
+                                       strict=params.strict_feature_pick)
+    for got, want in zip(feats, raw_feats):
+        assert torch.equal(got, want)
+    feats = to_numpy(feats)
+    for b, raw in enumerate(jraws):
+        _, want = jax.tree.map(np.asarray, process_scan(params, raw,
+                                                        downsample=False))
+        np.testing.assert_array_equal(feats.corner_mask[b], want.corner_mask)
+        np.testing.assert_array_equal(feats.corner_xyz[b], want.corner_xyz)
+        np.testing.assert_array_equal(feats.surf_mask[b], want.surf_mask)
+        np.testing.assert_allclose(feats.surf_xyz[b], want.surf_xyz,
+                                   rtol=0, atol=1e-5)
+        assert want.corner_mask.sum() > 100 and want.surf_mask.sum() > 1000

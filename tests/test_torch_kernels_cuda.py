@@ -16,7 +16,11 @@ localization path: the fetch kernels on `grid_register_step`'s lower_pad
 tables bitwise their plain versions and the octant rule's candidates for
 queries below each lower face; strict picks on the card bitwise equal to
 the CPU's on the same cloud, deskewed clouds within 2e-5 m (the card's sin/cos), one
-`LocalizationPipeline.step` within 1e-4 of the CPU's.  The exact solver
+`LocalizationPipeline.step` within 1e-4 of the CPU's, and one
+`grid_register_step` on an undownsampled map, whose surf table stays raw
+(W 512, 3 `block_fetch` launches), within 1e-4 of the CPU's with
+collinear 5-NN plane fits rejected and within 1e-3 without (the fit's
+rank gate decides those on rounding noise).  The exact solver
 and the SLAM path: `_extract_topk` on the card equal to a stable sort (the
 lower index wins ties, which `torch.topk` alone does not promise on CUDA);
 the streamed `knn` on the card against the CPU (d2 within 1e-6 of the
@@ -578,6 +582,63 @@ def test_localization_step_on_gpu_matches_cpu(cuda):
     assert launches == [6, 0]
     np.testing.assert_allclose(poses[0], poses[1], rtol=0, atol=1e-4)
     assert np.abs(poses[1][3:] - [1.0, -2.0, 0.4]).max() < 0.05
+
+
+@pytest.mark.cuda
+def test_raw_table_localization_step_on_gpu_matches_cpu(cuda):
+    """`grid_register_step` on chip_smoke.py phase 7 (h)'s undownsampled
+    map (the room's surf points at 0.2 m, Params(map_surf_cap=131072)):
+    the crop keeps every surf point, so the surf table stays raw at W 512
+    and the step launches 3 block_fetch (and 3 resident_fetch on the
+    compact corner table).  The pose within 1e-4 of the CPU step's with
+    collinear 5-NN plane fits rejected (min_plane_spread 0.01 m), and
+    within 1e-3 at the reference's settings: on this 0.2 m lattice the
+    plane fit's rank gate passes some collinear 5-NN on rounding noise,
+    which differs between the devices (chip_smoke.py DENSE_CPU_TOL)."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        register as treg)
+
+    params = Params(map_surf_cap=131072)
+    world = SyntheticWorld()
+    corner, surf = world.corner_map_points(), world.surf_map_points(0.2)
+    he = params.register_grid_half_extent
+    results, spread, launches = [], [], []
+    for dev in (cuda, torch.device("cpu")):
+        _, raw, dsk = _skewed_scan(dev)
+        _, feats = tfront.process_scan(params, raw, dsk)
+        gm = tloc.GlobalMap.from_arrays(params, corner, surf,
+                                        downsample=False, device=dev)
+        guess = torch.tensor([[0.0, 0.0, 0.32, 1.1, -2.1, 0.4]],
+                             device=dev)
+        lmap, _ = tloc._crop_local_map(
+            gm.corner_xyz, gm.corner_mask, gm.surf_xyz, gm.surf_mask,
+            guess[0, 3:6], half_extent=params.local_map_half_extent,
+            map_corner_cap=params.map_corner_cap,
+            map_surf_cap=params.map_surf_cap)
+        assert int(lmap.surf_mask.sum()) == len(surf)
+        ctab, stab, _, _ = tbatch.build_map_planar_tables(
+            lmap, guess[0, 3:6], he, resident=True, lower_pad=True)
+        assert isinstance(ctab, tfetch.PlanarTable)
+        assert torch.is_tensor(stab) and stab.shape[1] == 3 * 512
+        del ctab, stab
+        before = (tfetch.block_fetch.launches,
+                  tfetch.resident_fetch.launches)
+        results.append(treg.grid_register_step(lmap, feats, guess,
+                                                half_extent=he))
+        launches.append((tfetch.block_fetch.launches - before[0],
+                         tfetch.resident_fetch.launches - before[1]))
+        assert bool(results[-1].valid[0])
+        spread.append(treg.grid_register_step(lmap, feats, guess,
+                                               half_extent=he,
+                                               min_plane_spread=0.01))
+    assert launches == [(3, 3), (0, 0)]
+    np.testing.assert_allclose(spread[0].pose6.cpu().numpy(),
+                               spread[1].pose6.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(results[0].pose6.cpu().numpy(),
+                               results[1].pose6.numpy(), rtol=0, atol=1e-3)
+    for r in results + spread:
+        assert np.abs(r.pose6[0, 3:].cpu().numpy()
+                      - [1.0, -2.0, 0.4]).max() < 0.05
 
 
 @pytest.mark.cuda

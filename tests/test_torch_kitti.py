@@ -14,7 +14,9 @@ NumPy:
     scripts/make_kitti_drive.py for a 3-scan drive (every file: the .bin
     scans, the oxts records, both timestamp files, gt_poses.npy);
   * `utils/timing`: `StageTimer` and `TicToc` on CPU tensors, and
-    `trace_profile` writing a Chrome trace.
+    `trace_profile` writing a Chrome trace;
+  * `config.FLT_MAX`, `DEG2RAD`, `RAD2DEG` and `trace_profile`'s default
+    directory equal the JAX package's.
 """
 
 import filecmp
@@ -153,3 +155,27 @@ def test_stage_timer_and_tictoc_on_cpu(tmp_path):
     with trace_profile(str(tmp_path / "trace")) as d:
         (x @ x).sum()
     assert os.path.getsize(os.path.join(d, "trace.json")) > 0
+
+
+def test_constants_and_trace_profile_default_match_jax():
+    """config's FLT_MAX / DEG2RAD / RAD2DEG and trace_profile's default
+    directory: the JAX package's, exactly."""
+    import inspect
+
+    from feature_base_pointcloud_registration_tpu import config as jconfig
+    from feature_base_pointcloud_registration_tpu.utils import (
+        timing as jtiming)
+    from feature_base_pointcloud_registration_tpu_torch import (
+        config as tconfig)
+    from feature_base_pointcloud_registration_tpu_torch.utils import (
+        timing as ttiming)
+
+    for name in ("FLT_MAX", "DEG2RAD", "RAD2DEG"):
+        got, want = getattr(tconfig, name), getattr(jconfig, name)
+        assert type(got) is type(want) and got == want, name
+    assert tconfig.FLT_MAX == float(np.finfo(np.float32).max)
+
+    def default(fn):
+        return inspect.signature(fn).parameters["log_dir"].default
+
+    assert default(ttiming.trace_profile) == default(jtiming.trace_profile)

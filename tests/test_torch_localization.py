@@ -7,13 +7,15 @@
   * `ops/cropbox.py::crop_box`: bitwise.
   * `ops/register.py::grid_register_step` (the port's tables, fetch and
     rounds solver) against the JAX package's (octant-sentinel tables): pose
-    within 1e-5 m / rad, iterations equal.
+    within 1e-5 m / rad, iterations equal; on compact tables and, with the
+    resident cap at 0, on raw ones, the two bitwise equal.
   * `pipeline/localization.py`: 3 chained steps of tests/test_pipeline.py's
     trajectory, poses within 1e-4 of the JAX pipeline's at every step; the
     interval gate; the `localization/odometry` events carry the JAX
     package's fields; `GlobalMap.from_pcd_dir` reads the port's
     `write_pcd` output as the JAX package's reader does (masks equal,
-    points within 1e-5 m: the voxel sums run in another order).
+    points within 1e-5 m: the voxel sums run in another order; bitwise
+    with `downsample=False`).
   * `pipeline/scan_buffer.py`: tests/test_scan_buffer.py's cases, each
     against the JAX package's classes (increments within 1e-6).
 
@@ -52,7 +54,9 @@ from feature_base_pointcloud_registration_tpu_torch.imu import (
     conversion as timu)
 from feature_base_pointcloud_registration_tpu_torch.io import pcd as tpcd
 from feature_base_pointcloud_registration_tpu_torch.ops import (
-    cropbox as tcrop, register as treg)
+    cropbox as tcrop, fetch as tfetch, register as treg)
+from feature_base_pointcloud_registration_tpu_torch.parallel import (
+    batch as tbatch)
 from feature_base_pointcloud_registration_tpu_torch.pipeline import (
     cloud_info as tci, localization as tloc, scan_buffer as tsb)
 from feature_base_pointcloud_registration_tpu_torch.utils import log as tlog
@@ -220,7 +224,10 @@ def world_map():
     return world, jgm, global_map_to_torch(jgm, device=CPU)
 
 
-def test_grid_register_step_matches_jax(world_map):
+@pytest.fixture(scope="module")
+def step_case(world_map):
+    """test_grid_register_step_matches_jax's scan, guess and local map, and
+    the JAX step's result on them (computed once for both table kinds)."""
     world, jgm, tgm = world_map
     gt = np.array([0.0, 0.0, 0.3, 1.0, -0.5, 0.0], np.float32)
     guess = gt + np.array([0.01, -0.01, 0.03, 0.15, -0.1, 0.05], np.float32)
@@ -242,8 +249,31 @@ def test_grid_register_step_matches_jax(world_map):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     tfeats = to_torch(jax.tree.map(lambda a: np.asarray(a)[None], feats),
                       device=CPU)
-    got = to_numpy(treg.grid_register_step(tmap, tfeats, T(guess[None]),
-                                           **kw))
+    return gt, guess, tmap, tfeats, want, kw
+
+
+@pytest.mark.parametrize("tables", ["compact", "raw"])
+def test_grid_register_step_matches_jax(step_case, tables, monkeypatch):
+    """The step on compact tables (resident_fetch's route, this map's) and,
+    with the resident cap at 0, on raw tables (block_fetch's route, a map
+    whose compact table passes the cap): both the JAX step's result, and
+    bitwise each other."""
+    gt, guess, tmap, tfeats, want, kw = step_case
+    center = T(guess[3:6])
+    he = kw["half_extent"]
+    res = compact = treg.grid_register_step(tmap, tfeats, T(guess[None]),
+                                            **kw)
+    if tables == "raw":
+        monkeypatch.setattr(tbatch, "RESIDENT_TABLE_CAP", 0)
+        res = treg.grid_register_step(tmap, tfeats, T(guess[None]), **kw)
+        for a, b in zip(res, compact):
+            assert torch.equal(a, b)
+    step_tables = tbatch.build_map_planar_tables(tmap, center, he,
+                                                 resident=True,
+                                                 lower_pad=True)[:2]
+    assert all(isinstance(t, tfetch.PlanarTable) == (tables == "compact")
+               for t in step_tables)
+    got = to_numpy(res)
     _close(got.pose6[0], want.pose6, 1e-5, rtol=0)
     assert got.iterations[0] == want.iterations
     assert bool(got.valid[0]) and bool(got.converged[0]) == bool(
@@ -288,7 +318,8 @@ def test_localization_interval_gate(world_map):
     np.testing.assert_array_equal(p0, p1)
 
 
-def test_global_map_from_pcd_dir(tmp_path):
+@pytest.mark.parametrize("downsample", [True, False])
+def test_global_map_from_pcd_dir(tmp_path, downsample):
     world = SyntheticWorld()
     corner = world.corner_map_points(0.12)
     surf = world.surf_map_points(0.35)
@@ -297,6 +328,8 @@ def test_global_map_from_pcd_dir(tmp_path):
             x=pts[:, 0], y=pts[:, 1], z=pts[:, 2],
             intensity=np.zeros(len(pts), np.float32)))
     caps = dict(corner_cap=1 << 13, surf_cap=1 << 16)
+    if not downsample:
+        caps["downsample"] = False
     want = jloc.GlobalMap.from_pcd_dir(PARAMS, str(tmp_path), **caps)
     got = tloc.GlobalMap.from_pcd_dir(PARAMS, str(tmp_path), device=CPU,
                                       **caps)
@@ -305,7 +338,15 @@ def test_global_map_from_pcd_dir(tmp_path):
                                       np.asarray(getattr(want, name)))
     for name in ("corner_xyz", "surf_xyz"):
         _close(getattr(got, name).numpy(), getattr(want, name), 1e-5)
-    assert 1000 < int(got.surf_mask.sum()) < len(surf)
+    if downsample:
+        assert 1000 < int(got.surf_mask.sum()) < len(surf)
+    else:
+        # the points as written, in file order: bitwise
+        for name in ("corner_xyz", "surf_xyz"):
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          np.asarray(getattr(want, name)))
+        assert int(got.surf_mask.sum()) == len(surf)
+        assert int(got.corner_mask.sum()) == len(corner)
 
 
 # ------------------------------------------------------------ scan buffer

@@ -18,7 +18,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            (m / rad), iteration count and n_corr equal on >= 95% of lanes;
   phase 3  the slice end to end: frontend, map tables, batch_register_fused,
            with the kernels' launch counters zeroed just before; each kernel
-           must have launched (4 fetches, 2 GN rounds, one a round); ATE
+           must have launched (1 ring_pick, the batch's fast picking; 4
+           fetches, 2 GN rounds, one a round); ATE
            against ground
            truth and against the serial NumPy oracle (tests/oracle.py) on 8
            scans, which must be <= 1e-3 m;
@@ -26,12 +27,14 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            queries routed through the resident tables' rows_index: bitwise;
            and against the raw-table fetch: d2 bitwise, candidates bitwise
            wherever the compact row is not the sentinel;
-  phase 5  the main path on resident tables (build_map_planar_tables with
-           resident=True, batch_register_fused), counted: 4 resident
-           fetches, 0 raw fetches, 2 GN rounds; poses within 1e-6 of phase
-           3's; ATE against the oracle <= 1e-3 m;
-  phase 6  the rounds-structured solver batch_register_pallas on the
-           resident tables, counted: 4 resident fetches, 0 GN rounds; ATE
+  phase 5  the main path on resident tables (frontend,
+           build_map_planar_tables with resident=True, batch_register_fused),
+           counted: 1 ring_pick, 4 resident fetches, 0 raw fetches, 2 GN
+           rounds; poses within 1e-6 of phase 3's; ATE against the oracle
+           <= 1e-3 m;
+  phase 6  the frontend and the rounds-structured solver
+           batch_register_pallas on the resident tables, counted: 1
+           ring_pick, 4 resident fetches, 0 GN rounds; ATE
            against the oracle <= 1e-3 m; batch_register_blocks (plain fetch,
            same solver) on the first 32 scans within 1e-4 of it;
   timing   CUDA events (a GN call through a replayed CUDA graph of its
@@ -44,7 +47,9 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            point and the xyz and candidates of live ones; also the floor of a
            design that streams the candidates every iteration: lane-
            iterations x live points x (16 + 12K) B over 3.35 TB/s);
-           frontend and solve ms/scan, end-to-end scans/s;
+           frontend and solve ms/scan, end-to-end scans/s, the frontend
+           and e2e also with the picking on its plain version (the MIS
+           rounds, the route before the ring-pick kernel);
   probes   both fetch kernels at phase 4's round-1 surf queries: (a) as
            they are, (b) after a per-lane sort by row (presort_by_row,
            the order of JAX presort_rows), (c) every query at
@@ -67,15 +72,24 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            GlobalMap.from_pcd_dir; 20 motion-skewed scans 0.2 s apart along
            constant_twist_platform, each through ScanBuffer, imu_converter,
            make_deskew_info (OdomQueue's increment) and
-           LocalizationPipeline.step, counted: 6 fetches of K=16 a step
-           (resident_fetch or block_fetch by table kind), 0 GN rounds; the
+           LocalizationPipeline.step, counted: 1 ring_pick and 6 fetches
+           of K=16 a step (resident_fetch or block_fetch by table kind), 0
+           GN rounds, 0 host syncs in picking (the CUDA sync debug mode); the
            fetches of steps 0-2 bitwise equal to their plain versions;
            steps 0-2 within 1e-4 of the same steps on the CPU; strict picks
            of scans 0-2 equal to the oracle's, scan 0's deskewed points
            within 2e-5 m of the oracle's (rotation); a scan 0.05 s later
            gated; max translation error after step 0 < 0.06 m and ATE <
            0.05 m against the ground truth; times of the step and its
-           stages, picking's host syncs, each table's kind and bytes, the
+           stages; the frontend's split (projection + deskew, ring
+           windows, picking, voxel thinning) and the step's time with the
+           picking on the kernel and on its plain version in turns; the
+           ring-pick kernel bitwise against its plain version, timed
+           beside it and its bound, at (a) this phase's scan (B=1,
+           strict), (b) phase 3's batch (B=256, fast), (c) the HDL-64
+           scans of tests/data/kitti_mini and a 64-ring synthetic scan
+           (strict), (d) tests/pick_windows.py's windows (both modes);
+           each table's kind and bytes, the
            fetch beside its bound, ptxas of the K=16 fetch instances;
            each table on grid_register_step's row space (lower_pad: a
            row for every octant base from -1) beside the batched solvers';
@@ -120,7 +134,9 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            truth in the first scan's frame; save_map ->
            GlobalMap.from_pcd_dir -> one LocalizationPipeline.step
            relocalizing a keyframe's scan within 0.06 m of its pose; step
-           time and its split (synchronized host clock), the window and
+           time and its split (synchronized host clock), the frontend's
+           split with the picking on the kernel and on its plain
+           version, the window and
            full LM, ICP ms and iterations, host syncs a step (the CUDA
            sync debug mode), a profiled window LM solve, register_scan
            beside its bound, the knn selection against a stable sort, the
@@ -337,11 +353,13 @@ def print_ptxas(src, log, only=None):
     fn = "?"
     with open(log) as f:
         for line in f:
-            m = re.search(r"entry function '\w*?([a-z_]+_kernel)I((?:Li\d+E)+)",
-                          line)
-            if m:
+            m = re.search(r"entry function '\w*?([a-z_]+_kernel)"
+                          r"(?:I((?:Li\d+E)+))?", line)
+            if m and m.group(2):
                 args = ",".join(re.findall(r"\d+", m.group(2)))
                 fn = f"{m.group(1)}<{args}>"
+            elif m:
+                fn = m.group(1)
             elif ("registers" in line or "spill" in line) and (
                     only is None or fn in only):
                 print(f"ptxas {src} {fn}: {line.strip()}", flush=True)
@@ -722,6 +740,174 @@ def step_split(params, gm, runs):
     return split / len(runs)
 
 
+@contextlib.contextmanager
+def plain_picking():
+    """Inside the block the picking runs its plain version on any device
+    (ops/features.py::ring_pick_reference: the MIS rounds driven from the
+    host, one sync a round, the route before the ring-pick kernel), so one
+    call times the kernel against the parent's route."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import features
+    kernel = features.ring_pick
+    features.ring_pick = features.ring_pick_reference
+    try:
+        yield
+    finally:
+        features.ring_pick = kernel
+
+
+def ring_pick_wrapper():
+    """ops/features.py's ring_pick, whose `launches` the phases count."""
+    from feature_base_pointcloud_registration_tpu_torch.ops.features import (
+        ring_pick)
+    return ring_pick
+
+
+def picking_route(route):
+    return plain_picking() if route == "plain" else contextlib.nullcontext()
+
+
+def sync_counter(fn, counts):
+    """fn wrapped: the host syncs of each call (warnings of the CUDA sync
+    debug mode, not its one-time notice that the mode is a prototype)
+    appended to counts."""
+    import warnings
+
+    import torch
+
+    def counted(*a, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                counts.append(sum("synchroniz" in str(w.message)
+                                  and "prototype" not in str(w.message)
+                                  for w in caught))
+    return counted
+
+
+def frontend_split(params, items, dev):
+    """The frontend's stages with the picking on the kernel and on its plain
+    version, in turns (kernel, plain, plain, kernel), over items [(scan,
+    deskew table on the CPU or None)]: {route: means of [projection +
+    deskew, ring windows, picking, voxel thinning and compaction (the rest
+    of extract_features and downsample_features), the frontend
+    (process_scan's calls), all device ms by CUDA events; the frontend's
+    host ms (synchronized); the picking's host syncs (sync debug mode)]}."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.ops import features
+    from feature_base_pointcloud_registration_tpu_torch.ops.projection import (
+        project_scan)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        DeskewInfo)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
+        downsample_features)
+
+    out = {"kernel": [], "plain": []}
+    for route in ("kernel", "plain", "plain", "kernel"):
+        with picking_route(route):
+            for s, dsk_cpu in items:
+                raw = raw_of(s, dev, batch=True)
+                dsk = (None if dsk_cpu is None else
+                       DeskewInfo(*(a.to(dev) for a in dsk_cpu)))
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+                syncs = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev[0].record()
+                cloud = project_scan(params, raw, dsk)
+                ev[1].record()
+                downsample_features(params, features.extract_features(
+                    params, cloud, strict=params.strict_feature_pick))
+                ev[2].record()
+                torch.cuda.synchronize()
+                host = (time.perf_counter() - t0) * 1e3
+                win = features._ring_windows(cloud, params.n_scan,
+                                             params.horizon_scan)
+                ev[3].record()
+                sync_counter(features._pick, syncs)(
+                    win, params.edge_threshold, params.surf_threshold,
+                    params.strict_feature_pick)
+                ev[4].record()
+                torch.cuda.synchronize()
+                proj, rest, pick = (ev[0].elapsed_time(ev[1]),
+                                    ev[1].elapsed_time(ev[2]),
+                                    ev[3].elapsed_time(ev[4]))
+                t_win = cuda_ms(lambda: features._ring_windows(
+                    cloud, params.n_scan, params.horizon_scan), 3)
+                out[route].append([proj, t_win, pick, rest - t_win - pick,
+                                   proj + rest, host, syncs[0]])
+    return {r: np.mean(v, axis=0) for r, v in out.items()}
+
+
+def print_frontend_split(phase, split):
+    for route, v in split.items():
+        name = ("the kernel" if route == "kernel" else
+                "its plain version (the parent's route)")
+        print(f"time {phase} frontend, picking on {name}: frontend "
+              f"{v[4]:.3f} ms device, {v[5]:.3f} ms host; projection + "
+              f"deskew {v[0]:.3f} ms, ring windows {v[1]:.3f} ms, picking "
+              f"{v[2]:.3f} ms, voxel thinning and compaction {v[3]:.3f} ms; "
+              f"host syncs in picking {v[6]:.1f}", flush=True)
+
+
+def ring_pick_bound(win):
+    """(bound_ms, bound_by) of one ring_pick call: the windows' curv, col,
+    picked and sector bounds read once and the labels written once; as
+    operations, this run's sectors' bitonic compare-exchanges and walk
+    steps (the serial walk, which sets the kernel's floor, is latency, not
+    either)."""
+    import torch
+    W = win["curv"].shape[-1]
+    n_slots = win["curv"].numel()
+    n_win = n_slots // W
+    nbytes = n_slots * (4 + 4 + 1 + 1) + n_win * 6 * (4 + 4 + 1)
+    lo = win["sp"].clamp(min=0).long()
+    hi = win["ep"].long().clamp(max=W - 1)
+    n = torch.where(win["sector_ok"] & (hi >= lo), hi - lo + 1, 0).cpu()
+    logn = torch.ceil(torch.log2(n.clamp(min=1).double()))
+    ops = float((2 ** logn / 2 * logn * (logn + 1) / 2 + 2 * n).sum())
+    return bound(nbytes, ops)
+
+
+def ring_pick_probes(shapes):
+    """Probe lines of the ring-pick kernel: at each named shape {name:
+    (windows, edge, surf, strict)} its labels against its plain version on
+    the same windows (bitwise), both timed by CUDA events, with the bound.
+    Returns {name: {windows, W, strict, equal, max_abs_err, ms, plain_ms,
+    bound_ms, bound_by}}; raises if the kernel and its plain version differ
+    anywhere."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.ops.features import (
+        ring_pick, ring_pick_reference)
+    out = {}
+    for name, (win, edge, surf, strict) in shapes.items():
+        got = ring_pick(win, edge, surf, strict)
+        torch.cuda.synchronize()
+        want = ring_pick_reference(win, edge, surf, strict)
+        err = int((got.int() - want.int()).abs().max())
+        ms = cuda_ms(lambda: ring_pick(win, edge, surf, strict), 20)
+        plain_ms = cuda_ms(lambda: ring_pick_reference(win, edge, surf,
+                                                       strict), 2)
+        b_ms, b_by = ring_pick_bound(win)
+        W = win["curv"].shape[-1]
+        out[name] = dict(windows=win["curv"].numel() // W, W=W,
+                         strict=strict, equal=torch.equal(got, want),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         corners=int((want == 1).sum()),
+                         surfs=int((want == -1).sum()))
+        print(f"probe ring_pick {name}: {out[name]}", flush=True)
+    bad = [n for n, r in out.items() if not r["equal"]]
+    if bad:
+        raise AssertionError(f"ring_pick kernel != its plain version: {bad}")
+    return out
+
+
 def localization_phase(dev):
     """Phase 7: the single-scan localization pipeline on the card at the
     reference's settings (default Params).  Returns (launches {wrapper:
@@ -743,9 +929,9 @@ def localization_phase(dev):
     from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
         SyntheticWorld, constant_twist_platform, simulate_scan)
     from feature_base_pointcloud_registration_tpu_torch.ops import (
-        fetch as tfetch)
+        features as tfeatures, fetch as tfetch)
     from feature_base_pointcloud_registration_tpu_torch.ops.features import (
-        extract_features, window_labels)
+        window_labels)
     from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
         gn_round)
     from feature_base_pointcloud_registration_tpu_torch.ops.projection import (
@@ -816,9 +1002,11 @@ def localization_phase(dev):
 
     scans = [scan_at(k * LOC_SPACING, seed=k) for k in range(n_scans)]
 
-    # ---- the main path, counted: ScanBuffer -> imu table -> step ----
+    # ---- the main path, counted: ScanBuffer -> imu table -> step; the
+    # picking's host syncs counted by the CUDA sync debug mode ----
     counted = {"block_fetch": tfetch.block_fetch,
-               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
+               "ring_pick": tfeatures.ring_pick}
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": True}
     checked_fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
@@ -826,8 +1014,10 @@ def localization_phase(dev):
     pipe = LocalizationPipeline(params, gm)
     pipe.pose = scans[0][1].copy()       # a map-frame initial guess
     buf = ScanBuffer()
-    inputs, ests, per_step, syncs, wall, iters = [], [], [], [], [], []
+    inputs, ests, per_step, wall, iters, pick_syncs = [], [], [], [], [], []
+    real_pick = tfeatures._pick
     tfetch.fetch_rows = checked_fetch_rows
+    tfeatures._pick = sync_counter(real_pick, pick_syncs)
     try:
         torch.cuda.synchronize()
         for w in counted.values():
@@ -850,19 +1040,18 @@ def localization_phase(dev):
             check["on"] = j < LOC_CHECKED
             before = {n: w.launches for n, w in counted.items()}
             n_calls = len(calls)
-            extract_features.host_syncs = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ests.append(pipe.step(out.scan, t_cur, dsk).copy())
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
-            syncs.append(extract_features.host_syncs)
             iters.append(int(pipe.last_result.iterations[0]))
             got = {n: w.launches - before[n] for n, w in counted.items()}
             per_step.append(got)
             ks = {c["K"] for c in calls[n_calls:]}
             if (got["block_fetch"] + got["resident_fetch"] != 6
-                    or got["gn_round"] or ks != {LOC_K}):
+                    or got["gn_round"] or got["ring_pick"] != 1
+                    or ks != {LOC_K}):
                 raise AssertionError(f"phase 7 step {j}: launches {got}, "
                                      f"K {ks}")
             if j == 5:
@@ -885,6 +1074,7 @@ def localization_phase(dev):
         launches = {n: w.launches for n, w in counted.items()}
     finally:
         tfetch.fetch_rows = real_fetch_rows
+        tfeatures._pick = real_pick
     print(f"phase 7 launches: {launches} over {len(inputs)} steps; per "
           f"step {per_step[0]}", flush=True)
     kinds = sorted({(c["kind"], c["W"], c["Q"]) for c in calls})
@@ -987,9 +1177,38 @@ def localization_phase(dev):
           f"events): frontend (strict + deskew) {split[0]:.2f} ms, crop "
           f"{split[1]:.2f} ms, tables {split[2]:.2f} ms, solve {split[3]:.2f}"
           f" ms", flush=True)
-    print(f"phase 7 host syncs in picking per step: mean "
-          f"{np.mean(syncs):.1f} min {min(syncs)} max {max(syncs)}",
-          flush=True)
+    print(f"phase 7 host syncs in picking per step (CUDA sync debug mode):"
+          f" mean {np.mean(pick_syncs):.1f} min {min(pick_syncs)} max "
+          f"{max(pick_syncs)} over {len(pick_syncs)} steps", flush=True)
+    if not (len(pick_syncs) == N_LOC and max(pick_syncs) == 0):
+        raise AssertionError(f"phase 7: host syncs in picking {pick_syncs}")
+    # the frontend's split and the step's wall time with the picking on the
+    # kernel and on its plain version (the parent's route), in turns
+    print_frontend_split("phase 7", frontend_split(
+        params, [(scans[j][0], inputs[j][1])
+                 for j in range(3, 3 + n_split)], dev))
+    saved = (pipe.pose.copy(), pipe.time_last_processing)
+    step_ab, step_diff = {"kernel": [], "plain": []}, 0.0
+    for route in ("kernel", "plain", "plain", "kernel"):
+        with picking_route(route):
+            for j in range(3, 3 + n_split):
+                t, dsk_cpu = inputs[j]
+                pipe.pose, pipe.time_last_processing = ests[j - 1].copy(), -1.0
+                raw_j = raw_of(scans[j][0], dev)
+                dsk = DeskewInfo(*(a.to(dev) for a in dsk_cpu))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                est_j = pipe.step(raw_j, t, dsk)
+                torch.cuda.synchronize()
+                step_ab[route].append((time.perf_counter() - t0) * 1e3)
+                step_diff = max(step_diff,
+                                float(np.abs(est_j - ests[j]).max()))
+    pipe.pose, pipe.time_last_processing = saved
+    print(f"time phase 7 step wall, steps 3-{2 + n_split} twice each in "
+          f"turns: picking on the kernel {np.mean(step_ab['kernel']):.2f} ms,"
+          f" on its plain version (the parent's route) "
+          f"{np.mean(step_ab['plain']):.2f} ms; poses vs the main run |diff|"
+          f" max {step_diff:.3e}", flush=True)
     # one more step, profiled: how much of it the device is busy
     t, dsk_cpu = inputs[-1]
     pipe.time_last_processing = -1.0
@@ -1127,7 +1346,8 @@ def lower_face_phase(dev):
 
     # ---- the step, counted; its fetches against their plain versions ----
     counted = {"block_fetch": tfetch.block_fetch,
-               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
+               "ring_pick": ring_pick_wrapper()}
     real_fetch_rows = tfetch.fetch_rows
     calls = []
     tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, {"on": True})
@@ -1322,13 +1542,15 @@ def dense_map_phase(dev, steps):
 
     # ---- the main path, counted; the fetches of steps 0-2 checked ----
     counted = {"block_fetch": tfetch.block_fetch,
-               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
+               "ring_pick": ring_pick_wrapper()}
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": True}
     pipe = LocalizationPipeline(params, gm)
     pipe.pose = steps[0][1].copy()
     ests, wall, its = [], [], []
-    want = {"block_fetch": 3, "resident_fetch": 3, "gn_round": 0}
+    want = {"block_fetch": 3, "resident_fetch": 3, "gn_round": 0,
+            "ring_pick": 1}
     tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
     try:
         torch.cuda.synchronize()
@@ -1628,7 +1850,8 @@ def slam_phase(dev):
 
     # ---- the main path, counted and timed ----
     counted = {"block_fetch": tfetch.block_fetch,
-               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
+               "ring_pick": ring_pick_wrapper()}
     real = {name: getattr(tslam, name) for name in (
         "process_scan", "grid_register_step", "optimize_pose_graph",
         "icp_align")}
@@ -1716,6 +1939,8 @@ def slam_phase(dev):
     if not (len(checked) == 6 * SLAM_CHECKED
             and all(c["equal"] for c in checked)):
         raise AssertionError("phase 8: a fetch kernel != its plain version")
+    print_frontend_split("phase 8", frontend_split(
+        params, [(s_, dsk) for s_, dsk, _, _ in scans[3:8]], dev))
     drops = [e for e in events if e["topic"] == "mapping/dropped_points"]
     by_cap = {}
     for e in drops:
@@ -2007,7 +2232,8 @@ def lio_phase(dev):
 
     # ---- the main path, counted and timed ----
     counted = {"block_fetch": tfetch.block_fetch,
-               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
+               "ring_pick": ring_pick_wrapper()}
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": False}
     checked_fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
@@ -2556,13 +2782,15 @@ def kitti_phase(dev):
         tslam.optimize_pose_graph = timer.wrap("graph",
                                                real["optimize_pose_graph"])
         tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
+        picks = ring_pick_wrapper()
         try:
             timer.sync()
-            for w in counted.values():
+            for w in (*counted.values(), picks):
                 w.launches = 0
             out = run_kitti_slam.main(slam_args + ["--scans", str(N_KITTI)])
             timer.sync()
             launches = {n_: w.launches for n_, w in counted.items()}
+            launches["ring_pick"] = picks.launches
         finally:
             tfetch.fetch_rows = real_fetch_rows
             for name, fn in real.items():
@@ -2688,7 +2916,8 @@ def multisession_phase(dev):
 
     # ---- the merge, counted: each link's fetches recorded ----
     counted = {"block_fetch": tfetch.block_fetch,
-               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round}
+               "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
+               "ring_pick": ring_pick_wrapper()}
     real_step = tregister.grid_register_step
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": False}
@@ -2889,7 +3118,8 @@ def sharded_phase(dev, bench):
               round1_surf_stride=R1S, round1_corner_stride=R1C)
     caps = dict(corner_cell_cap=CCAP, surf_cell_cap=SCAP)
     rounds = dict(num_rounds=2, iters_per_round=ITERS, num_candidates=K)
-    launches = {"block_fetch": 0, "resident_fetch": 0, "gn_round": 0}
+    launches = {"block_fetch": 0, "resident_fetch": 0, "gn_round": 0,
+                "ring_pick": 0}
     err = {}
 
     def same(a, b):
@@ -2913,10 +3143,11 @@ def sharded_phase(dev, bench):
             for name, (ct, st), want in (
                     ("raw", (ctab, stab), {"block_fetch": 4,
                                            "resident_fetch": 0,
-                                           "gn_round": 2}),
+                                           "gn_round": 2, "ring_pick": 0}),
                     ("resident", bench.rtabs[:2], {"block_fetch": 0,
                                                    "resident_fetch": 4,
-                                                   "gn_round": 2})):
+                                                   "gn_round": 2,
+                                                   "ring_pick": 0})):
                 ref = pbatch.batch_register_fused(f, ct, st, origin, g, **kw)
                 bench.zero_counts()
                 res, stats = pbatch.shard_register_tables(
@@ -2956,7 +3187,7 @@ def sharded_phase(dev, bench):
             res, stats = pms.map_sharded_register_tables(
                 mesh2, f, cts, sts, o1, g, grid_dims=d1, **caps, **rounds)
             count("11 (b)", {"block_fetch": 4, "resident_fetch": 0,
-                             "gn_round": 0})
+                             "gn_round": 0, "ring_pick": 0})
             eq, d = same(res, ref)
             print(f"phase 11 (b) map_sharded_register_tables, S=1: tables "
                   f"= build_map_planar_tables' {one}; bitwise {eq} (pose "
@@ -3090,7 +3321,7 @@ def main():
     from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
         SyntheticWorld, build_feature_map, simulate_scan)
     from feature_base_pointcloud_registration_tpu_torch.ops.features import (
-        extract_features)
+        _ring_windows, extract_features, ring_pick)
     from feature_base_pointcloud_registration_tpu_torch.ops.fetch import (
         PlanarTable, block_fetch, block_fetch_reference, resident_fetch,
         resident_fetch_reference)
@@ -3107,7 +3338,7 @@ def main():
         build_map_block_tables, build_map_planar_tables, feature_planes,
         fetch_queries, initial_state, presort_by_row)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
-        FeatureMap, RawScan)
+        DeskewInfo, FeatureMap, RawScan)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
         downsample_features)
 
@@ -3267,7 +3498,7 @@ def main():
 
     # ---- phase 3: the slice end to end, counted ----
     wrappers = {"block_fetch": block_fetch, "resident_fetch": resident_fetch,
-                "gn_round": gn_round}
+                "gn_round": gn_round, "ring_pick": ring_pick}
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -3298,7 +3529,7 @@ def main():
     finally:
         pbatch.gn_round = gn_round
     launches = read_counts(3, {"block_fetch": 4, "resident_fetch": 0,
-                               "gn_round": 2})
+                               "gn_round": 2, "ring_pick": 1})
     print(f"phase 3 gn launches per round: {per_round}", flush=True)
     if per_round != [1, 1]:
         raise AssertionError(f"GN launches per round {per_round}")
@@ -3368,14 +3599,16 @@ def main():
 
     # ---- phase 5: the main path on resident tables, counted ----
     zero_counts()
-    res5 = solve(feats3, tables(resident=True))
+    feats5 = frontend(raw)
+    res5 = solve(feats5, tables(resident=True))
     launches5 = read_counts(5, {"block_fetch": 0, "resident_fetch": 4,
-                                "gn_round": 2})
+                                "gn_round": 2, "ring_pick": 1})
     pose5 = res5.pose6.cpu().numpy()
     d5 = float(np.abs(pose5 - pose).max())
     ate5 = ate_oracle_of(pose5)
     print(f"phase 5: pose |diff| vs phase 3 max {d5}; n_converged "
-          f"{int(res5.converged.sum())}/{B} ate_vs_oracle_m {ate5}",
+          f"{int(res5.converged.sum())}/{B} ate_vs_oracle_m {ate5}; features"
+          f" bitwise phase 3's {all(map(torch.equal, feats5, feats3))}",
           flush=True)
     if not (np.isfinite(pose5).all() and d5 <= 1e-6):
         raise AssertionError(f"resident main path moved poses by {d5}")
@@ -3391,9 +3624,9 @@ def main():
             iters_per_round=ITERS, num_candidates=K)
 
     zero_counts()
-    res6 = solve_rounds(feats3, rtabs)
-    read_counts(6, {"block_fetch": 0, "resident_fetch": 4,
-                  "gn_round": 0})
+    res6 = solve_rounds(frontend(raw), rtabs)
+    launches6 = read_counts(6, {"block_fetch": 0, "resident_fetch": 4,
+                                "gn_round": 0, "ring_pick": 1})
     pose6 = res6.pose6.cpu().numpy()
     err6 = np.linalg.norm(pose6[:, 3:] - gt[:, 3:], axis=1)
     ate6_gt = float(np.sqrt((err6 ** 2).mean()))
@@ -3461,17 +3694,23 @@ def main():
               f"{cuda_ms(lambda: call(gn_args, ITERS), 10, True):.3f} ms",
               flush=True)
     t_front = cuda_ms(lambda: frontend(raw), 3)
+    with plain_picking():
+        t_front_plain = cuda_ms(lambda: frontend(raw), 2)
     t_tables = cuda_ms(tables, 3)
     t_solve = cuda_ms(lambda: solve(feats3, tabs), 5)
     t_solve5 = cuda_ms(lambda: solve(feats3, rtabs), 5)
     t_solve6 = cuda_ms(lambda: solve_rounds(feats3, rtabs), 1)
     t_e2e = cuda_ms(lambda: solve(frontend(raw), tables()), 3)
+    with plain_picking():
+        t_e2e_plain = cuda_ms(lambda: solve(frontend(raw), tables()), 2)
     print(f"time: frontend {t_front / B:.4f} ms/scan, tables {t_tables:.2f} "
           f"ms, solve {t_solve / B:.4f} ms/scan ({B * 1e3 / t_solve:.1f} "
           f"scans/s), e2e {B * 1e3 / t_e2e:.1f} scans/s (tables included); "
           f"phase 5 solve (resident tables) {t_solve5 / B:.4f} ms/scan, "
-          f"phase 6 solve (batch_register_pallas) {t_solve6 / B:.4f} ms/scan",
-          flush=True)
+          f"phase 6 solve (batch_register_pallas) {t_solve6 / B:.4f} ms/scan;"
+          f" frontend with the picking on its plain version (the parent's "
+          f"route) {t_front_plain / B:.4f} ms/scan, e2e "
+          f"{B * 1e3 / t_e2e_plain:.1f} scans/s", flush=True)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     other_k = {k: (stat, matP, fc, fs,
                    *(block_fetch(tq[0], *tq[1], K=k)[1]
@@ -3489,6 +3728,63 @@ def main():
                                               origin, 2.0, dims))
 
     loc_launches, loc_fetch, loc_err, loc_steps = localization_phase(dev)
+
+    # ---- the ring-pick kernel against its plain version, bitwise: (a)
+    # phase 7's VLP-16 scan (B=1, strict), (b) the bench batch (B=256,
+    # fast), (c) phase 10 (a)'s HDL-64 scans (B=3) and a dense 64-ring scan
+    # of the synthetic world (strict), (d) tests/pick_windows.py's windows
+    # (ties, flat runs, ramps, pre-suppressed points, uneven sectors, the
+    # first-20 cap, signed zeros), each a batch of windows ----
+    import pick_windows
+
+    from feature_base_pointcloud_registration_tpu_torch.io import kitti
+
+    def windows_of(p, raw_b, dsk=None):
+        return _ring_windows(project_scan(p, raw_b, dsk), p.n_scan,
+                             p.horizon_scan)
+
+    def stacked(ws):
+        return {k: torch.from_numpy(np.stack([np.asarray(w[k]) for w in ws]))
+                [None].to(dev) for k in ws[0]}
+
+    p7, hdl64 = Params(), Params(n_scan=64, horizon_scan=1800)
+    loc_scan, _, _, loc_dsk, _ = loc_steps[0]
+    vdir = os.path.join(REPO, "tests", "data", "kitti_mini",
+                        "velodyne_points", "data")
+    kitti_raw = RawScan(*(torch.stack(a) for a in zip(*(
+        kitti.load_scan(f, 1 << 17, device=dev)
+        for f in kitti.scan_files(vdir)))))
+    stride = stacked([pick_windows.stride_window(t)
+                      for t in range(pick_windows.N_STRIDE)])
+    shapes = {
+        "(a) phase 7 VLP-16 B=1 strict": (windows_of(
+            p7, raw_of(loc_scan, dev, batch=True),
+            DeskewInfo(*(a.to(dev) for a in loc_dsk))),
+            p7.edge_threshold, p7.surf_threshold, True),
+        "(b) bench B=256 fast": (windows_of(params, raw),
+                                 params.edge_threshold,
+                                 params.surf_threshold, False),
+        "(c) kitti_mini HDL-64 B=3 strict": (windows_of(
+            hdl64, kitti_raw), hdl64.edge_threshold, hdl64.surf_threshold,
+            True),
+        "(c) synthetic HDL-64 B=1 strict": (windows_of(
+            hdl64, raw_of(pick_windows.hdl64_scan(0), dev, batch=True)),
+            hdl64.edge_threshold, hdl64.surf_threshold, True)}
+    for strict in (True, False):
+        mode = "strict" if strict else "fast"
+        shapes.update({
+            f"(d) stream windows {mode}": (stacked(
+                pick_windows.stream_windows()), 1.0, 0.1, strict),
+            f"(d) stride windows {mode}": (stride, 0.05, 0.1, strict),
+            f"(d) stride windows, every slot a corner candidate {mode}": (
+                stride, -1.0, 0.1, strict),
+            f"(d) gap windows {mode}": (stacked(
+                [pick_windows.gap_window(t)
+                 for t in range(pick_windows.N_GAP)]), 1.0, 0.1, strict)})
+    rp = ring_pick_probes(shapes)
+    main_shape = rp["(b) bench B=256 fast"]
+    kt["ring_pick"] = (main_shape["ms"], main_shape["plain_ms"])
+    bounds["ring_pick"] = (main_shape["bound_ms"], main_shape["bound_by"])
     lf_launches, lf_err = lower_face_phase(dev)
     dense_launches, dense_err, dense_fetch = dense_map_phase(dev, loc_steps)
     slam_launches, slam_err = slam_phase(dev)
@@ -3550,6 +3846,17 @@ def main():
               tpu_kernel_line("pallas_fetch.py", "_resident_kernel"),
               launches5["resident_fetch"], res_err, "resident_surf",
               **localization("resident_fetch")),
+        entry("ring_pick", "ring_pick.cu",
+              tpu_kernel_line("features.py", "_ring_pick"),
+              launches["ring_pick"],
+              max(r["max_abs_err"] for r in rp.values()), "ring_pick",
+              launches_phase5=launches5["ring_pick"],
+              launches_phase6=launches6["ring_pick"],
+              probes={n: {k: r[k] for k in ("windows", "W", "strict", "ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by")}
+                      for n, r in rp.items()},
+              **localization("ring_pick")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

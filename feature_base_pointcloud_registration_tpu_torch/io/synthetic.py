@@ -149,8 +149,9 @@ class SyntheticWorld:
 def simulate_scan(world: SyntheticWorld, pose6, n_scan: int = 16,
                   horizon_scan: int = 1800, scan_period: float = 0.1,
                   noise: float = 0.0, seed: int = 0,
-                  spin_rpy_rate=None, vel_world=None):
-    """Ray-cast one VLP-16 scan from pose6 (sensor in world frame).
+                  spin_rpy_rate=None, vel_world=None, elev_deg=None):
+    """Ray-cast one VLP-16 scan from pose6 (sensor in world frame); another
+    lidar's scan with elev_deg, its n_scan ring elevations in degrees.
 
     Returns dict(xyz [N,3] sensor frame, intensity, ring, time, valid).
     If spin_rpy_rate (rad/s, [3]) is given, the sensor rotates during the
@@ -168,7 +169,8 @@ def simulate_scan(world: SyntheticWorld, pose6, n_scan: int = 16,
 
     az = np.tile(np.arange(horizon_scan) * (2 * np.pi / horizon_scan), n_scan)
     ring = np.repeat(np.arange(n_scan), horizon_scan).astype(np.int32)
-    elev = np.deg2rad(VLP16_ELEV_DEG)[ring]
+    elev = np.deg2rad(VLP16_ELEV_DEG if elev_deg is None
+                      else np.asarray(elev_deg, np.float64))[ring]
     rel_t = (az / (2 * np.pi) * scan_period).astype(np.float32)
 
     # sensor-frame ray directions at emission time

@@ -15,7 +15,8 @@ Importing this module builds nothing: the CPU tests import every module.
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns `cudaGetLastError()`; the launch
 helpers below raise when it is not 0.  Validation of shapes, dtypes and
-devices is the callers' (`ops/fetch.py`, `ops/gn_round.py`).
+devices is the callers' (`ops/fetch.py`, `ops/gn_round.py`,
+`ops/features.py`).
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ BLOCK_FETCH_MAX_W = 16000  # csrc/fetch_tile.cuh kMaxW: one row of 12*W bytes
                            # and a tile's results fit 227 KB of shared memory
 FETCH_TILE = 128          # queries per block of both fetch kernels
                           # (csrc/fetch_tile.cuh kTile)
+RING_PICK_MAX_W = 8192    # csrc/ring_pick.cu: a window's slots and sort
+                          # words (15 B a slot) fit 227 KB of shared memory
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -58,6 +61,9 @@ _SIGNATURES = {
     # min_plane_spread, stream
     "fbpr_gn_round": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                       _F, _I, _F, _P],
+    # curv, col, picked, sp, ep, sector_ok, n_windows, W, edge_threshold,
+    # surf_threshold, strict, label, stream
+    "fbpr_ring_pick": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _P, _P],
 }
 
 
@@ -209,3 +215,23 @@ def launch_gn_round(stat, matP, featc, feats, candc, cands, *, K: int,
             B, Pc, Ps, K, iters, min_corr, eig_thresh, conv_rot_deg,
             conv_trans_cm, jacobi_sweeps, min_plane_spread, _stream(stat))
     _check_rc("fbpr_gn_round", rc)
+
+
+def launch_ring_pick(curv, col, picked, sp, ep, sector_ok, label, *,
+                     edge_threshold: float, surf_threshold: float,
+                     strict: bool):
+    """csrc/ring_pick.cu on validated CUDA tensors (see ops/features.py);
+    writes label.  W up to RING_PICK_MAX_W, since a block holds its whole
+    window in shared memory."""
+    W = curv.shape[-1]
+    if W > RING_PICK_MAX_W:
+        raise ValueError(f"W={W}: the ring-pick kernel takes W up to "
+                         f"{RING_PICK_MAX_W}")
+    lib = library()
+    with torch.cuda.device(curv.device):
+        rc = lib.fbpr_ring_pick(
+            curv.data_ptr(), col.data_ptr(), picked.data_ptr(),
+            sp.data_ptr(), ep.data_ptr(), sector_ok.data_ptr(),
+            curv.numel() // max(W, 1), W, edge_threshold, surf_threshold,
+            int(strict), label.data_ptr(), _stream(curv))
+    _check_rc("fbpr_ring_pick", rc)

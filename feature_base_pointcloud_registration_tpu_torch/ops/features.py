@@ -23,15 +23,20 @@ reference's only cross-ring write (a pick at a ring's first sector slot
 marking the previous ring's last point, ref :236) lands outside every
 pickable range (the JAX package's module docstring has the argument).
 
-Where the JAX package vmaps `_ring_pick` over 16 ring lanes per scan, the port
-runs every ring of the batch as one [B, n_scan, W] tensor, so each MIS round
-costs one host sync (`any()`) for the whole batch.
+Where the JAX package vmaps `_ring_pick` over 16 ring lanes per scan and
+compiles its rounds into one device loop, the port's `ring_pick` launches
+the CUDA kernel `csrc/ring_pick.cu` on CUDA tensors: one block a ring window
+runs the reference's serial greedy in shared memory, so one launch picks
+every ring of a batch with no host sync.  On CPU tensors it runs its plain
+version, `ring_pick_reference`: the MIS rounds above on every ring of the
+batch as one [B, n_scan, W] tensor, one host sync (`any()`) a round.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..config import Params
 from ..pipeline.cloud_info import CloudInfo, ScanFeatures
 from .voxel import voxel_downsample
@@ -116,8 +121,8 @@ def _ring_windows(cloud: CloudInfo, n_scan: int, horizon_scan: int):
     sp = torch.div(s_idx * (6 - j) + e_idx * j, 6, rounding_mode="trunc")
     ep = torch.div(s_idx * (5 - j) + e_idx * (j + 1), 6,
                    rounding_mode="trunc") - 1
-    sp = sp - ws[..., None]
-    ep = ep - ws[..., None]
+    sp = (sp - ws[..., None]).to(torch.int32)
+    ep = (ep - ws[..., None]).to(torch.int32)
     return dict(
         curv=torch.where(ok, win[..., 0], 0.0),
         col=torch.where(ok, win[..., 1].to(torch.int32), -(10 ** 6)),
@@ -251,9 +256,12 @@ def _first20(pick, order):
     return torch.zeros_like(kept_o).scatter_(-1, order, kept_o)
 
 
-def _pick(win, edge_threshold, surf_threshold, strict, stride=True):
-    """Greedy feature picking on every ring window at once: (label [..., W]
-    int8: 1 corner, -1 surface pick, 0 neither; sector span [..., W]).
+def ring_pick_reference(win, edge_threshold, surf_threshold, strict,
+                        stride=True):
+    """The plain version of `ring_pick`: greedy feature picking on every
+    ring window at once as MIS rounds, label [..., W] int8 (1 corner, -1
+    surface pick, 0 neither).  One host sync a round, counted in
+    `extract_features.host_syncs`.
 
     strict (the reference's serialized stream, bit for bit): 6 sequential
     sector stages, each a corner pass (descending, capped at 20) then a
@@ -291,7 +299,78 @@ def _pick(win, edge_threshold, surf_threshold, strict, stride=True):
                     _beats(key, w_idx, same, descending=True), same)
         for j in range(6):
             label.masked_fill_(_first20(pick & (sec == j), order), 1)
-    return label, sec >= 0
+    return label
+
+
+def _check_windows(win):
+    """Dtypes, shapes, devices and contiguity `ring_pick` takes."""
+    curv = win["curv"]
+    want = {"curv": (torch.float32, curv.shape),
+            "col": (torch.int32, curv.shape),
+            "picked": (torch.bool, curv.shape),
+            "sp": (torch.int32, curv.shape[:-1] + (6,)),
+            "ep": (torch.int32, curv.shape[:-1] + (6,)),
+            "sector_ok": (torch.bool, curv.shape[:-1] + (6,))}
+    for name, (dtype, shape) in want.items():
+        t = win[name]
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != curv.device:
+            raise ValueError(f"{name} is on {t.device}, curv on "
+                             f"{curv.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ring_pick(win, edge_threshold, surf_threshold, strict, stride=True):
+    """Greedy feature picking on every ring window at once (the JAX
+    package's `_ring_pick`): label [..., W] int8, 1 corner, -1 surface
+    pick, 0 neither.
+
+    win: `_ring_windows`' curv f32, col i32, picked bool [..., W]; sp, ep
+    i32 and sector_ok bool [..., 6].  CPU tensors run the plain version
+    (`ring_pick_reference`; stride is its surf pass's fast-forward, which
+    changes no pick); CUDA tensors launch the kernel `csrc/ring_pick.cu`,
+    one block a window, W up to kernels.RING_PICK_MAX_W."""
+    _check_windows(win)
+    curv = win["curv"]
+    if curv.device.type == "cpu":
+        return ring_pick_reference(win, edge_threshold, surf_threshold,
+                                   strict, stride)
+    if curv.device.type != "cuda":
+        raise ValueError(f"unsupported device {curv.device}")
+    label = torch.empty(curv.shape, dtype=torch.int8, device=curv.device)
+    kernels.launch_ring_pick(
+        curv, win["col"], win["picked"], win["sp"], win["ep"],
+        win["sector_ok"], label, edge_threshold=edge_threshold,
+        surf_threshold=surf_threshold, strict=strict)
+    ring_pick.launches += 1
+    return label
+
+
+ring_pick.launches = 0
+
+
+def _sector_span(win):
+    """Slots inside a picked sector [..., W] (surface gathering covers every
+    non-skipped sector span, ref :279-284)."""
+    w_idx = torch.arange(win["curv"].shape[-1], device=win["curv"].device)
+    span = torch.zeros_like(win["picked"])
+    for j in range(6):
+        span |= (win["sector_ok"][..., j:j + 1]
+                 & (w_idx >= win["sp"][..., j:j + 1])
+                 & (w_idx <= win["ep"][..., j:j + 1]))
+    return span
+
+
+def _pick(win, edge_threshold, surf_threshold, strict, stride=True):
+    """Greedy feature picking on every ring window at once: (label [..., W]
+    int8 from `ring_pick`; sector span [..., W])."""
+    return (ring_pick(win, edge_threshold, surf_threshold, strict, stride),
+            _sector_span(win))
 
 
 def window_labels(params: Params, cloud: CloudInfo, strict: bool = True):
@@ -308,8 +387,9 @@ def extract_features(params: Params, cloud: CloudInfo,
                      strict: bool = True) -> ScanFeatures:
     """Feature extraction (laserCloudInfoHandler body, ref:
     src/featureExtraction.h:88-103) for a batch of clouds; strict=False
-    picks fast (see `_pick`).  Each MIS round is one host sync, counted in
-    `extract_features.host_syncs`."""
+    picks fast (see `ring_pick_reference`).  On CUDA tensors the picking is
+    one `ring_pick` launch; on CPU tensors each MIS round of its plain
+    version is one host sync, counted in `extract_features.host_syncs`."""
     n_scan = params.n_scan
     win, label, surf_span, _ = window_labels(params, cloud, strict)
     B = label.shape[0]

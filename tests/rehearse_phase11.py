@@ -112,7 +112,8 @@ def bench(cs):
 def rehearse_port(cs):
     import torch.distributed as dist
 
-    from feature_base_pointcloud_registration_tpu_torch.ops import fetch
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        features, fetch)
     from feature_base_pointcloud_registration_tpu_torch.parallel import (
         batch as pb, dryrun, map_sharded as pms)
 
@@ -149,7 +150,8 @@ def rehearse_port(cs):
     gloo_dryrun = dryrun.dryrun_multichip
     dryrun.dryrun_multichip = lambda n, backend="gloo": gloo_dryrun(n)
 
-    counts = {"block_fetch": 0, "resident_fetch": 0, "gn_round": 0}
+    counts = {"block_fetch": 0, "resident_fetch": 0, "gn_round": 0,
+              "ring_pick": 0}
 
     def counting(mod, name):
         real = getattr(mod, name)
@@ -162,6 +164,7 @@ def rehearse_port(cs):
     counting(fetch, "block_fetch")
     counting(fetch, "resident_fetch")
     counting(pb, "gn_round")
+    counting(features, "ring_pick")
 
     def zero_counts():
         for k in counts:

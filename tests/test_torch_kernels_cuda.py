@@ -1096,3 +1096,153 @@ def test_merged_shard_fetch_on_gpu(cuda):
                                 torch.stack([p[1] for p in ps]), 8)
                  for ps in (kern, plain))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---- the ring-pick kernel (csrc/ring_pick.cu) ----
+
+def _pick_cases():
+    """(name, window, (edge, surf)) of tests/pick_windows.py's windows, at
+    tests/test_torch_ring_pick.py's thresholds."""
+    import pick_windows
+    cases = [(f"stream-{t}", w, (1.0, 0.1))
+             for t, w in enumerate(pick_windows.stream_windows())]
+    for t in range(pick_windows.N_STRIDE):
+        w = pick_windows.stride_window(t)
+        cases += [(f"stride-{t}", w, (0.05, 0.1)),
+                  (f"ties-{t}", w, (-1.0, 0.1))]
+    cases += [(f"gap-{t}", pick_windows.gap_window(t), (1.0, 0.1))
+              for t in range(pick_windows.N_GAP)]
+    return cases
+
+
+def _assert_kernel_picks_as_plain(win, edge, surf, strict):
+    """The kernel's labels on CUDA windows bitwise the plain version's on
+    the same windows on the CPU; one launch."""
+    before = tfeat.ring_pick.launches
+    got = tfeat.ring_pick(win, edge, surf, strict)
+    torch.cuda.synchronize()
+    assert tfeat.ring_pick.launches == before + 1
+    want = tfeat.ring_pick_reference({k: v.cpu() for k, v in win.items()},
+                                     edge, surf, strict)
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False], ids=["strict", "fast"])
+def test_ring_pick_kernel_on_test_windows(cuda, strict):
+    for name, window, (edge, surf) in _pick_cases():
+        win = {k: torch.from_numpy(np.asarray(v))[None, None].to(cuda)
+               for k, v in window.items()}
+        _assert_kernel_picks_as_plain(win, edge, surf, strict)
+
+
+def _scan_windows(dev, which):
+    """(params, ring windows on dev) of a VLP-16 scan (B=1), the bench's
+    batch (B=256 scans of chip_smoke.py's setup) or a 64-ring scan."""
+    import pick_windows
+    params, world = Params(), SyntheticWorld()
+    if which == "vlp16":
+        scans = [simulate_scan(world, [0.02, -0.01, 0.3, 1.0, 2.0, 0.0],
+                               seed=0, noise=0.02)]
+    elif which == "bench":
+        rng = np.random.RandomState(0)
+        scans = [simulate_scan(world, [0, 0, rng.uniform(-1, 1),
+                                       rng.uniform(-6, 6), rng.uniform(-6, 6),
+                                       0.0], seed=i) for i in range(256)]
+    else:
+        params = Params(n_scan=64, horizon_scan=1800)
+        scans = [pick_windows.hdl64_scan(0)]
+    raw = cloud_info.RawScan(*(torch.from_numpy(np.stack(
+        [np.asarray(s[k]) for s in scans])).to(dev)
+        for k in ("xyz", "intensity", "ring", "time", "valid")))
+    cloud = tproj.project_scan(params, raw)
+    return params, tfeat._ring_windows(cloud, params.n_scan,
+                                       params.horizon_scan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,strict", [
+    ("vlp16", True), ("vlp16", False), ("bench", False), ("bench", True),
+    ("hdl64", True), ("hdl64", False)])
+def test_ring_pick_kernel_on_scans(cuda, which, strict):
+    params, win = _scan_windows(cuda, which)
+    want = _assert_kernel_picks_as_plain(win, params.edge_threshold,
+                                         params.surf_threshold, strict)
+    assert (want == 1).sum() > 100
+    assert win["curv"].shape[-1] == params.horizon_scan + 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False], ids=["strict", "fast"])
+def test_extract_features_picks_in_one_launch_without_syncs(
+        cuda, monkeypatch, strict):
+    """One extract_features call on the card launches the kernel once, and
+    its picking makes no host sync (the sync debug mode raises on one)."""
+    pick = tfeat._pick
+    calls = []
+
+    def no_sync_pick(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pick(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(1)
+        return out
+
+    params, raw, _ = _skewed_scan(cuda)
+    cloud = tproj.project_scan(params, raw)
+    monkeypatch.setattr(tfeat, "_pick", no_sync_pick)
+    before = (tfeat.ring_pick.launches, tfeat.extract_features.host_syncs)
+    feats = tfeat.extract_features(params, cloud, strict=strict)
+    torch.cuda.synchronize()
+    assert calls == [1]
+    assert (tfeat.ring_pick.launches,
+            tfeat.extract_features.host_syncs) == (before[0] + 1, before[1])
+    want = tfeat.extract_features(params, cloud_info.CloudInfo(
+        *(a.cpu() for a in cloud)), strict=strict)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(feats, want))
+
+
+@pytest.mark.cuda
+def test_ring_pick_rejects_what_the_kernel_does_not_take(cuda):
+    import pick_windows
+    window = pick_windows.stream_windows()[0]
+    win = {k: torch.from_numpy(np.asarray(v))[None, None].to(cuda)
+           for k, v in window.items()}
+    bad = [("curv", win["curv"].double(), TypeError),
+           ("col", win["col"].long(), TypeError),
+           ("picked", win["picked"].to(torch.uint8), TypeError),
+           ("sp", win["sp"].long(), TypeError),
+           ("sector_ok", win["sector_ok"].int(), TypeError),
+           ("col", win["col"][..., :-1], ValueError),
+           ("ep", win["ep"][..., :5], ValueError),
+           ("curv", torch.stack([win["curv"]] * 2, -1)[..., 0], ValueError),
+           ("sp", win["sp"].cpu(), ValueError)]
+    before = tfeat.ring_pick.launches
+    for name, t, error in bad:
+        with pytest.raises(error):
+            tfeat.ring_pick({**win, name: t}, 1.0, 0.1, True)
+    W = 8200                                          # over RING_PICK_MAX_W
+    wide = {"curv": torch.zeros(1, 1, W, device=cuda),
+            "col": torch.zeros(1, 1, W, dtype=torch.int32, device=cuda),
+            "picked": torch.zeros(1, 1, W, dtype=torch.bool, device=cuda),
+            "sp": torch.zeros(1, 1, 6, dtype=torch.int32, device=cuda),
+            "ep": torch.full((1, 1, 6), W - 1, dtype=torch.int32,
+                             device=cuda),
+            "sector_ok": torch.ones(1, 1, 6, dtype=torch.bool, device=cuda)}
+    with pytest.raises(ValueError):
+        tfeat.ring_pick(wide, 1.0, 0.1, True)
+    assert tfeat.ring_pick.launches == before
+    # the widest window it takes, one sector over all of it, runs
+    W = 8192
+    wide = {k: v[..., :W] if v.shape[-1] == 8200 else v
+            for k, v in wide.items()}
+    wide["curv"] = torch.rand(1, 1, W, generator=torch.Generator(
+        cuda).manual_seed(0), device=cuda) * 2
+    wide["ep"] = torch.full_like(wide["ep"], W - 1)
+    wide["sector_ok"][..., 1:] = False
+    _assert_kernel_picks_as_plain({k: v.contiguous() for k, v in
+                                   wide.items()}, 1.0, 0.1, True)

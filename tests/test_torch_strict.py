@@ -12,7 +12,8 @@ for bit in the JAX package, and the port's must give the same picks.
     serial NumPy oracle's (tests/oracle.py) as index sets;
   * the reference-stream ring data of tests/test_features.py (random
     curvature with exact ties and flat runs, pre-suppressed points, uneven
-    sectors): labels equal JAX `_ring_pick(strict=True)`;
+    sectors; tests/pick_windows.py): labels equal JAX
+    `_ring_pick(strict=True)`;
   * the stride-6 fast-forward is a pure acceleration: with and without it
     the labels are equal (and equal JAX's) on flat runs, ramps and ties.
 
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 import oracle
+import pick_windows
 from feature_base_pointcloud_registration_tpu.config import Params
 from feature_base_pointcloud_registration_tpu.io.synthetic import (
     SyntheticWorld, simulate_scan)
@@ -108,23 +110,6 @@ def test_strict_labels_multi_ring(seed):
     assert len(got_corner) > 100
 
 
-def _stream_window(trial, rng):
-    """tests/test_features.py::test_strict_pick_equals_reference_stream's
-    ring data for `trial` (rng advanced in the same order)."""
-    W = 512
-    curv = (rng.uniform(0, 1, W) ** 4 * 30).astype(np.float32)
-    curv[rng.uniform(0, 1, W) < 0.3] = 0.0
-    col = np.sort(rng.randint(0, 1800, W)).astype(np.int32)
-    picked0 = rng.uniform(0, 1, W) < 0.1
-    start, end = 5 + trial, W - 8 - trial * 29
-    sp = np.array([(start * (6 - j) + end * j) // 6 for j in range(6)],
-                  np.int32)
-    ep = np.array([(start * (5 - j) + end * (j + 1)) // 6 - 1
-                   for j in range(6)], np.int32)
-    return dict(curv=curv, col=col, picked=picked0, sp=sp, ep=ep,
-                sector_ok=sp < ep)
-
-
 # the picking alone (its inputs are the curvatures, so jit changes nothing)
 _jax_ring_pick = jax.jit(functools.partial(
     jfeat._ring_pick, sector_cap=304, edge_threshold=1.0, surf_threshold=0.1,
@@ -143,45 +128,19 @@ def _pick_both(window, stride=True):
 
 @pytest.fixture(scope="module")
 def stream_windows():
-    rng = np.random.RandomState(23)
-    return [_stream_window(t, rng) for t in range(8)]
+    return pick_windows.stream_windows()
 
 
-@pytest.mark.parametrize("trial", range(8))
+@pytest.mark.parametrize("trial", range(pick_windows.N_STREAM))
 def test_strict_pick_reference_stream(stream_windows, trial):
     got, want = _pick_both(stream_windows[trial])
     np.testing.assert_array_equal(got, want)
     assert (got == 1).any() and (got == -1).any()
 
 
-def _stride_window(trial):
-    """tests/test_features.py::test_mis_stride_fastforward_equivalence's
-    adversarial key patterns: flat runs, ramps, random ties."""
-    W = 384
-    rng = np.random.RandomState(77 + trial)
-    kind = trial % 3
-    if kind == 0:
-        curv = np.zeros(W, np.float32)
-        bump = rng.uniform(0, 1, W) < 0.05
-        curv[bump] = rng.uniform(0, 0.09, bump.sum())
-    elif kind == 1:
-        curv = (np.abs(np.sin(np.linspace(0, 6, W))) * 0.09).astype(
-            np.float32)
-        curv[rng.uniform(0, 1, W) < 0.2] = 0.0
-    else:
-        curv = (rng.uniform(0, 1, W) ** 3 * 0.3).astype(np.float32)
-        curv[rng.uniform(0, 1, W) < 0.4] = 0.0
-    return dict(curv=curv,
-                col=np.sort(rng.randint(0, 1800, W)).astype(np.int32),
-                picked=rng.uniform(0, 1, W) < 0.05 * (trial % 4),
-                sp=np.array([0, 64, 128, 192, 256, 320], np.int32),
-                ep=np.array([63, 127, 191, 255, 319, W - 1], np.int32),
-                sector_ok=np.ones(6, bool))
-
-
-@pytest.mark.parametrize("trial", range(6))
+@pytest.mark.parametrize("trial", range(pick_windows.N_STRIDE))
 def test_mis_stride_on_off_equal(trial):
-    window = _stride_window(trial)
+    window = pick_windows.stride_window(trial)
     on, want = _pick_both(window, stride=True)
     off, _ = _pick_both(window, stride=False)
     np.testing.assert_array_equal(on, off)

@@ -34,7 +34,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            <= 1e-3 m;
   phase 6  the frontend and the rounds-structured solver
            batch_register_pallas on the resident tables, counted: 1
-           ring_pick, 4 resident fetches, 0 GN rounds; ATE
+           ring_pick, 4 resident fetches, 0 GN rounds, 2 rounds_gn (one a
+           round); ATE
            against the oracle <= 1e-3 m; batch_register_blocks (plain fetch,
            same solver) on the first 32 scans within 1e-4 of it;
   timing   CUDA events (a GN call through a replayed CUDA graph of its
@@ -74,7 +75,9 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            make_deskew_info (OdomQueue's increment) and
            LocalizationPipeline.step, counted: 1 ring_pick and 6 fetches
            of K=16 a step (resident_fetch or block_fetch by table kind), 0
-           GN rounds, 0 host syncs in picking (the CUDA sync debug mode); the
+           GN rounds, 3 rounds_gn (one a round), 0 host syncs in picking
+           and in the solve (register_rounds_core; the CUDA sync debug
+           mode; the solve of steps 0-2 also checks its fetches); the
            fetches of steps 0-2 bitwise equal to their plain versions;
            steps 0-2 within 1e-4 of the same steps on the CPU; strict picks
            of scans 0-2 equal to the oracle's, scan 0's deskewed points
@@ -84,6 +87,9 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            stages; the frontend's split (projection + deskew, ring
            windows, picking, voxel thinning) and the step's time with the
            picking on the kernel and on its plain version in turns; the
+           step's time, split and solve syncs with the rounds solver's
+           iterations on rounds_gn and on the parent's loop
+           (rounds_gn_reference) in turns; the
            ring-pick kernel bitwise against its plain version, timed
            beside it and its bound, at (a) this phase's scan (B=1,
            strict), (b) phase 3's batch (B=256, fast), (c) the HDL-64
@@ -110,7 +116,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            passes the 10 MiB resident cap, so the surf table stays raw
            (W 512, ~683 MB) and block_fetch runs at K=16 on the path;
            counted: 3 block_fetch and 3 resident_fetch (the compact corner
-           table) a step, 0 GN rounds; the fetches of steps 0-2 bitwise
+           table) a step, 0 GN rounds, 3 rounds_gn; the fetches of steps
+           0-2 bitwise
            their plain versions; steps 0-2 within 1e-3 of the CPU, and
            within 1e-4 with collinear 5-NN plane fits rejected (on the
            lattice the rank gate passes some on rounding noise); max
@@ -119,15 +126,25 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            profiled step, the table kinds, rows and bytes, the K=16 W=512
            fetch beside its bound and plain version, ptxas of its
            instance; `launches_raw_step` and `raw_step` in the kernels
-           line;
+           line; then `probe rounds_gn` lines: the rounds kernel against
+           its plain version on the card (rounds_gn_reference, the port's
+           loop body) at (a) phase 7 step 0's round 0 (B=1, K=16), (b)
+           phase 6's round 0 (B=256, K=8), (c) phase 7 (h) step 0's round
+           0, (d) tests/rounds_scenes.py's edge lanes at K 8 and 16 (a
+           gated-off lane, a lane under min_corr, the degenerate tiny
+           problem, sentinel picks near the world origin, min_plane_spread
+           0.05 at K 16): pose and matP within 1e-5 on lanes whose flags,
+           iterations and n_corr agree, a degenerate lane's pose within
+           1e-3, agreement on >= 95% of lanes of a batch (a flip printed
+           at any B), each timed beside its plain version and its bound;
   phase 8  the SLAM back end: SlamPipeline at its default capacities with
            loop closure on (default Params), 60 scans 0.7 s apart around a
            3 m circle that closes after 41.9 s, skewed by the motion,
            deskewed and guessed from the IMU alone (no odometry), counted:
-           6 fetches of K=16 a registration step, 0 GN rounds; the fetches
-           of the first 3 registration steps bitwise equal to their plain
-           versions; steps 0-3 within 1e-4 of the same steps on the CPU;
-           register_scan_with_params on those steps' local maps and
+           6 fetches of K=16 and 3 rounds_gn a registration step, 0 GN
+           rounds; the fetches of the first 3 registration steps bitwise
+           equal to their plain versions; steps 0-3 within 1e-4 of the same
+           steps on the CPU; register_scan_with_params on those steps' local maps and
            guesses within 3e-3 m / rad of grid_register_step; >= 1 loop
            closure accepted (ICP fitness < 0.3), the full graph solved;
            relative displacements within 0.12 m and ATE < 0.1 m of the
@@ -149,7 +166,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            skewed by the motion) and a 1 Hz ENU GPS stream (the truth under
            a 0.6 rad yaw offset, 0.05 m noise) through EkfGps and
            NavsatTransform into SlamPipeline.add_gps, counted: 6 fetches
-           of K=16 a registration step, 0 GN rounds; the fetches of the
+           of K=16 and 3 rounds_gn a registration step, 0 GN rounds; the
+           fetches of the
            first 3 registration steps bitwise equal to their plain
            versions; steps 0-3 and the IMU-rate odometry up to them within
            1e-4 of the same run on the CPU; >= 2 IMU window resets through
@@ -170,7 +188,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            examples/run_kitti_slam.py on the drive io/kitti_drive
            generates (40 motion-skewed VLP-16 scans, radius 4 m, 1.5 m/s,
            0.1 s) with --gps --navsat --pose-cov-threshold 0, counted: 6
-           K=16 fetches a registration step, 0 GN rounds, the first 3
+           K=16 fetches and 3 rounds_gn a registration step, 0 GN rounds,
+           the first 3
            steps' fetches bitwise; ATE against the oxts track < 0.2 m and
            the GPS factors the CPU rehearsal gives (0); the step time and
            its split; (c) examples/run_kitti.py's pair alignment (FPFH +
@@ -180,7 +199,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            the chained ATE beside standing still's, ms a pair and its
            split; (d) examples/run_multisession.py:
            two 10-scan SLAM sessions, merge_sessions(coarse=False,
-           link_radius=8, link_stride=1) counted (6 K=16 fetches a link, the
+           link_radius=8, link_stride=1) counted (6 K=16 fetches and 3
+           rounds_gn a link, the
            first 2 links' fetches bitwise; each link's fetch kinds and its
            queries near the grid's lower faces), >= 2 links, the merged map
            saved and loaded, a held-out scan localized within 0.06 m, the
@@ -198,7 +218,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            same inputs, n_total 256, timed beside it; (b)
            map_sharded_register_tables on a one-rank ("data", "map") mesh
            with build_sharded_block_tables(S=1), whose table must be
-           build_map_planar_tables', counted (4 block_fetch), bitwise
+           build_map_planar_tables', counted (4 block_fetch, 2 rounds_gn),
+           bitwise
            equal to batch_register_pallas on those tables; (c) four
            striped shards' block_fetch calls on phase 1's round-1 surf
            queries merged by merge_topk: bitwise equal to the plain
@@ -206,7 +227,9 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            replicated table's printed); (d) batch_register_rounds (the
            octant-sentinel fetch) and batch_register_fast_grid (packed
            1 m tables, cap 48) at B=256 and batch_register_fast (the
-           streamed prefetch, chunk 1024) at B=32, plain PyTorch: ATE
+           streamed prefetch, chunk 1024) at B=32, plain PyTorch but
+           batch_register_rounds' rounds on rounds_gn (counted: 2; timed
+           too with them on the parent's loop): ATE
            against the oracle (<= 1e-3 m; both prefetch solves <= 4e-3 m,
            the bound of tests/test_register.py) and each oracle scan's
            error, ms a scan of one call by CUDA events, peak memory, the
@@ -269,6 +292,13 @@ FETCH_OPS_PER_SLOT = 9
 # version (ops/gn_round.py) at K=8: transform 18, d2 64, 5-of-K selection
 # 120, J row and J*J^T 120, plus the fit (line ~270, Householder plane ~560)
 GN_OPS_PER_POINT = {"corner": 600, "surf": 900}
+# rounds_gn against its plain version on the card: pose (m / rad) and matP
+# on every lane whose flags, iterations and n_corr agree; a degenerate lane
+# (float32 eigenvectors of a near-degenerate JtJ turn) within ROUNDS_DEG_TOL
+# (rounds_probe: where the plain version misses these against itself on
+# the CPU, the kernel is held to that spread)
+ROUNDS_TOL = 1e-5
+ROUNDS_DEG_TOL = 1e-3
 N_LOC = 20               # phase 7: localization steps
 LOC_SPACING = 0.2        # s between scans (constant_twist_platform)
 LOC_CHECKED = 3          # steps held against the plain fetch and the CPU
@@ -344,6 +374,17 @@ def tpu_kernel_line(file_name, kernel):
                 if line.startswith(f"def {kernel}("):
                     return f"{os.path.relpath(path, REPO)}:{n}"
     raise FileNotFoundError(f"{kernel} in */ops/{file_name}")
+
+
+def xla_loop_line(file_name, text):
+    """'path:line' in this checkout of the first line of */ops/<file_name>
+    that holds `text`: the JAX device loop a kernel replaces."""
+    for path in sorted(glob.glob(os.path.join(REPO, "*", "ops", file_name))):
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                if text in line:
+                    return f"{os.path.relpath(path, REPO)}:{n}"
+    raise FileNotFoundError(f"{text} in */ops/{file_name}")
 
 
 def print_ptxas(src, log, only=None):
@@ -507,7 +548,8 @@ def bound(nbytes, ops):
 
 def gn_bound(args, stat_out, K):
     """(bound_ms, bound_by, floor_ms) of one GN round on args = (stat,
-    matP, featc, feats, candc, cands) that ended at stat_out: read once,
+    matP, featc, feats, candc, cands), or rounds_gn's (the same and the d2
+    planes cd2, sd2, read for live points), that ended at stat_out: read once,
     the mask of every point and the xyz and candidates of each live one (a
     dead point's add nothing, so the kernel never reads them), stat/matP
     read and written; operations for the lane-iterations this run's data
@@ -522,7 +564,8 @@ def gn_bound(args, stat_out, K):
     n_live = float(sum(n.sum() for n in live.values()))
     ops = sum(float((lane_iters * n).sum()) * GN_OPS_PER_POINT[kind]
               for kind, n in live.items())
-    ms, by = bound(B * n_pts * 4 + n_live * (3 + 3 * K) * 4
+    per_live = 3 + 3 * K + (K if len(args) == 8 else 0)   # rounds_gn: d2
+    ms, by = bound(B * n_pts * 4 + n_live * per_live * 4
                    + B * (16 + 36) * 4 * 2, ops)
     streamed = float((lane_iters * (live["corner"] + live["surf"])).sum())
     return ms, by, streamed * (16 + 12 * K) / HBM_BYTES_PER_S * 1e3
@@ -697,13 +740,13 @@ def raw_of(s, device, batch=False):
 def step_split(params, gm, runs):
     """Mean device ms of a localization step's stages (frontend, crop,
     tables, solve; CUDA events) over runs = [(scan, deskew table,
-    previous pose)] on gm's device, the step's calls made one by one."""
+    previous pose)] on gm's device, the step's calls made one by one:
+    tables is grid_register_step up to its register_rounds_core call,
+    solve that call."""
     import torch
 
-    from feature_base_pointcloud_registration_tpu_torch.ops.register import (
-        grid_register_step)
-    from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
-        build_map_planar_tables)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        register as treg)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
         DeskewInfo)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
@@ -713,12 +756,18 @@ def step_split(params, gm, runs):
 
     dev = gm.surf_xyz.device
     he, rhe = params.local_map_half_extent, params.register_grid_half_extent
+    real_solve = treg.register_rounds_core
     split = np.zeros(4)
     for s, dsk_cpu, prev in runs:
         raw = raw_of(s, dev, batch=True)
         dsk = DeskewInfo(*(a.to(dev) for a in dsk_cpu))
         guess = torch.from_numpy(prev[None]).to(dev)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+
+        def solve(*a, **kw):
+            ev[3].record()
+            return real_solve(*a, **kw)
+
         torch.cuda.synchronize()
         ev[0].record()
         _, feats = process_scan(params, raw, dsk)
@@ -729,14 +778,14 @@ def step_split(params, gm, runs):
                                   map_corner_cap=params.map_corner_cap,
                                   map_surf_cap=params.map_surf_cap)
         ev[2].record()
-        build_map_planar_tables(lmap, guess[0, 3:6], rhe, resident=True,
-                                lower_pad=True)
-        ev[3].record()
-        grid_register_step(lmap, feats, guess, half_extent=rhe)
+        treg.register_rounds_core = solve
+        try:
+            treg.grid_register_step(lmap, feats, guess, half_extent=rhe)
+        finally:
+            treg.register_rounds_core = real_solve
         ev[4].record()
         torch.cuda.synchronize()
-        e = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
-        split += [e[0], e[1], e[2], e[3] - e[2]]
+        split += [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
     return split / len(runs)
 
 
@@ -764,6 +813,199 @@ def ring_pick_wrapper():
 
 def picking_route(route):
     return plain_picking() if route == "plain" else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def plain_rounds():
+    """Inside the block the rounds solver's iterations run their plain
+    version on any device (ops/rounds_gn.py::rounds_gn_reference: the
+    port's loop body, driven from the host with one sync an iteration, the
+    route before the rounds_gn kernel), so one call times the kernel
+    against the parent's route."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        register as treg, rounds_gn as trounds)
+    kernel = treg.rounds_gn
+    treg.rounds_gn = trounds.rounds_gn_reference
+    try:
+        yield
+    finally:
+        treg.rounds_gn = kernel
+
+
+def rounds_route(route):
+    return plain_rounds() if route == "plain" else contextlib.nullcontext()
+
+
+def rounds_gn_wrapper():
+    """ops/rounds_gn.py's rounds_gn, whose `launches` the phases count."""
+    from feature_base_pointcloud_registration_tpu_torch.ops.rounds_gn import (
+        rounds_gn)
+    return rounds_gn
+
+
+# the inputs of the first rounds_gn calls of a phase ({phase: [(args,
+# kw), ...]}), kept for the rounds_gn probes
+ROUNDS_INPUTS = {}
+
+
+def record_rounds(name, n=1):
+    """From now on the first n calls of the rounds solver's round (the name
+    register_rounds_core calls) keep a copy of their inputs in
+    ROUNDS_INPUTS[name].  Returns the function that undoes it."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        register as treg)
+    real = treg.rounds_gn
+    kept = ROUNDS_INPUTS.setdefault(name, [])
+
+    def recorded(*a, **kw):
+        if len(kept) < n:
+            kept.append(([t.clone() for t in a], dict(kw)))
+        return real(*a, **kw)
+
+    treg.rounds_gn = recorded
+    return lambda: setattr(treg, "rounds_gn", real)
+
+
+def rounds_agreement(sa, sb):
+    """(lanes whose flags, iterations and n_corr agree [B] bool, pose
+    |diff| [B]) of two rounds_gn results."""
+    same = ((sa[:, 6] == sb[:, 6]) & (sa[:, 10] == sb[:, 10])
+            & (sa[:, 7] == sb[:, 7]) & (sa[:, 8] == sb[:, 8]))
+    return same, (sa[:, :6] - sb[:, :6]).abs().max(1).values
+
+
+def rounds_fma_build():
+    """A build of csrc/rounds_gn.cu with FMA contraction (the shipped one
+    has none: kernels.SOURCE_FLAGS), loaded for probe (b)."""
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    shipped = dict(kernels.SOURCE_FLAGS)
+    kernels.SOURCE_FLAGS.pop("rounds_gn", None)
+    try:
+        so = kernels._build([kernels.CSRC / "rounds_gn.cu"])[0]
+    finally:
+        kernels.SOURCE_FLAGS.update(shipped)
+    return kernels.load(so)
+
+
+def rounds_probe(name, args, kw, fma_lib=None):
+    """One `probe rounds_gn` line: the kernel against its plain version
+    (rounds_gn_reference, run on the card) on the same packed inputs, both
+    timed by CUDA events, with the bound, and the plain version on the CPU
+    beside them (the plain version's own spread across devices).
+
+    Lanes whose flags, iterations and n_corr agree are held to ROUNDS_TOL
+    in pose and matP, degenerate ones to ROUNDS_DEG_TOL in pose; the
+    others ("flips": a lane across a gate) must be fewer than 1 -
+    GN_EQUAL_LANES of a batch of 20 lanes or more, and are printed with
+    their size at any B.  Where the plain version itself does not hold
+    those bounds against its CPU run on the same inputs (its gates flip on
+    rounding noise), the kernel is held to that spread instead: pose on
+    agreeing lanes within twice the plain version's, and agreeing lanes
+    no fewer than its share less 0.02.  fma_lib: a build with FMA
+    contraction, printed beside.  Returns the probe's record; raises where
+    it fails."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.ops.rounds_gn import (
+        rounds_gn, rounds_gn_reference)
+    K = kw["K"]
+    sk, mk = rounds_gn(*args, **kw)
+    torch.cuda.synchronize()
+    sr, mr = rounds_gn_reference(*args, **kw)
+    sc = rounds_gn_reference(*(t.cpu() for t in args), **kw)[0].to(sr)
+    B = sk.shape[0]
+    same, dpose = rounds_agreement(sk, sr)
+    deg = sr[:, 8] > 0
+    dmat = (mk - mr).abs().max(1).values
+    plain = same & ~deg
+
+    def worst(d, m):
+        return float(d[m].max()) if bool(m.any()) else 0.0
+
+    err, err_m = worst(dpose, plain), worst(dmat, plain)
+    err_deg = worst(dpose, same & deg)
+    same_c, dpose_c = rounds_agreement(sr, sc)
+    err_c = worst(dpose_c, same_c & ~deg)
+    eq, eq_c = float(same.float().mean()), float(same_c.float().mean())
+    floor = err_c > ROUNDS_TOL or (B >= 20 and eq_c < GN_EQUAL_LANES)
+    tol = max(ROUNDS_TOL, 2.0 * err_c) if floor else ROUNDS_TOL
+    eq_min = min(GN_EQUAL_LANES, eq_c - 0.02) if floor else GN_EQUAL_LANES
+    flips = torch.nonzero(~same)[:, 0].tolist()
+    ms = cuda_ms(lambda: rounds_gn(*args, **kw), 20, graph=True)
+    plain_ms = cuda_ms(lambda: rounds_gn_reference(*args, **kw), 2)
+    b_ms, b_by, _ = gn_bound(args, sr, K)
+    its = (sr[:, 6] - args[0][:, 6]).long()
+    rec = dict(B=B, K=K, Pc=args[2].shape[2], Ps=args[3].shape[2],
+               iters=kw["iters"], spread=kw.get("min_plane_spread", 0.0),
+               lane_iterations=int(its.sum()),
+               max_iterations=int(its.max()), degenerate=int(deg.sum()),
+               equal_lanes=eq, flips=len(flips), max_abs_err=err,
+               matP_err=err_m, degenerate_err=err_deg,
+               plain_card_vs_cpu_err=err_c, plain_card_vs_cpu_equal=eq_c,
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"probe rounds_gn {name}: B={B} K={K} Pc={rec['Pc']} "
+          f"Ps={rec['Ps']} spread {rec['spread']}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}, "
+          f"{b_ms / ms:.2%} of it); lane-iterations "
+          f"{rec['lane_iterations']} (max {rec['max_iterations']}); pose "
+          f"|diff| max {err:.3e} on {int(plain.sum())} agreeing lanes, "
+          f"matP {err_m:.3e}; degenerate lanes {rec['degenerate']}, pose "
+          f"|diff| {err_deg:.3e}; iterations, n_corr and flags equal on "
+          f"{eq:.4f} of lanes; the plain version on the card against it "
+          f"on the CPU: equal on {eq_c:.4f}, pose |diff| max {err_c:.3e} "
+          f"on agreeing lanes, {float(dpose_c.max()):.3e} on all; held to "
+          f"{tol:.3e} and {eq_min:.4f}", flush=True)
+    if fma_lib is not None:
+        sf = [t.clone() for t in args[:2]]
+        kernels.launch_rounds_gn(*sf, *args[2:], lib=fma_lib, **kw)
+        same_f, dpose_f = rounds_agreement(sf[0], sr)
+        print(f"probe rounds_gn {name}, the build with FMA contraction: "
+              f"equal on {float(same_f.float().mean()):.4f}, pose |diff| "
+              f"max {worst(dpose_f, same_f & ~deg):.3e} on agreeing lanes, "
+              f"{float(dpose_f.max()):.3e} on all", flush=True)
+    for b in flips:
+        print(f"probe rounds_gn {name}: FLIP lane {b}: iterations "
+              f"{int(sk[b, 6])} vs {int(sr[b, 6])}, n_corr {int(sk[b, 10])} "
+              f"vs {int(sr[b, 10])}, converged {int(sk[b, 7])} vs "
+              f"{int(sr[b, 7])}, degenerate {int(sk[b, 8])} vs "
+              f"{int(sr[b, 8])}, pose |diff| {float(dpose[b]):.3e}",
+              flush=True)
+    if not (err <= tol and err_m <= ROUNDS_TOL
+            and err_deg <= ROUNDS_DEG_TOL):
+        raise AssertionError(f"rounds_gn {name}: pose {err} (held to "
+                             f"{tol}), matP {err_m}, degenerate pose "
+                             f"{err_deg}")
+    if B >= 20 and not eq >= eq_min:
+        raise AssertionError(f"rounds_gn {name}: lanes agree on {eq} "
+                             f"(held to {eq_min})")
+    return rec
+
+
+def rounds_probes(dev):
+    """The probe lines of rounds_gn: (a) phase 7 step 0's round 0, (b)
+    phase 6's rounds 0 and 1 (B=256), (c) phase 7 (h) step 0's round 0,
+    (d) tests/rounds_scenes.py's edge lanes at K 8 and 16 (a gated-off
+    lane, a lane under min_corr, the degenerate tiny problem, sentinel
+    picks near the world origin; min_plane_spread 0.05 at K 16).  Returns
+    {name: record}."""
+    import rounds_scenes as rs
+    fma = rounds_fma_build()
+    out = {}
+    for name, key, r in (("(a) phase 7 step 0 round 0", "phase 7", 0),
+                         ("(b) phase 6 round 0", "phase 6", 0),
+                         ("(b) phase 6 round 1", "phase 6", 1),
+                         ("(c) phase 7 (h) step 0 round 0", "phase 7 (h)",
+                          0)):
+        args, kw = ROUNDS_INPUTS[key][r]
+        out[name] = rounds_probe(name, args, kw,
+                                 fma if key == "phase 6" else None)
+    for K, spread in ((8, 0.0), (16, 0.05)):
+        args = rs.packed(rs.edge_lanes(K), K, dev)
+        out[f"(d) edge lanes K={K}"] = rounds_probe(
+            f"(d) edge lanes K={K}", args,
+            dict(K=K, iters=10, min_plane_spread=spread))
+    return out
 
 
 def sync_counter(fn, counts):
@@ -937,7 +1179,7 @@ def localization_phase(dev):
     from feature_base_pointcloud_registration_tpu_torch.ops.projection import (
         project_scan)
     from feature_base_pointcloud_registration_tpu_torch.ops import (
-        hashgrid as th)
+        hashgrid as th, register as treg)
     from feature_base_pointcloud_registration_tpu_torch.ops.register import (
         grid_register_step, register_rounds_core, world_components)
     from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
@@ -1006,7 +1248,8 @@ def localization_phase(dev):
     # picking's host syncs counted by the CUDA sync debug mode ----
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
-               "ring_pick": tfeatures.ring_pick}
+               "ring_pick": tfeatures.ring_pick,
+               "rounds_gn": rounds_gn_wrapper()}
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": True}
     checked_fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
@@ -1015,9 +1258,13 @@ def localization_phase(dev):
     pipe.pose = scans[0][1].copy()       # a map-frame initial guess
     buf = ScanBuffer()
     inputs, ests, per_step, wall, iters, pick_syncs = [], [], [], [], [], []
+    solve_syncs = []
     real_pick = tfeatures._pick
+    real_solve = treg.register_rounds_core
     tfetch.fetch_rows = checked_fetch_rows
     tfeatures._pick = sync_counter(real_pick, pick_syncs)
+    treg.register_rounds_core = sync_counter(real_solve, solve_syncs)
+    unrecord = record_rounds("phase 7")
     try:
         torch.cuda.synchronize()
         for w in counted.values():
@@ -1051,7 +1298,7 @@ def localization_phase(dev):
             ks = {c["K"] for c in calls[n_calls:]}
             if (got["block_fetch"] + got["resident_fetch"] != 6
                     or got["gn_round"] or got["ring_pick"] != 1
-                    or ks != {LOC_K}):
+                    or got["rounds_gn"] != 3 or ks != {LOC_K}):
                 raise AssertionError(f"phase 7 step {j}: launches {got}, "
                                      f"K {ks}")
             if j == 5:
@@ -1075,6 +1322,8 @@ def localization_phase(dev):
     finally:
         tfetch.fetch_rows = real_fetch_rows
         tfeatures._pick = real_pick
+        treg.register_rounds_core = real_solve
+        unrecord()
     print(f"phase 7 launches: {launches} over {len(inputs)} steps; per "
           f"step {per_step[0]}", flush=True)
     kinds = sorted({(c["kind"], c["W"], c["Q"]) for c in calls})
@@ -1182,6 +1431,16 @@ def localization_phase(dev):
           f"{max(pick_syncs)} over {len(pick_syncs)} steps", flush=True)
     if not (len(pick_syncs) == N_LOC and max(pick_syncs) == 0):
         raise AssertionError(f"phase 7: host syncs in picking {pick_syncs}")
+    # steps 0-2 compare their fetches with the plain versions inside the
+    # solve, which syncs: the solve's own syncs are those of the others
+    print(f"phase 7 host syncs in the solve (register_rounds_core) per step "
+          f"(CUDA sync debug mode), steps {LOC_CHECKED}-{N_LOC - 1}: "
+          f"{solve_syncs[LOC_CHECKED:]}; steps 0-{LOC_CHECKED - 1} (fetches "
+          f"checked): {solve_syncs[:LOC_CHECKED]}", flush=True)
+    if not (len(solve_syncs) == N_LOC
+            and max(solve_syncs[LOC_CHECKED:]) == 0):
+        raise AssertionError(f"phase 7: host syncs in the solve "
+                             f"{solve_syncs}")
     # the frontend's split and the step's wall time with the picking on the
     # kernel and on its plain version (the parent's route), in turns
     print_frontend_split("phase 7", frontend_split(
@@ -1209,6 +1468,50 @@ def localization_phase(dev):
           f" on its plain version (the parent's route) "
           f"{np.mean(step_ab['plain']):.2f} ms; poses vs the main run |diff|"
           f" max {step_diff:.3e}", flush=True)
+    # the step's wall time and split and its solve's host syncs with the
+    # rounds solver's iterations on the kernel and on the parent's loop
+    # (rounds_gn_reference), in turns
+    runs = [(scans[j][0], inputs[j][1], ests[j - 1])
+            for j in range(3, 3 + n_split)]
+    solve_ab = {r: {"wall": [], "split": [], "syncs": [], "diff": 0.0}
+                for r in ("kernel", "plain")}
+    for route in ("kernel", "plain", "plain", "kernel"):
+        ab = solve_ab[route]
+        with rounds_route(route):
+            ab["split"].append(step_split(params, gm, runs))
+            treg.register_rounds_core = sync_counter(real_solve, ab["syncs"])
+            try:
+                for j in range(3, 3 + n_split):
+                    t, dsk_cpu = inputs[j]
+                    pipe.pose = ests[j - 1].copy()
+                    pipe.time_last_processing = -1.0
+                    raw_j = raw_of(scans[j][0], dev)
+                    dsk = DeskewInfo(*(a.to(dev) for a in dsk_cpu))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    est_j = pipe.step(raw_j, t, dsk)
+                    torch.cuda.synchronize()
+                    ab["wall"].append((time.perf_counter() - t0) * 1e3)
+                    ab["diff"] = max(ab["diff"],
+                                     float(np.abs(est_j - ests[j]).max()))
+            finally:
+                treg.register_rounds_core = real_solve
+    pipe.pose, pipe.time_last_processing = saved
+    for route, name in (("kernel", "the rounds_gn kernel"),
+                        ("plain", "the parent's loop (rounds_gn_reference)")):
+        ab = solve_ab[route]
+        sp = np.mean(ab["split"], axis=0)
+        print(f"time phase 7 step, steps 3-{2 + n_split} twice each in turns,"
+              f" the solve's iterations on {name}: wall "
+              f"{np.mean(ab['wall']):.2f} ms (min {np.min(ab['wall']):.2f}, "
+              f"max {np.max(ab['wall']):.2f}); split (CUDA events) frontend "
+              f"{sp[0]:.2f} ms, crop {sp[1]:.2f} ms, tables {sp[2]:.2f} ms, "
+              f"solve {sp[3]:.2f} ms; host syncs in the solve a step mean "
+              f"{np.mean(ab['syncs']):.1f} min {min(ab['syncs'])} max "
+              f"{max(ab['syncs'])}; poses vs the main run |diff| max "
+              f"{ab['diff']:.3e}", flush=True)
+    if max(solve_ab["kernel"]["syncs"]) != 0:
+        raise AssertionError("phase 7: host syncs in the kernel's solve")
     # one more step, profiled: how much of it the device is busy
     t, dsk_cpu = inputs[-1]
     pipe.time_last_processing = -1.0
@@ -1347,7 +1650,8 @@ def lower_face_phase(dev):
     # ---- the step, counted; its fetches against their plain versions ----
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
-               "ring_pick": ring_pick_wrapper()}
+               "ring_pick": ring_pick_wrapper(),
+               "rounds_gn": rounds_gn_wrapper()}
     real_fetch_rows = tfetch.fetch_rows
     calls = []
     tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, {"on": True})
@@ -1365,7 +1669,8 @@ def lower_face_phase(dev):
           f"{sum(c['equal'] for c in checked)}/{len(checked)} bitwise equal"
           f" to their plain versions, max_abs_err {fetch_err}", flush=True)
     if not (launches["block_fetch"] + launches["resident_fetch"] == 6
-            and launches["gn_round"] == 0 and len(checked) == 6
+            and launches["gn_round"] == 0 and launches["rounds_gn"] == 3
+            and len(checked) == 6
             and all(c["equal"] for c in checked)):
         raise AssertionError("phase 7 (g): the step's fetches")
 
@@ -1543,15 +1848,17 @@ def dense_map_phase(dev, steps):
     # ---- the main path, counted; the fetches of steps 0-2 checked ----
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
-               "ring_pick": ring_pick_wrapper()}
+               "ring_pick": ring_pick_wrapper(),
+               "rounds_gn": rounds_gn_wrapper()}
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": True}
     pipe = LocalizationPipeline(params, gm)
     pipe.pose = steps[0][1].copy()
     ests, wall, its = [], [], []
     want = {"block_fetch": 3, "resident_fetch": 3, "gn_round": 0,
-            "ring_pick": 1}
+            "ring_pick": 1, "rounds_gn": 3}
     tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
+    unrecord = record_rounds("phase 7 (h)")
     try:
         torch.cuda.synchronize()
         for w in counted.values():
@@ -1579,6 +1886,7 @@ def dense_map_phase(dev, steps):
         launches = {n: w.launches for n, w in counted.items()}
     finally:
         tfetch.fetch_rows = real_fetch_rows
+        unrecord()
     tabs = sorted({(c["kind"], c["W"], c["rows"], c["bytes"])
                    for c in calls})
     print(f"phase 7 (h) launches: {launches} over {len(steps)} steps; fetch "
@@ -1851,7 +2159,8 @@ def slam_phase(dev):
     # ---- the main path, counted and timed ----
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
-               "ring_pick": ring_pick_wrapper()}
+               "ring_pick": ring_pick_wrapper(),
+               "rounds_gn": rounds_gn_wrapper()}
     real = {name: getattr(tslam, name) for name in (
         "process_scan", "grid_register_step", "optimize_pose_graph",
         "icp_align")}
@@ -1906,7 +2215,8 @@ def slam_phase(dev):
             ks = {c["K"] for c in calls[n_calls:]}
             want = 0 if k == 0 else 6
             if (got["block_fetch"] + got["resident_fetch"] != want
-                    or got["gn_round"] or (want and ks != {LOC_K})):
+                    or got["gn_round"] or got["rounds_gn"] != want // 2
+                    or (want and ks != {LOC_K})):
                 raise AssertionError(f"phase 8 step {k}: launches {got}, "
                                      f"K {ks}")
             registered += k > 0
@@ -2233,7 +2543,8 @@ def lio_phase(dev):
     # ---- the main path, counted and timed ----
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
-               "ring_pick": ring_pick_wrapper()}
+               "ring_pick": ring_pick_wrapper(),
+               "rounds_gn": rounds_gn_wrapper()}
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": False}
     checked_fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
@@ -2340,7 +2651,8 @@ def lio_phase(dev):
             per_step.append(got)
             want = 6 if kf_before else 0
             if (got["block_fetch"] + got["resident_fetch"] != want
-                    or got["gn_round"] or (want and ks != {LOC_K})):
+                    or got["gn_round"] or got["rounds_gn"] != want // 2
+                    or (want and ks != {LOC_K})):
                 raise AssertionError(f"phase 9 step {len(ests)}: launches "
                                      f"{got}, K {ks}")
             registered += want > 0
@@ -2760,7 +3072,7 @@ def kitti_phase(dev):
         run_kitti_slam.main(slam_args + ["--scans", "3"])
         counted = {"block_fetch": tfetch.block_fetch,
                    "resident_fetch": tfetch.resident_fetch,
-                   "gn_round": gn_round}
+                   "gn_round": gn_round, "rounds_gn": rounds_gn_wrapper()}
         real = {name: getattr(tslam, name) for name in (
             "process_scan", "grid_register_step", "optimize_pose_graph")}
         real_fetch_rows = tfetch.fetch_rows
@@ -2805,7 +3117,8 @@ def kitti_phase(dev):
               f"{out['counts']}); ATE vs oxts {out['ate']:.4f} m (bound "
               f"{KITTI_ATE_BOUND})", flush=True)
         if any(r != {"block_fetch": r["block_fetch"],
-                     "resident_fetch": r["resident_fetch"], "gn_round": 0}
+                     "resident_fetch": r["resident_fetch"], "gn_round": 0,
+                     "rounds_gn": 3}
                or r["block_fetch"] + r["resident_fetch"] != 6
                for r in per_reg) or len(per_reg) != N_KITTI - 1:
             raise AssertionError(f"phase 10 (b): launches {per_reg}")
@@ -2917,7 +3230,8 @@ def multisession_phase(dev):
     # ---- the merge, counted: each link's fetches recorded ----
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
-               "ring_pick": ring_pick_wrapper()}
+               "ring_pick": ring_pick_wrapper(),
+               "rounds_gn": rounds_gn_wrapper()}
     real_step = tregister.grid_register_step
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": False}
@@ -2979,7 +3293,8 @@ def multisession_phase(dev):
             and all(c["equal"] for c in checked)):
         raise AssertionError("phase 10 (d): a fetch kernel != its plain "
                              "version")
-    if any(lk["launches"]["gn_round"] or lk["launches"]["block_fetch"]
+    if any(lk["launches"]["gn_round"] or lk["launches"]["rounds_gn"] != 3
+           or lk["launches"]["block_fetch"]
            + lk["launches"]["resident_fetch"] != 6 for lk in links):
         raise AssertionError(f"phase 10 (d): launches {links}")
     if len(res.links) < 2:
@@ -3119,7 +3434,7 @@ def sharded_phase(dev, bench):
     caps = dict(corner_cell_cap=CCAP, surf_cell_cap=SCAP)
     rounds = dict(num_rounds=2, iters_per_round=ITERS, num_candidates=K)
     launches = {"block_fetch": 0, "resident_fetch": 0, "gn_round": 0,
-                "ring_pick": 0}
+                "ring_pick": 0, "rounds_gn": 0}
     err = {}
 
     def same(a, b):
@@ -3143,11 +3458,13 @@ def sharded_phase(dev, bench):
             for name, (ct, st), want in (
                     ("raw", (ctab, stab), {"block_fetch": 4,
                                            "resident_fetch": 0,
-                                           "gn_round": 2, "ring_pick": 0}),
+                                           "gn_round": 2, "ring_pick": 0,
+                                           "rounds_gn": 0}),
                     ("resident", bench.rtabs[:2], {"block_fetch": 0,
                                                    "resident_fetch": 4,
                                                    "gn_round": 2,
-                                                   "ring_pick": 0})):
+                                                   "ring_pick": 0,
+                                                   "rounds_gn": 0})):
                 ref = pbatch.batch_register_fused(f, ct, st, origin, g, **kw)
                 bench.zero_counts()
                 res, stats = pbatch.shard_register_tables(
@@ -3187,7 +3504,7 @@ def sharded_phase(dev, bench):
             res, stats = pms.map_sharded_register_tables(
                 mesh2, f, cts, sts, o1, g, grid_dims=d1, **caps, **rounds)
             count("11 (b)", {"block_fetch": 4, "resident_fetch": 0,
-                             "gn_round": 0, "ring_pick": 0})
+                             "gn_round": 0, "ring_pick": 0, "rounds_gn": 2})
             eq, d = same(res, ref)
             print(f"phase 11 (b) map_sharded_register_tables, S=1: tables "
                   f"= build_map_planar_tables' {one}; bitwise {eq} (pose "
@@ -3253,7 +3570,7 @@ def sharded_phase(dev, bench):
     print(f"phase 11 (d) packed 1 m tables cap {FAST_GRID_CAP}: dims "
           f"{dims1}, grid_overflow {ovf}", flush=True)
     for name, (fn, n, budget) in solvers.items():
-        torch.cuda.synchronize()
+        bench.zero_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -3262,6 +3579,18 @@ def sharded_phase(dev, bench):
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end)
+        count(f"11 (d) {name}", {
+            "block_fetch": 0, "resident_fetch": 0, "gn_round": 0,
+            "ring_pick": 0,
+            "rounds_gn": 2 if name == "batch_register_rounds" else 0})
+        if name == "batch_register_rounds":
+            ms_k = cuda_ms(fn, 2)
+            with plain_rounds():
+                ms_p = cuda_ms(fn, 1)
+            print(f"time phase 11 (d) {name}: {ms_k / n:.4f} ms/scan with "
+                  f"the rounds on the rounds_gn kernel, {ms_p / n:.4f} "
+                  f"ms/scan on the parent's loop (rounds_gn_reference)",
+                  flush=True)
         pose = res.pose6.cpu().numpy()
         if not (np.isfinite(pose).all() and pose.shape == (n, 6)):
             raise AssertionError(f"phase 11 (d) {name}: poses")
@@ -3498,7 +3827,8 @@ def main():
 
     # ---- phase 3: the slice end to end, counted ----
     wrappers = {"block_fetch": block_fetch, "resident_fetch": resident_fetch,
-                "gn_round": gn_round, "ring_pick": ring_pick}
+                "gn_round": gn_round, "ring_pick": ring_pick,
+                "rounds_gn": rounds_gn_wrapper()}
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -3529,7 +3859,8 @@ def main():
     finally:
         pbatch.gn_round = gn_round
     launches = read_counts(3, {"block_fetch": 4, "resident_fetch": 0,
-                               "gn_round": 2, "ring_pick": 1})
+                               "gn_round": 2, "ring_pick": 1,
+                               "rounds_gn": 0})
     print(f"phase 3 gn launches per round: {per_round}", flush=True)
     if per_round != [1, 1]:
         raise AssertionError(f"GN launches per round {per_round}")
@@ -3602,7 +3933,8 @@ def main():
     feats5 = frontend(raw)
     res5 = solve(feats5, tables(resident=True))
     launches5 = read_counts(5, {"block_fetch": 0, "resident_fetch": 4,
-                                "gn_round": 2, "ring_pick": 1})
+                                "gn_round": 2, "ring_pick": 1,
+                                "rounds_gn": 0})
     pose5 = res5.pose6.cpu().numpy()
     d5 = float(np.abs(pose5 - pose).max())
     ate5 = ate_oracle_of(pose5)
@@ -3624,9 +3956,14 @@ def main():
             iters_per_round=ITERS, num_candidates=K)
 
     zero_counts()
-    res6 = solve_rounds(frontend(raw), rtabs)
+    unrecord = record_rounds("phase 6", n=2)
+    try:
+        res6 = solve_rounds(frontend(raw), rtabs)
+    finally:
+        unrecord()
     launches6 = read_counts(6, {"block_fetch": 0, "resident_fetch": 4,
-                                "gn_round": 0, "ring_pick": 1})
+                                "gn_round": 0, "ring_pick": 1,
+                                "rounds_gn": 2})
     pose6 = res6.pose6.cpu().numpy()
     err6 = np.linalg.norm(pose6[:, 3:] - gt[:, 3:], axis=1)
     ate6_gt = float(np.sqrt((err6 ** 2).mean()))
@@ -3699,7 +4036,9 @@ def main():
     t_tables = cuda_ms(tables, 3)
     t_solve = cuda_ms(lambda: solve(feats3, tabs), 5)
     t_solve5 = cuda_ms(lambda: solve(feats3, rtabs), 5)
-    t_solve6 = cuda_ms(lambda: solve_rounds(feats3, rtabs), 1)
+    t_solve6 = cuda_ms(lambda: solve_rounds(feats3, rtabs), 3)
+    with plain_rounds():
+        t_solve6_plain = cuda_ms(lambda: solve_rounds(feats3, rtabs), 1)
     t_e2e = cuda_ms(lambda: solve(frontend(raw), tables()), 3)
     with plain_picking():
         t_e2e_plain = cuda_ms(lambda: solve(frontend(raw), tables()), 2)
@@ -3707,7 +4046,8 @@ def main():
           f"ms, solve {t_solve / B:.4f} ms/scan ({B * 1e3 / t_solve:.1f} "
           f"scans/s), e2e {B * 1e3 / t_e2e:.1f} scans/s (tables included); "
           f"phase 5 solve (resident tables) {t_solve5 / B:.4f} ms/scan, "
-          f"phase 6 solve (batch_register_pallas) {t_solve6 / B:.4f} ms/scan;"
+          f"phase 6 solve (batch_register_pallas) {t_solve6 / B:.4f} ms/scan"
+          f" ({t_solve6_plain / B:.4f} with the rounds on the parent's loop);"
           f" frontend with the picking on its plain version (the parent's "
           f"route) {t_front_plain / B:.4f} ms/scan, e2e "
           f"{B * 1e3 / t_e2e_plain:.1f} scans/s", flush=True)
@@ -3787,6 +4127,10 @@ def main():
     bounds["ring_pick"] = (main_shape["bound_ms"], main_shape["bound_by"])
     lf_launches, lf_err = lower_face_phase(dev)
     dense_launches, dense_err, dense_fetch = dense_map_phase(dev, loc_steps)
+    rp_rounds = rounds_probes(dev)
+    main_rounds = rp_rounds["(a) phase 7 step 0 round 0"]
+    kt["rounds_gn"] = (main_rounds["ms"], main_rounds["plain_ms"])
+    bounds["rounds_gn"] = (main_rounds["bound_ms"], main_rounds["bound_by"])
     slam_launches, slam_err = slam_phase(dev)
     lio_launches, lio_err = lio_phase(dev)
     kitti_launches, kitti_err = kitti_phase(dev)
@@ -3857,6 +4201,19 @@ def main():
                                             "bound_by")}
                       for n, r in rp.items()},
               **localization("ring_pick")),
+        entry("rounds_gn", "rounds_gn.cu",
+              xla_loop_line("register.py", "lax.while_loop(iter_cond"),
+              loc_launches["rounds_gn"],
+              max(r["max_abs_err"] for r in rp_rounds.values()), "rounds_gn",
+              max_abs_err_degenerate=max(r["degenerate_err"]
+                                         for r in rp_rounds.values()),
+              launches_phase6=launches6["rounds_gn"],
+              probes={n: {k: r[k] for k in (
+                  "B", "K", "Pc", "Ps", "lane_iterations", "equal_lanes",
+                  "flips", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "max_abs_err", "plain_card_vs_cpu_err")}
+                      for n, r in rp_rounds.items()},
+              **localization("rounds_gn")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,14 +9,15 @@ the nvcc processes of all sources run at once):
 
 The build runs at first use, into `build/` beside the package (the file name
 carries a hash of the flags, the source and the `csrc/` headers it
-includes, so an edited source or header rebuilds).
+includes, so an edited source or header rebuilds).  `SOURCE_FLAGS` adds a
+source's own flags (rounds_gn.cu: no FMA contraction).
 Importing this module builds nothing: the CPU tests import every module.
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns `cudaGetLastError()`; the launch
 helpers below raise when it is not 0.  Validation of shapes, dtypes and
 devices is the callers' (`ops/fetch.py`, `ops/gn_round.py`,
-`ops/features.py`).
+`ops/rounds_gn.py`, `ops/features.py`).
 """
 
 from __future__ import annotations
@@ -46,6 +47,11 @@ RING_PICK_MAX_W = 8192    # csrc/ring_pick.cu: a window's slots and sort
                           # words (15 B a slot) fit 227 KB of shared memory
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Flags of one source on top of NVCC_FLAGS.  rounds_gn.cu stands for the
+# port's plain-PyTorch loop body, whose operations round one by one, and
+# is held to it within 1e-5: its multiply-adds are not contracted into
+# FMAs (chip_smoke.py's probe (b) prints the FMA build beside it).
+SOURCE_FLAGS = {"rounds_gn": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +67,11 @@ _SIGNATURES = {
     # min_plane_spread, stream
     "fbpr_gn_round": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                       _F, _I, _F, _P],
+    # stat, matP, featc, feats, candc, cands, cd2, sd2, B, Pc, Ps, K, iters,
+    # min_corr, eig_thresh, conv_rot_deg, conv_trans_cm, min_plane_spread,
+    # stream
+    "fbpr_rounds_gn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _P],
     # curv, col, picked, sp, ep, sector_ok, n_windows, W, edge_threshold,
     # surf_threshold, strict, label, stream
     "fbpr_ring_pick": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _P, _P],
@@ -90,7 +101,8 @@ def _build(sources) -> list:
     returns their paths (existing ones are reused)."""
     jobs, sos = [], []
     for src in sources:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        flags = [*NVCC_FLAGS, *SOURCE_FLAGS.get(src.stem, [])]
+        h = hashlib.sha256(" ".join(flags).encode())
         for path in (src, *_local_includes(src)):
             h.update(path.read_bytes())
         so = BUILD_DIR / f"libfbpr_{src.stem}-{h.hexdigest()[:16]}.so"
@@ -100,7 +112,7 @@ def _build(sources) -> list:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [_nvcc(), *flags, "-o", tmp, str(src)]
         jobs.append((so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -215,6 +227,29 @@ def launch_gn_round(stat, matP, featc, feats, candc, cands, *, K: int,
             B, Pc, Ps, K, iters, min_corr, eig_thresh, conv_rot_deg,
             conv_trans_cm, jacobi_sweeps, min_plane_spread, _stream(stat))
     _check_rc("fbpr_gn_round", rc)
+
+
+def launch_rounds_gn(stat, matP, featc, feats, candc, cands, cd2, sd2, *,
+                     K: int, iters: int, min_corr: int, eig_thresh: float,
+                     conv_rot_deg: float, conv_trans_cm: float,
+                     min_plane_spread: float,
+                     lib: SimpleNamespace | None = None):
+    """csrc/rounds_gn.cu on validated CUDA tensors (see ops/rounds_gn.py);
+    updates stat and matP in place.  lib: another build of the same entry
+    point (`load`), for comparisons of builds; by default the shipped
+    one."""
+    _check_k(K)
+    lib = lib or library()
+    B, _, Pc = featc.shape
+    Ps = feats.shape[2]
+    with torch.cuda.device(stat.device):
+        rc = lib.fbpr_rounds_gn(
+            stat.data_ptr(), matP.data_ptr(), featc.data_ptr(),
+            feats.data_ptr(), candc.data_ptr(), cands.data_ptr(),
+            cd2.data_ptr(), sd2.data_ptr(), B, Pc, Ps, K, iters, min_corr,
+            eig_thresh, conv_rot_deg, conv_trans_cm, min_plane_spread,
+            _stream(stat))
+    _check_rc("fbpr_rounds_gn", rc)
 
 
 def launch_ring_pick(curv, col, picked, sp, ep, sector_ok, label, *,

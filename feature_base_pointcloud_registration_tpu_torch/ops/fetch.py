@@ -324,15 +324,21 @@ def make_pallas_block_knn(table_planar, origin, cell_size, *, dims, cell_cap,
     table that of ops.hashgrid.make_oct_sentinel_knn (the same d2 and real
     candidates; a pick with no candidate, d2 3e38, carries FAR there and
     FAR or, on the sentinel row, zero here).  cell_cap is the JAX
-    signature's; the width comes with the table."""
+    signature's; the width comes with the table.  `f.planes(q)` is the
+    same fetch with the candidates plane-major ([3k, Q], the layout
+    `ops.rounds_gn.rounds_gn` reads)."""
     del cell_cap
     lower_pad = lower_pad_of(table_planar, dims)
 
-    def f(q):
+    def fetch(q, planes_out):
         bcell = block_cell_of(q, origin, cell_size, dims=dims,
                               lower_pad=lower_pad)
         return fetch_rows(table_planar, bcell,
                           *[q[:, i].contiguous() for i in range(3)], K=k,
-                          planes_out=False)
+                          planes_out=planes_out)
 
+    def f(q):
+        return fetch(q, False)
+
+    f.planes = lambda q: fetch(q, True)
     return f

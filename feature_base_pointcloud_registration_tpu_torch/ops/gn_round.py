@@ -42,6 +42,32 @@ _BIG = 3.0e38
 _PI = 3.14159265358979
 
 
+def feature_planes(xyz, mask):
+    """[B,P,3] + [B,P] -> [B,4,P] rows (x, y, z, mask), the GN layout."""
+    return torch.cat([xyz.transpose(1, 2), mask[:, None, :].to(xyz.dtype)],
+                     dim=1).contiguous()
+
+
+def initial_state(features, init_poses, *, edge_min_valid: int = 10,
+                  surf_min_valid: int = 100):
+    """(stat [B,16], matP [B,36]) of ScanFeatures [B, ...] at init_poses
+    [B, 6] before round 0: the pose, the feature gate (ref:
+    edgeFeatureMinValidNum / surfFeatureMinValidNum) and an identity
+    projector."""
+    B = features.corner_xyz.shape[0]
+    dev = features.corner_xyz.device
+    n_edge = features.corner_mask.sum(1)
+    n_surf = features.surf_mask.sum(1)
+    stat = torch.zeros(B, STAT, dtype=torch.float32, device=dev)
+    stat[:, 0:6] = torch.as_tensor(init_poses, dtype=torch.float32,
+                                   device=dev)
+    stat[:, 9] = ((n_edge > edge_min_valid)
+                  & (n_surf > surf_min_valid)).to(torch.float32)
+    matP = torch.eye(6, dtype=torch.float32, device=dev).reshape(
+        1, 36).repeat(B, 1)
+    return stat, matP
+
+
 def _check(stat, matP, featc, feats, candc, cands, K):
     if K < 5:
         raise ValueError(f"K={K}: the 5-of-K selection needs K >= 5")

@@ -32,7 +32,9 @@ from .correspondence import (corner_correspondence,
                              surf_correspondence_cand)
 from .hashgrid import (default_grid_spec, grid_origin,
                        grid_overflow_fraction, make_packed_grid_knn)
+from .gn_round import feature_planes, initial_state
 from .knn import _extract_topk, _rows, knn, make_local_knn
+from .rounds_gn import rounds_gn
 from .solver import GNState, gn_step
 
 
@@ -414,6 +416,70 @@ def register_scan_fast_grid(features, local_map, corner_grid_table,
         converge_trans_cm=converge_trans_cm)
 
 
+def round_iterations(corner_xyz, corner_mask, corner_nn, corner_valid,
+                     surf_xyz, surf_mask, surf_nn, surf_valid, state, it,
+                     gate, *, iters: int, min_correspondences: int,
+                     eigen_threshold: float, converge_rot_deg: float,
+                     converge_trans_cm: float, min_plane_spread: float):
+    """One round's GN iterations of `register_rounds_core`, driven from the
+    host: the plain version of the kernel `csrc/rounds_gn.cu`
+    (`ops/rounds_gn.py::rounds_gn_reference` runs it).
+
+    corner_xyz [B, Pc, 3], corner_mask [B, Pc]; corner_nn [B*Pc, K, 3] and
+    corner_valid [B*Pc, K] the round's candidates (the surf ones alike);
+    state: GNState [B]; it [B] iterations before the round; gate [B] the
+    feature-count gate.  Per lane, as the JAX package's while-loop: up to
+    `iters` iterations, ending at convergence or at once for a gated-off
+    lane; the degeneracy projector taken at the lane's iteration 0.  Lanes
+    that have stopped are frozen with `torch.where`, and the loop ends as
+    soon as no lane is active (the same results as running the whole
+    budget masked, with fewer steps).  Returns (state, iterations run
+    [B])."""
+    B, Pc, _ = corner_xyz.shape
+    Ps = surf_xyz.shape[1]
+    pts_all = torch.cat([corner_xyz, surf_xyz], dim=1)
+    cmask = corner_mask.reshape(B * Pc)
+    smask = surf_mask.reshape(B * Ps)
+    done = torch.zeros(B, dtype=torch.int32, device=gate.device)
+    for _ in range(iters):
+        active = gate & ~state.converged
+        if not bool(active.any()):
+            break
+        c_coeff, c_resid, c_mask = corner_correspondence_cand(
+            _to_world(state.pose6, corner_xyz), cmask, corner_nn,
+            corner_valid)
+        s_coeff, s_resid, s_mask = surf_correspondence_cand(
+            _to_world(state.pose6, surf_xyz), smask, surf_nn, surf_valid,
+            min_plane_spread=min_plane_spread)
+        new = gn_step(
+            state, pts_all,
+            torch.cat([c_coeff.view(B, Pc, 3), s_coeff.view(B, Ps, 3)], 1),
+            torch.cat([c_resid.view(B, Pc), s_resid.view(B, Ps)], 1),
+            torch.cat([c_mask.view(B, Pc), s_mask.view(B, Ps)], 1),
+            it + done,
+            min_correspondences=min_correspondences,
+            eigen_threshold=eigen_threshold,
+            converge_rot_deg=converge_rot_deg,
+            converge_trans_cm=converge_trans_cm)
+        state = _freeze(active, new, state)
+        done = done + active.to(torch.int32)
+    return state, done
+
+
+def _planes(fetch, query):
+    """A fetch closure's result at world points [Q, 3] in the layout of
+    `rounds_gn`: (d2 [K, Q], candidates [3K, Q]), both contiguous.  The
+    port's kernel-route closures (`ops.fetch.make_pallas_block_knn`) give
+    plane-major candidates themselves (`fetch.planes`); any other closure's
+    (d2 [Q, K], nn [Q, K, 3]) is transposed."""
+    if hasattr(fetch, "planes"):
+        d2, cand = fetch.planes(query)
+    else:
+        d2, nn = fetch(query)
+        cand = nn.permute(2, 1, 0).reshape(-1, nn.shape[0])
+    return d2.t().contiguous(), cand.contiguous()
+
+
 def register_rounds_core(
     features,
     corner_fetch,
@@ -439,61 +505,39 @@ def register_rounds_core(
 
     Per lane, as the JAX package's vmapped solve: the feature-count gate;
     `converged` reset at each round start (a fresh candidate set must
-    re-verify it); a while-loop per round that ends at the round's budget,
-    at convergence, or at once for a gated-off lane; `iterations` counted
-    per lane; the degeneracy projector taken at the lane's iteration 0.
-    Lanes that have stopped are frozen with `torch.where`, and a round
-    ends as soon as no lane is active (the same results as running the
-    whole budget masked, with fewer steps).
+    re-verify it); then the round's iterations, one `ops.rounds_gn.rounds_gn`
+    call (the kernel `csrc/rounds_gn.cu` on CUDA tensors, with no host sync
+    in the solve; `round_iterations` on CPU tensors): each lane runs until
+    the round's budget, its convergence, or at once when gated off;
+    `iterations` counted per lane; the degeneracy projector taken at the
+    lane's iteration 0.  All R rounds run, as the JAX `lax.scan` does.
     """
-    B, Pc, _ = features.corner_xyz.shape
-    Ps = features.surf_xyz.shape[1]
-    dev = features.corner_xyz.device
-    gate, state = _initial(features, init_pose6, edge_min_valid,
-                           surf_min_valid)
-    false = state.converged
-    it = torch.zeros(B, dtype=torch.int32, device=dev)
-    pts_all = torch.cat([features.corner_xyz, features.surf_xyz], dim=1)
-    cmask = features.corner_mask.reshape(B * Pc)
-    smask = features.surf_mask.reshape(B * Ps)
+    stat, matP = initial_state(features, init_pose6,
+                               edge_min_valid=edge_min_valid,
+                               surf_min_valid=surf_min_valid)
+    featc = feature_planes(features.corner_xyz, features.corner_mask)
+    feats = feature_planes(features.surf_xyz, features.surf_mask)
 
     for _ in range(num_rounds):
-        state = state._replace(converged=false)
-        cd, cnn = corner_fetch(_to_world(state.pose6, features.corner_xyz))
-        sd, snn = surf_fetch(_to_world(state.pose6, features.surf_xyz))
-        ccv, scv = cd < 1e37, sd < 1e37
-        done = torch.zeros(B, dtype=torch.int32, device=dev)
-        for _ in range(iters_per_round):
-            active = gate & ~state.converged
-            if not bool(active.any()):
-                break
-            c_coeff, c_resid, c_mask = corner_correspondence_cand(
-                _to_world(state.pose6, features.corner_xyz), cmask, cnn, ccv)
-            s_coeff, s_resid, s_mask = surf_correspondence_cand(
-                _to_world(state.pose6, features.surf_xyz), smask, snn, scv,
-                min_plane_spread=min_plane_spread)
-            new = gn_step(
-                state, pts_all,
-                torch.cat([c_coeff.view(B, Pc, 3), s_coeff.view(B, Ps, 3)],
-                          1),
-                torch.cat([c_resid.view(B, Pc), s_resid.view(B, Ps)], 1),
-                torch.cat([c_mask.view(B, Pc), s_mask.view(B, Ps)], 1),
-                it + done,
-                min_correspondences=min_correspondences,
-                eigen_threshold=eigen_threshold,
-                converge_rot_deg=converge_rot_deg,
-                converge_trans_cm=converge_trans_cm)
-            state = _freeze(active, new, state)
-            done = done + active.to(torch.int32)
-        it = it + done
+        stat[:, 7] = 0.0
+        cd2, candc = _planes(corner_fetch,
+                             _to_world(stat[:, 0:6], features.corner_xyz))
+        sd2, cands = _planes(surf_fetch,
+                             _to_world(stat[:, 0:6], features.surf_xyz))
+        stat, matP = rounds_gn(
+            stat, matP, featc, feats, candc, cands, cd2, sd2,
+            K=cd2.shape[0], iters=iters_per_round,
+            min_corr=min_correspondences, eig_thresh=eigen_threshold,
+            conv_rot_deg=converge_rot_deg, conv_trans_cm=converge_trans_cm,
+            min_plane_spread=min_plane_spread)
 
     return RegisterResult(
-        pose6=state.pose6,
-        converged=state.converged,
-        iterations=it,
-        n_corr=state.n_corr,
-        is_degenerate=state.is_degenerate,
-        valid=gate,
+        pose6=stat[:, 0:6].contiguous(),
+        converged=stat[:, 7] > 0.0,
+        iterations=stat[:, 6].to(torch.int32),
+        n_corr=stat[:, 10].to(torch.int32),
+        is_degenerate=stat[:, 8] > 0.0,
+        valid=stat[:, 9] > 0.0,
     )
 
 

@@ -39,7 +39,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from ..ops.fetch import (RESIDENT_TABLE_CAP, PlanarTable, block_cell_of_xyz,
                          build_block_table_planar, compact_row_space,
                          fetch_rows, make_pallas_block_knn)
-from ..ops.gn_round import STAT, gn_round
+from ..ops.gn_round import feature_planes, gn_round, initial_state
 from ..ops.hashgrid import (build_block_table, build_grid_sentinel,
                             default_grid_spec, grid_origin,
                             make_block_grid_knn, make_oct_sentinel_knn)
@@ -109,31 +109,6 @@ def sentinel_of(table) -> int:
     if isinstance(table, PlanarTable):
         return table.rows_index.shape[0] - 1
     return table.shape[0] - 1
-
-
-def feature_planes(xyz, mask):
-    """[B,P,3] + [B,P] -> [B,4,P] rows (x, y, z, mask), the GN layout."""
-    return torch.cat([xyz.transpose(1, 2), mask[:, None, :].to(xyz.dtype)],
-                     dim=1).contiguous()
-
-
-def initial_state(features: ScanFeatures, init_poses, *,
-                  edge_min_valid: int = 10, surf_min_valid: int = 100):
-    """(stat [B,16], matP [B,36]) before round 0: the pose, the feature
-    gate (ref: edgeFeatureMinValidNum / surfFeatureMinValidNum) and an
-    identity projector."""
-    B = features.corner_xyz.shape[0]
-    dev = features.corner_xyz.device
-    n_edge = features.corner_mask.sum(1)
-    n_surf = features.surf_mask.sum(1)
-    stat = torch.zeros(B, STAT, dtype=torch.float32, device=dev)
-    stat[:, 0:6] = torch.as_tensor(init_poses, dtype=torch.float32,
-                                   device=dev)
-    stat[:, 9] = ((n_edge > edge_min_valid)
-                  & (n_surf > surf_min_valid)).to(torch.float32)
-    matP = torch.eye(6, dtype=torch.float32, device=dev).reshape(
-        1, 36).repeat(B, 1)
-    return stat, matP
 
 
 def fetch_queries(pose, xyz, mask, table, origin, cell_size, dims,

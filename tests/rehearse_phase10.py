@@ -8,7 +8,8 @@ against the JAX package's.
 
 `kitti` and `multisession` run `chip_smoke.kitti_phase` /
 `multisession_phase` on the CPU (the kernels' plain versions, counted as
-launches by wrappers around `ops.fetch.block_fetch` / `resident_fetch`)
+launches by wrappers around `ops.fetch.block_fetch` / `resident_fetch` and
+`ops.rounds_gn.rounds_gn`)
 with `Params`' registration grid at +-(40, 40, 9) m instead of +-(60, 60,
 25) m: a whole number of 2 m cells off the default, so every table holds
 the same points in the same cells (the same poses) at a size a CPU host
@@ -50,8 +51,10 @@ def cpu_params():
 
 
 def counted_fetches():
-    """Count the plain fetches as chip_smoke counts kernel launches."""
-    from feature_base_pointcloud_registration_tpu_torch.ops import fetch
+    """Count the plain fetches and GN rounds as chip_smoke counts kernel
+    launches."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        fetch, register, rounds_gn)
 
     def counting(real):
         def f(*a, **kw):
@@ -62,6 +65,7 @@ def counted_fetches():
 
     for name in ("block_fetch", "resident_fetch"):
         setattr(fetch, name, counting(getattr(fetch, name)))
+    rounds_gn.rounds_gn = register.rounds_gn = counting(rounds_gn.rounds_gn)
 
 
 def offset_error(T, true_ab):

@@ -113,7 +113,7 @@ def rehearse_port(cs):
     import torch.distributed as dist
 
     from feature_base_pointcloud_registration_tpu_torch.ops import (
-        features, fetch)
+        features, fetch, register)
     from feature_base_pointcloud_registration_tpu_torch.parallel import (
         batch as pb, dryrun, map_sharded as pms)
 
@@ -151,7 +151,7 @@ def rehearse_port(cs):
     dryrun.dryrun_multichip = lambda n, backend="gloo": gloo_dryrun(n)
 
     counts = {"block_fetch": 0, "resident_fetch": 0, "gn_round": 0,
-              "ring_pick": 0}
+              "ring_pick": 0, "rounds_gn": 0}
 
     def counting(mod, name):
         real = getattr(mod, name)
@@ -165,6 +165,7 @@ def rehearse_port(cs):
     counting(fetch, "resident_fetch")
     counting(pb, "gn_round")
     counting(features, "ring_pick")
+    counting(register, "rounds_gn")
 
     def zero_counts():
         for k in counts:

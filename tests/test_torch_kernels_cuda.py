@@ -39,6 +39,12 @@ kernels.  The sharded solvers on a one-rank NCCL group:
 (raw and resident tables, the kernels counted), `map_sharded_register_tables`
 bitwise `batch_register_pallas` on its one shard's table, and four striped
 shards' fetch kernels merged by `merge_topk` bitwise the plain fetches'.
+The rounds solver's round kernel `rounds_gn` against its plain version on
+the card (tests/rounds_scenes.py's edge lanes at K 6, 8 and 16, one lane at
+the localization step's caps, a batch): flags, iterations and n_corr
+equal, pose and matP within 1e-5, a degenerate lane's pose within 1e-3;
+`register_rounds_core` on the step's tables with no host sync under the
+CUDA sync debug mode "error"; K=7 refused on the card.
 """
 
 import numpy as np
@@ -51,11 +57,13 @@ from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
 from feature_base_pointcloud_registration_tpu_torch.ops import (
     features as tfeat, projection as tproj)
 from feature_base_pointcloud_registration_tpu_torch.ops import (
-    fetch as tfetch, gn_round as tgn)
+    fetch as tfetch, gn_round as tgn, register as treg, rounds_gn as trounds)
 from feature_base_pointcloud_registration_tpu_torch.parallel import (
     batch as tbatch)
 from feature_base_pointcloud_registration_tpu_torch.pipeline import (
     cloud_info, frontend as tfront, localization as tloc)
+
+import rounds_scenes as rs
 
 FeatureMap, ScanFeatures = cloud_info.FeatureMap, cloud_info.ScanFeatures
 
@@ -235,6 +243,101 @@ def test_kernels_reject_unsupported_k(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in (tab, bc, *q)]
     with pytest.raises(ValueError):                   # W over 16000
         tfetch.block_fetch(*args, K=8)
+
+
+def _rounds_check(args, kw):
+    """rounds_gn's kernel against its plain version on the card (both on
+    the same packed inputs): flags, iterations and n_corr equal on every
+    lane, pose and matP within 1e-5 on the others than degenerate lanes,
+    pose within 1e-3 on degenerate ones; one launch, bitwise the same on a
+    second call (a fixed-order reduction).  Returns (stat, matP)."""
+    before = trounds.rounds_gn.launches
+    sk, mk = trounds.rounds_gn(*args, **kw)
+    torch.cuda.synchronize()
+    assert trounds.rounds_gn.launches == before + 1
+    sr, mr = trounds.rounds_gn_reference(*args, **kw)
+    assert torch.equal(sk[:, 6:11], sr[:, 6:11])
+    deg = sr[:, 8] > 0
+    dpose = (sk[:, :6] - sr[:, :6]).abs().max(1).values
+    print(f"rounds_gn K={kw['K']}: pose |diff| {dpose.tolist()}, "
+          f"degenerate {deg.tolist()}")
+    assert (dpose[~deg] <= 1e-5).all() and (dpose[deg] <= 1e-3).all()
+    assert ((mk - mr).abs().max(1).values[~deg] <= 1e-5).all()
+    again = trounds.rounds_gn(*args, **kw)
+    assert torch.equal(again[0], sk) and torch.equal(again[1], mk)
+    return sk, mk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,spread", [(6, 0.0), (8, 0.0), (16, 0.05)])
+def test_rounds_gn_kernel_edge_lanes(cuda, K, spread):
+    """tests/rounds_scenes.py's edge lanes: two plain lanes, a gated-off
+    lane (left bitwise untouched), a lane under min_corr, the degenerate
+    tiny problem, sentinel picks near the world origin."""
+    args = rs.packed(rs.edge_lanes(K), K, cuda)
+    sk, mk = _rounds_check(args, dict(K=K, iters=10,
+                                      min_plane_spread=spread))
+    assert torch.equal(sk[2], args[0][2]) and torch.equal(mk[2], args[1][2])
+    assert sk[3, 10] < 50 and torch.equal(sk[3, :6], args[0][3, :6])
+    assert sk[4, 8] > 0 and (sk[[0, 1, 5], 10] >= 50).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Pc,Ps,K", [(1, 2048, 8192, 16),
+                                       (16, 512, 2048, 8)])
+def test_rounds_gn_kernel_at_step_and_batch_shapes(cuda, B, Pc, Ps, K):
+    """One lane at the localization step's feature caps (K=16) and a batch
+    at K=8, with every iteration's budget spent (thresholds 0) and with the
+    convergence test on."""
+    args = rs.packed(rs.plain_lanes(B, K, Pc, Ps), K, cuda)
+    _rounds_check(args, dict(K=K, iters=10))
+    sk, _ = _rounds_check(args, dict(K=K, iters=6, conv_rot_deg=0.0,
+                                     conv_trans_cm=0.0))
+    assert (sk[:, 6] == 6).all()
+
+
+@pytest.mark.cuda
+def test_rounds_solve_has_no_host_sync(cuda):
+    """register_rounds_core on grid_register_step's tables (lower_pad,
+    resident where they fit, K=16) under the CUDA sync debug mode "error":
+    no host sync in the whole solve, one rounds_gn launch a round."""
+    params, raw, dsk = _skewed_scan(cuda)
+    params = Params(register_grid_half_extent=(30.0, 30.0, 10.0))
+    _, feats = tfront.process_scan(params, raw, dsk)
+    lmap = FeatureMap(*(torch.from_numpy(a).to(cuda) for a in
+                        build_feature_map(SyntheticWorld(),
+                                          params.map_corner_cap,
+                                          params.map_surf_cap)))
+    guess = torch.tensor([[0.0, 0.0, 0.32, 1.1, -2.1, 0.4]], device=cuda)
+    ctab, stab, origin, dims = tbatch.build_map_planar_tables(
+        lmap, guess[0, 3:6], params.register_grid_half_extent, 2.0, 16, 64,
+        resident=True, lower_pad=True)
+    knn = [tfetch.make_pallas_block_knn(t, origin, 2.0, dims=dims,
+                                        cell_cap=cap, k=16)
+           for t, cap in ((ctab, 16), (stab, 64))]
+    want = treg.register_rounds_core(feats, *knn, guess)
+    torch.cuda.synchronize()
+    before = trounds.rounds_gn.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = treg.register_rounds_core(feats, *knn, guess)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert trounds.rounds_gn.launches == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(got.valid[0]) and int(got.n_corr[0]) >= 50
+    assert (got.pose6[0, 3:].cpu() - torch.tensor([1.0, -2.0, 0.4])).abs() \
+        .max() < 0.05
+
+
+@pytest.mark.cuda
+def test_rounds_gn_rejects_unsupported_k_on_cuda(cuda):
+    args = rs.packed(rs.edge_lanes(7), 7, cuda)
+    with pytest.raises(ValueError):
+        trounds.rounds_gn(*args, K=7, iters=2)
+    # the plain version takes any K >= 5
+    trounds.rounds_gn(*(a.cpu() for a in args), K=7, iters=2)
 
 
 def _lines_planes(r, n_corner, n_surf):

@@ -157,7 +157,13 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            full LM, ICP ms and iterations, host syncs a step (the CUDA
            sync debug mode), a profiled window LM solve, register_scan
            beside its bound, the knn selection against a stable sort, the
-           caps the step reported, each table's kind, rows and bytes;
+           caps the step reported, each table's kind, rows and bytes; the
+           pose-graph LM counted: every optimize_pose_graph call on the
+           pose_graph_lm kernel (route A: one launch; route B: two an
+           iteration), the marginals' factor blocks on its blocks entry;
+           every solve of the run again on the kernel and on the parent's
+           loop (optimize_pose_graph_reference on the card) in turns, the
+           LM's ms a step on each;
   phase 9  the LIO mode (examples/run.py --mode lio): LioTopology(Params(
            pose_cov_threshold=0), max_keyframes=256, imu_window=16,
            imu_max_samples=64) over 50 scans 0.2 s apart along
@@ -180,7 +186,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            1e-5 of the uninterrupted run; the step time and its split,
            one preintegration's and one chain LM's device operations and
            ms, host syncs a step, a profiled ImuOdometry correction, each
-           table's kind, rows and bytes, the caps reported;
+           table's kind, rows and bytes, the caps reported; the pose-graph
+           LM counted and timed in turns as in phase 8;
   phase 10 the KITTI and multi-session entry points: (a) load_scan and
            iter_scans on the three HDL-64 scans of tests/data/kitti_mini
            bitwise equal to native.kitti_read_bin, their strict features
@@ -192,7 +199,8 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            the first 3
            steps' fetches bitwise; ATE against the oxts track < 0.2 m and
            the GPS factors the CPU rehearsal gives (0); the step time and
-           its split; (c) examples/run_kitti.py's pair alignment (FPFH +
+           its split; the pose-graph LM counted and timed in turns as in
+           phase 8; (c) examples/run_kitti.py's pair alignment (FPFH +
            RANSAC + ICP) on the drive's first 6 scans: the first pair's
            stages card against CPU (FPFH within 1e-5 where no histogram
            bin flipped, RANSAC on the same triplets and ICP within 1e-4),
@@ -205,11 +213,26 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            queries near the grid's lower faces), >= 2 links, the merged map
            saved and loaded, a held-out scan localized within 0.06 m, the
            merge on the CPU within 1e-3 (each link's GN stops within its
-           5e-4 m convergence step), the CPU's joint graph solved on the
-           card within 1e-5;
+           5e-4 m convergence step), the joint graph one pose_graph_lm
+           launch, the CPU's joint graph solved on the card within 1e-5;
            align_sessions(coarse=True) over 8 generator seeds (at least
            one within 0.3 m / 0.02 rad of the known offset, ICP alone
            too), timed stage by stage, profiled, its host syncs counted;
+  probes   `probe pose_graph_lm` lines (after phase 10): the pose-graph
+           LM on the card (optimize_pose_graph: the kernel, its route by
+           the live count) against its plain version on the card at (a)
+           phase 8's last window graph, (b) phase 8's first full graph (a
+           loop closure, 512 slots), (c) route B at 200 live poses in 512
+           slots and at the cap + 1 (tests/pose_graph_scenes.py), (d) the
+           edge graphs: gimbal lock and a rotation error near pi about an
+           axis (H not finite: the poses bitwise unchanged), route B with
+           its factorization reported failed (rejected); each with kernel
+           ms (CUDA events), the solve's host wall, plain ms, launches,
+           route, bound, pose |diff| (<= 1e-4), cost rel diff (<= 1e-4),
+           agreeing accepts and two launches bitwise; `probe
+           pose_graph_blocks` lines: the factor blocks at random rotations,
+           identity, near pi and near pi about an axis, NaN in the plain
+           version's places and the rest within 1e-5;
   phase 11 the sharded solvers and the XLA solver variants at the bench's
            width: (a) shard_register_tables(make_mesh("cuda"),
            solver="fused") on a one-rank NCCL group (a FileStore), on the
@@ -376,15 +399,15 @@ def tpu_kernel_line(file_name, kernel):
     raise FileNotFoundError(f"{kernel} in */ops/{file_name}")
 
 
-def xla_loop_line(file_name, text):
-    """'path:line' in this checkout of the first line of */ops/<file_name>
+def xla_loop_line(file_name, text, sub="ops"):
+    """'path:line' in this checkout of the first line of */<sub>/<file_name>
     that holds `text`: the JAX device loop a kernel replaces."""
-    for path in sorted(glob.glob(os.path.join(REPO, "*", "ops", file_name))):
+    for path in sorted(glob.glob(os.path.join(REPO, "*", sub, file_name))):
         with open(path) as f:
             for n, line in enumerate(f, 1):
                 if text in line:
                     return f"{os.path.relpath(path, REPO)}:{n}"
-    raise FileNotFoundError(f"{text} in */ops/{file_name}")
+    raise FileNotFoundError(f"{text} in */{sub}/{file_name}")
 
 
 def print_ptxas(src, log, only=None):
@@ -843,6 +866,119 @@ def rounds_gn_wrapper():
     return rounds_gn
 
 
+class LaunchCount:
+    """A launch counter kept as an attribute of a wrapper under another name
+    (route B's, the factor blocks'), read and set as `launches`."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.fn, self.attr, value)
+
+
+def pose_graph_counters():
+    """{name: counter} of graph/pose_graph.py's kernel launches: route A's
+    (fbpr_pose_graph_lm, one a solve), route B's (assemble and update, two
+    an iteration), the factor blocks' (fbpr_pose_graph_blocks)."""
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        pose_graph as tpg)
+    return {"pose_graph_lm": LaunchCount(tpg.optimize_pose_graph,
+                                         "launches"),
+            "pose_graph_lm_b": LaunchCount(tpg.optimize_pose_graph,
+                                           "launches_b"),
+            "pose_graph_blocks": LaunchCount(tpg.graph_factor_blocks,
+                                             "launches")}
+
+
+def lm_route_recorder(fn, routes):
+    """fn (an optimize_pose_graph) appending each call's route to routes:
+    "A" (one route-A launch) or "B" (two route-B launches an iteration);
+    a call that launched neither raises."""
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        pose_graph as tpg)
+    opg = tpg.optimize_pose_graph
+
+    def recorded(g, *a, **kw):
+        a0, b0 = opg.launches, opg.launches_b
+        out = fn(g, *a, **kw)
+        da, db = opg.launches - a0, opg.launches_b - b0
+        its = kw.get("iterations", a[0] if a else 10)
+        if (da, db) == (1, 0):
+            routes.append("A")
+        elif da == 0 and db == 2 * its:
+            routes.append("B")
+        else:
+            raise AssertionError(f"optimize_pose_graph launched route A "
+                                 f"{da}, route B {db} times")
+        return out
+    return recorded
+
+
+def lm_in_turns(calls):
+    """Every recorded optimize_pose_graph call ((args, kw, out)) solved again
+    on the kernel and on the parent's loop (optimize_pose_graph_reference on
+    the card, the route before the kernel), in turns (the kernel first on
+    even calls): [(kernel ms, plain ms, K, plain pose |diff| from the
+    recorded solve)], host wall with the device synchronized."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        pose_graph as tpg)
+    out = []
+    for i, (a, kw, res) in enumerate(calls):
+        ms, d = {}, 0.0
+        for route in (("kernel", "plain") if i % 2 == 0
+                      else ("plain", "kernel")):
+            fn = (tpg.optimize_pose_graph if route == "kernel"
+                  else tpg.optimize_pose_graph_reference)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms[route] = (time.perf_counter() - t0) * 1e3
+            if route == "plain":
+                d = float((r[0] - res[0]).abs().max())
+        out.append((ms["kernel"], ms["plain"], a[0].poses.shape[0], d))
+    return out
+
+
+def print_lm_in_turns(phase, calls, steps, step_ms, window_k=None):
+    """The `time <phase> graph LM in turns` line: each recorded solve again
+    on the kernel and on the parent's loop (lm_in_turns), by graph size,
+    and the LM's ms a step on each over `steps` steps beside the step's
+    mean `step_ms`."""
+    turns = lm_in_turns(calls)
+    by_k = {}
+    for k_ms, p_ms, K_, _ in turns:
+        by_k.setdefault(K_, []).append((k_ms, p_ms))
+    ker = sum(t[0] for t in turns) / steps
+    pla = sum(t[1] for t in turns) / steps
+    print(f"time {phase} graph LM in turns (every solve of the run again, "
+          f"on the pose_graph_lm kernel and on the parent's loop, "
+          f"optimize_pose_graph_reference, in turns): " + "; ".join(
+              f"K {K_}: {len(v)} solves, kernel "
+              f"{np.mean([x for x, _ in v]):.3f} ms, parent's loop "
+              f"{np.mean([y for _, y in v]):.2f} ms"
+              for K_, v in sorted(by_k.items())) + f"; per step kernel "
+          f"{ker:.3f} ms, parent's loop {pla:.2f} ms (the step "
+          f"{step_ms:.2f} ms on the kernel, {step_ms - ker + pla:.2f} ms "
+          f"with the parent's loop in its place); the parent's loop |diff| "
+          f"from the run's solves max "
+          f"{max((t[3] for t in turns), default=0.0):.3e}", flush=True)
+    return ker, pla
+
+
+# the inputs of phase 8's graph solves kept for the pose_graph_lm probes
+# ({name: (graph, iterations)})
+LM_INPUTS = {}
+
+
 # the inputs of the first rounds_gn calls of a phase ({phase: [(args,
 # kw), ...]}), kept for the rounds_gn probes
 ROUNDS_INPUTS = {}
@@ -1005,6 +1141,177 @@ def rounds_probes(dev):
         out[f"(d) edge lanes K={K}"] = rounds_probe(
             f"(d) edge lanes K={K}", args,
             dict(K=K, iters=10, min_plane_spread=spread))
+    return out
+
+
+def lm_bound(g, iterations):
+    """(bound_ms, bound_by) of an LM solve of g on its live poses: the
+    inputs read once and the outputs written once over the memory rate, or
+    the operations a step over the fp32 rate (the Cholesky D^3 / 3, the
+    two solves 2 D^2, the Jacobian blocks and their products: 12 x 12 x 6
+    a between factor, 6 x 6 x 6 a prior and 6 x 6 x 3 a GPS factor), the
+    larger."""
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        pose_graph as tpg)
+    D = 6 * tpg.live_set(g).n
+    fp, fb, fg = (int(m.sum()) for m in (g.prior_mask, g.btw_mask,
+                                         g.gps_mask))
+    ops = iterations * (D ** 3 / 3 + 2 * D ** 2 + fb * 12 * 12 * 6
+                        + fp * 6 * 6 * 6 + fg * 6 * 6 * 3)
+    K = g.poses.shape[0]
+    nbytes = (K * 25 + g.prior_mask.shape[0] * 53 + g.btw_mask.shape[0] * 57
+              + g.gps_mask.shape[0] * 29 + K * 24 + 4 + iterations * 4)
+    return bound(nbytes, ops)
+
+
+def lm_probe(name, g, iterations, unchanged=False):
+    """One `probe pose_graph_lm` line: optimize_pose_graph on the card (the
+    kernel, its route by the live count) against its plain version
+    (optimize_pose_graph_reference, run on the card) on the same graph:
+    poses within 1e-4, cost within 1e-4 relative (1e-6 absolute: a
+    converged graph's cost is rounding noise), two launches bitwise equal;
+    unchanged: the poses must come back bitwise.  Kernel ms by CUDA events
+    (route A: the launch alone; route B: its iterations), the solve's host
+    wall through the entry point, the plain version's ms.  Returns the
+    probe's record; raises where it fails."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        pose_graph as tpg)
+    opg = tpg.optimize_pose_graph
+    a0, b0 = opg.launches, opg.launches_b
+    acc_k, acc_p = [], []
+    pk, ck = opg(g, iterations, acc_k)
+    launches = {"A": opg.launches - a0, "B": opg.launches_b - b0}
+    route = "A" if launches["A"] else "B"
+    pk2, ck2 = opg(g, iterations)
+    bitwise = bool(torch.equal(pk, pk2) and torch.equal(ck, ck2))
+    pp, cp = tpg.optimize_pose_graph_reference(g, iterations, acc_p)
+    err = float((pk - pp).abs().max())
+    cost_err = abs(float(ck) - float(cp))
+    cost_rel = cost_err / max(abs(float(cp)), 1e-30)
+    agree = sum(bool(x) == bool(y) for x, y in zip(acc_k, acc_p))
+    gc = tpg._contiguous(g)
+    ls = tpg.live_set(gc)
+    if route == "A":
+        out = torch.empty_like(gc.poses)
+        cost = torch.empty((), device=gc.poses.device)
+        acc = torch.zeros(iterations, dtype=torch.int32,
+                          device=gc.poses.device)
+        ms = cuda_ms(lambda: kernels.launch_pose_graph_lm(
+            gc, ls, iterations, out, cost, acc), 20)
+    else:
+        acc = torch.zeros(iterations, dtype=torch.int32,
+                          device=gc.poses.device)
+        ms = cuda_ms(lambda: tpg._route_b(gc, ls, iterations, acc), 3)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opg(g, iterations)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = cuda_ms(lambda: tpg.optimize_pose_graph_reference(
+        g, iterations), 2)
+    b_ms, b_by = lm_bound(g, iterations)
+    rec = dict(K=g.poses.shape[0], live=ls.n, iterations=iterations,
+               route=route, launches=launches, ms=ms,
+               solve_ms=float(np.median(walls)), plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               cost_rel_err=cost_rel, accepts_equal=agree,
+               accepts=int(sum(bool(x) for x in acc_k)), bitwise=bitwise)
+    print(f"probe pose_graph_lm {name}: K {rec['K']}, {ls.n} live, "
+          f"{iterations} iterations, route {route} (launches {launches}): "
+          f"kernel {ms:.4f} ms, solve {rec['solve_ms']:.3f} ms (host wall, "
+          f"the entry point), plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}, {b_ms / ms:.3%} of it); pose |diff| max {err:.3e}, "
+          f"cost {float(ck):.6e} vs {float(cp):.6e} (rel {cost_rel:.3e}); "
+          f"accepts {rec['accepts']}, equal on {agree}/{iterations} "
+          f"iterations; two launches bitwise {bitwise}", flush=True)
+    if not (err <= 1e-4 and (cost_rel <= 1e-4 or cost_err <= 1e-6)
+            and bitwise):
+        raise AssertionError(f"pose_graph_lm {name}: pose {err}, cost rel "
+                             f"{cost_rel}, bitwise {bitwise}")
+    if unchanged and not (torch.equal(pk, g.poses) and rec["accepts"] == 0):
+        raise AssertionError(f"pose_graph_lm {name}: the poses moved")
+    return rec
+
+
+def blocks_probe(name, g):
+    """One `probe pose_graph_blocks` line: graph_factor_blocks' kernel
+    against its plain version on the card: NaN in the same places, every
+    other entry within 1e-5.  Returns the largest difference."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        pose_graph as tpg)
+    got = [t for grp in tpg.graph_factor_blocks(g, g.poses) for t in grp]
+    want = [t for grp in tpg.graph_factor_blocks_reference(g, g.poses)
+            for t in grp]
+    same_nan = all(torch.equal(torch.isnan(a), torch.isnan(b))
+                   for a, b in zip(got, want))
+    err = max(float(torch.where(torch.isnan(b), 0.0, a - b).abs().max())
+              for a, b in zip(got, want))
+    n_nan = sum(int(torch.isnan(b).sum()) for b in want)
+    ms = cuda_ms(lambda: tpg.graph_factor_blocks(g, g.poses), 20)
+    plain_ms = cuda_ms(lambda: tpg.graph_factor_blocks_reference(
+        g, g.poses), 5)
+    print(f"probe pose_graph_blocks {name}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms; NaN entries {n_nan}, placement equal "
+          f"{same_nan}; |diff| max {err:.3e} elsewhere", flush=True)
+    if not (same_nan and err <= 1e-5):
+        raise AssertionError(f"pose_graph_blocks {name}: NaN placement "
+                             f"{same_nan}, {err}")
+    return err
+
+
+def pose_graph_probes(dev):
+    """The probe lines of the pose-graph LM: (a) phase 8's window graph
+    (32 live poses, 8 iterations), (b) a phase 8 full graph at a loop
+    closure (512 slots, 12 iterations), (c) a route-B graph (200 live poses
+    of a chain with loops, in 512 slots), (d) the edge graphs of
+    tests/pose_graph_scenes.py: the factor blocks at random rotations, at
+    identity, near pi and near pi about an axis (NaN entries); gimbal lock
+    and a rotation error near pi about an axis in the LM (H not finite:
+    every step rejected, the poses bitwise); route B with its
+    factorization reported failed (every step rejected).  Returns {name:
+    record}."""
+    import torch
+
+    import pose_graph_scenes as pgs
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    out = {}
+    for name in ("(a) phase 8 window", "(b) phase 8 full graph"):
+        g, its = LM_INPUTS[name]
+        out[name] = lm_probe(name, g, its)
+    name = "(c) route B, 200 live of 512"
+    out[name] = lm_probe(name, pgs.big_chain(200, device=dev)[0], 12)
+    name = f"(c) route B, {kernels.POSE_GRAPH_LM_MAX_LIVE + 1} live"
+    out[name] = lm_probe(name, pgs.big_chain(
+        kernels.POSE_GRAPH_LM_MAX_LIVE + 1, device=dev)[0], 12)
+    blk = {case: blocks_probe(f"(d) {case}", pgs.blocks_graph(case, dev))
+           for case in pgs.BLOCK_CASES}
+    out["(d) gimbal lock"] = lm_probe("(d) gimbal lock", pgs.gimbal(
+        device=dev), 8, unchanged=True)
+    out["(d) near pi about an axis"] = lm_probe(
+        "(d) near pi about an axis", pgs.blocks_graph("near_pi_axis", dev),
+        8, unchanged=True)
+    real = torch.linalg.cholesky_ex
+
+    def failed(A):
+        return (torch.eye(A.shape[0], device=A.device),
+                torch.ones((), dtype=torch.int32, device=A.device))
+
+    torch.linalg.cholesky_ex = failed
+    try:
+        name = "(d) route B, the factorization reported failed"
+        out[name] = lm_probe(name, pgs.big_chain(
+            kernels.POSE_GRAPH_LM_MAX_LIVE + 1, device=dev)[0], 2,
+            unchanged=True)
+    finally:
+        torch.linalg.cholesky_ex = real
+    out["blocks_max_abs_err"] = max(blk.values())
     return out
 
 
@@ -2160,7 +2467,7 @@ def slam_phase(dev):
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
                "ring_pick": ring_pick_wrapper(),
-               "rounds_gn": rounds_gn_wrapper()}
+               "rounds_gn": rounds_gn_wrapper(), **pose_graph_counters()}
     real = {name: getattr(tslam, name) for name in (
         "process_scan", "grid_register_step", "optimize_pose_graph",
         "icp_align")}
@@ -2175,8 +2482,11 @@ def slam_phase(dev):
     stage_of = {"process_scan": "frontend",
                 "grid_register_step": "tables + solve",
                 "optimize_pose_graph": "graph LM", "icp_align": "ICP"}
+    routes = []
     for name, stage in stage_of.items():
-        setattr(tslam, name, timer.wrap(stage, real[name]))
+        setattr(tslam, name, timer.wrap(stage, lm_route_recorder(
+            real[name], routes) if name == "optimize_pose_graph"
+            else real[name]))
     methods = {"_surrounding_map": "local map", "_save_keyframe":
                "keyframe + graph", "maybe_close_loop": "loop closure"}
     for name, stage in methods.items():
@@ -2282,6 +2592,20 @@ def slam_phase(dev):
               if a[0].poses.shape[0] == pipe.opt_window]
     if not full:
         raise AssertionError("phase 8: the full graph was never solved")
+    lm_calls = timer.calls["graph LM"]
+    print(f"phase 8 pose_graph_lm: {len(lm_calls)} solves, routes "
+          f"{ {r: routes.count(r) for r in sorted(set(routes))} }, launches "
+          f"route A {launches['pose_graph_lm']}, route B "
+          f"{launches['pose_graph_lm_b']}, factor blocks "
+          f"{launches['pose_graph_blocks']} (the marginals)", flush=True)
+    if not (len(routes) == len(lm_calls) and launches["pose_graph_lm"]
+            and launches["pose_graph_blocks"]):
+        raise AssertionError(f"phase 8: pose_graph_lm launches {launches}")
+    for (a, kw, _), r in zip(lm_calls, routes):
+        key = ("(a) phase 8 window" if a[0].poses.shape[0]
+               == pipe.opt_window else "(b) phase 8 full graph")
+        if key.startswith("(a)") or key not in LM_INPUTS:
+            LM_INPUTS[key] = (a[0], kw.get("iterations", 10))
 
     # ---- accuracy against the ground truth, in the first scan's frame ----
     T0inv = np.linalg.inv(pose6_to_matrix_np(scans[0][2]))
@@ -2384,6 +2708,7 @@ def slam_phase(dev):
           f"{np.mean(syncs[SLAM_CHECKED + 1:]):.1f} min "
           f"{min(syncs[SLAM_CHECKED + 1:])} max "
           f"{max(syncs[SLAM_CHECKED + 1:])}", flush=True)
+    print_lm_in_turns("phase 8", lm_calls, N_SLAM - 1, steps_ms.mean())
     # one window LM solve again (no state change), profiled: how much of
     # it the device is busy, and with what
     g, _ = pipe._window_graph_data()
@@ -2544,7 +2869,7 @@ def lio_phase(dev):
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
                "ring_pick": ring_pick_wrapper(),
-               "rounds_gn": rounds_gn_wrapper()}
+               "rounds_gn": rounds_gn_wrapper(), **pose_graph_counters()}
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": False}
     checked_fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
@@ -2559,8 +2884,11 @@ def lio_phase(dev):
                   (todo, "state_marginal_covariance", "window reset marginal"),
                   (todo, "propagate_states", "propagate")]
     real = {(m, n): getattr(m, n) for m, n, _ in module_fns}
+    routes = []
     for m, n, stage in module_fns:
-        setattr(m, n, timer.wrap(stage, real[(m, n)]))
+        setattr(m, n, timer.wrap(stage, lm_route_recorder(
+            real[(m, n)], routes) if n == "optimize_pose_graph"
+            else real[(m, n)]))
     timed_handle = timer.wrap("handle_odometry", odo.handle_odometry)
     profiled = {}
 
@@ -2673,8 +3001,13 @@ def lio_phase(dev):
     print(f"phase 9 launches: {launches} over {len(ests)} LIO steps "
           f"({n_in} scans in); per step {per_step[1]}; keyframes "
           f"{topo.slam.n_keyframes}; events "
-          f"{ {t_: topics.count(t_) for t_ in sorted(set(topics))} }",
+          f"{ {t_: topics.count(t_) for t_ in sorted(set(topics))} }; "
+          f"pose graph solves {len(routes)}, routes "
+          f"{ {r: routes.count(r) for r in sorted(set(routes))} }",
           flush=True)
+    if not (routes and launches["pose_graph_lm"] + launches[
+            "pose_graph_lm_b"] and launches["pose_graph_blocks"]):
+        raise AssertionError(f"phase 9: pose_graph_lm launches {launches}")
     for kind, W in sorted({(c["kind"], c["W"]) for c in calls}):
         sizes = [(c["rows"], c["bytes"]) for c in calls
                  if (c["kind"], c["W"]) == (kind, W)]
@@ -2797,8 +3130,8 @@ def lio_phase(dev):
     print(f"phase 9 resume: checkpoint after step {LIO_CKPT} loaded into a "
           f"fresh SlamPipeline on the card, {n_steps} steps: bitwise "
           f"{equal}, pose |diff| max {d_res:.3e} (bound 1e-5); repeated on "
-          f"the same inputs, the window pose-graph LM (index_put_ "
-          f"accumulate) bitwise {torch.equal(lm[0], lm[1])}, the IMU chain "
+          f"the same inputs, the window pose-graph LM (the pose_graph_lm "
+          f"kernel) bitwise {torch.equal(lm[0], lm[1])}, the IMU chain "
           f"LM (no scatter) bitwise {torch.equal(ch[0], ch[1])}", flush=True)
     if not (n_steps == LIO_RESUMED and d_res <= 1e-5):
         raise AssertionError(f"phase 9: resumed {n_steps} steps, {d_res}")
@@ -2820,6 +3153,8 @@ def lio_phase(dev):
           f"{np.mean(syncs[LIO_CHECKED + 1:]):.1f} min "
           f"{min(syncs[LIO_CHECKED + 1:])} max "
           f"{max(syncs[LIO_CHECKED + 1:])}", flush=True)
+    print_lm_in_turns("phase 9", timer.calls["pose graph LM"], len(ests),
+                      steps_ms.mean())
     worst = LIO_CHECKED + 1 + int(np.argmax(steps_ms))
     print(f"time phase 9 slowest step: step {worst} (t {t_ests[worst]:.1f}"
           f" s) {wall[worst]:.2f} ms: " + ", ".join(
@@ -3091,18 +3426,21 @@ def kitti_phase(dev):
 
         tslam.process_scan = timer.wrap("frontend", real["process_scan"])
         tslam.grid_register_step = registration
-        tslam.optimize_pose_graph = timer.wrap("graph",
-                                               real["optimize_pose_graph"])
+        routes = []
+        tslam.optimize_pose_graph = timer.wrap("graph", lm_route_recorder(
+            real["optimize_pose_graph"], routes))
         tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
         picks = ring_pick_wrapper()
+        lm_counts = pose_graph_counters()
         try:
             timer.sync()
-            for w in (*counted.values(), picks):
+            for w in (*counted.values(), picks, *lm_counts.values()):
                 w.launches = 0
             out = run_kitti_slam.main(slam_args + ["--scans", str(N_KITTI)])
             timer.sync()
             launches = {n_: w.launches for n_, w in counted.items()}
             launches["ring_pick"] = picks.launches
+            launches.update({n_: w.launches for n_, w in lm_counts.items()})
         finally:
             tfetch.fetch_rows = real_fetch_rows
             for name, fn in real.items():
@@ -3124,6 +3462,12 @@ def kitti_phase(dev):
             raise AssertionError(f"phase 10 (b): launches {per_reg}")
         if {c["K"] for c in calls} != {LOC_K}:
             raise AssertionError("phase 10 (b): a fetch not at K=16")
+        print(f"phase 10 (b) pose graph solves {len(routes)}, routes "
+              f"{ {r: routes.count(r) for r in sorted(set(routes))} }",
+              flush=True)
+        if not (routes and launches["pose_graph_lm"]
+                + launches["pose_graph_lm_b"]):
+            raise AssertionError(f"phase 10 (b): pose_graph_lm {launches}")
         kinds = sorted({(c["kind"], c["W"]) for c in calls})
         checked, err_b = checked_fetches(calls)
         print(f"phase 10 (b) fetch (kind, W): {kinds}; the first "
@@ -3151,6 +3495,8 @@ def kitti_phase(dev):
               f"(synchronized host clock): " + ", ".join(
                   f"{name} {ms:.2f} ms" for name, ms in split.items()),
               flush=True)
+        print_lm_in_turns("phase 10 (b)", timer.calls["graph"], len(steps),
+                          steps.mean())
 
         # ---- (c) run_kitti's pair alignment on the drive's first scans:
         # the first pair's stages card against CPU, then the run ----
@@ -3231,7 +3577,7 @@ def multisession_phase(dev):
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
                "ring_pick": ring_pick_wrapper(),
-               "rounds_gn": rounds_gn_wrapper()}
+               "rounds_gn": rounds_gn_wrapper(), **pose_graph_counters()}
     real_step = tregister.grid_register_step
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": False}
@@ -3299,6 +3645,9 @@ def multisession_phase(dev):
         raise AssertionError(f"phase 10 (d): launches {links}")
     if len(res.links) < 2:
         raise AssertionError(f"phase 10 (d): {len(res.links)} links")
+    if launches["pose_graph_lm"] + launches["pose_graph_lm_b"] != 1:
+        raise AssertionError(f"phase 10 (d): the joint graph's launches "
+                             f"{launches}")
 
     # ---- the merged map, saved, loaded, and the held-out scan ----
     with tempfile.TemporaryDirectory() as out:
@@ -4135,6 +4484,10 @@ def main():
     lio_launches, lio_err = lio_phase(dev)
     kitti_launches, kitti_err = kitti_phase(dev)
     ms_launches, ms_err = multisession_phase(dev)
+    rp_lm = pose_graph_probes(dev)
+    main_lm = rp_lm["(a) phase 8 window"]
+    kt["pose_graph_lm"] = (main_lm["ms"], main_lm["plain_ms"])
+    bounds["pose_graph_lm"] = (main_lm["bound_ms"], main_lm["bound_by"])
     sh_launches, sh_err = sharded_phase(dev, types.SimpleNamespace(
         feats=feats3, guesses=guesses_t, fmap=fmap, center=center, half=half,
         tabs=tabs, rtabs=rtabs, queries_surf=queries["surf"][1],
@@ -4214,6 +4567,27 @@ def main():
                   "max_abs_err", "plain_card_vs_cpu_err")}
                       for n, r in rp_rounds.items()},
               **localization("rounds_gn")),
+        entry("pose_graph_lm", "pose_graph_lm.cu",
+              xla_loop_line("pose_graph.py", "lax.scan(", sub="graph"),
+              slam_launches["pose_graph_lm"] + slam_launches[
+                  "pose_graph_lm_b"],
+              max(r["max_abs_err"] for r in rp_lm.values()
+                  if isinstance(r, dict)),
+              "pose_graph_lm",
+              launches_by_route={
+                  phase: {"A": lc["pose_graph_lm"],
+                          "B": lc["pose_graph_lm_b"],
+                          "blocks": lc["pose_graph_blocks"]}
+                  for phase, lc in (("8", slam_launches), ("9", lio_launches),
+                                    ("10b", kitti_launches),
+                                    ("10d", ms_launches))},
+              max_abs_err_blocks=rp_lm["blocks_max_abs_err"],
+              probes={n: {k: r[k] for k in (
+                  "K", "live", "iterations", "route", "launches", "ms",
+                  "solve_ms", "plain_ms", "bound_ms", "bound_by",
+                  "max_abs_err", "cost_rel_err", "accepts_equal",
+                  "bitwise")}
+                      for n, r in rp_lm.items() if isinstance(r, dict)}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,15 +14,34 @@ fixed-capacity, masked window.  The state is poses [K, 6] in pose6 = (roll,
 pitch, yaw, x, y, z); residuals use GTSAM-style local coordinates
 [so3_log(rotation error), translation error] whitened by per-factor
 diagonal sigmas.  Jacobian blocks come from per-factor forward-mode
-derivatives (dual numbers, as the JAX package's `jax.jacfwd`),
-scattered into a dense Hessian with
-`index_put_(accumulate=True)`; one 6K x 6K Cholesky solve per LM step, in
-float32 after Jacobi scaling.  Marginal covariances are assembled and
-solved on the host in float64, as in the JAX package.
+derivatives (dual numbers, as the JAX package's `jax.jacfwd`), summed
+into a dense Hessian; one Cholesky solve per LM step, in float32 after
+Jacobi scaling.  Marginal covariances are assembled and solved on the host
+in float64, as in the JAX package.
 
-Everything runs on the device of the graph's tensors.  The LM loop makes
-no host decision: a step is accepted with `torch.where`, and a
-factorization that fails (`torch.linalg.cholesky_ex`'s info != 0, where
+The JAX package compiles the LM steps into one device loop (`lax.scan`).
+`optimize_pose_graph` dispatches by the graph's device:
+
+  * CPU tensors run `optimize_pose_graph_reference`, the port's loop body
+    (`torch.autograd.forward_ad` Jacobians, `index_put_(accumulate=True)`
+    assembly, `torch.linalg.cholesky_ex`), driven from the host;
+  * CUDA tensors launch `csrc/pose_graph_lm.cu` on the live poses (below):
+    route A, every iteration in one launch of one CTA, where 6 x the live
+    count fits shared memory (`kernels.POSE_GRAPH_LM_MAX_LIVE`); route B
+    above it, an assemble kernel, `_lm_solve_step` (the dense solve, which
+    JAX leaves to `jax.scipy.linalg.solve` outside any kernel) and an
+    update kernel an iteration, with no host sync inside the iterations.
+
+A pose is live if it is active or an endpoint of an unmasked factor.  Every
+other pose has zero rows in H and grad, a scaled row (lam + 1) I and a
+zero step, so a solve over the live poses alone equals, in exact
+arithmetic, the solve over all K.  `live_set` compacts them on the device;
+its live count is the one host read of a solve.  `graph_factor_blocks`
+dispatches the same way (`fbpr_pose_graph_blocks` on CUDA tensors).
+
+The LM loop makes no host decision: a step is accepted with `torch.where`
+(on the device in the kernel), and a factorization that fails
+(`cholesky_ex`'s info != 0, a pivot that is not > 0 in the kernel, where
 the JAX solve gives NaN) is a rejected step.
 """
 
@@ -34,6 +53,7 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from .. import kernels
 from ..geom.se3 import euler_to_rot, rot_to_euler, so3_log
 
 
@@ -214,11 +234,29 @@ def _total_cost(g: PoseGraphData, poses):
     return (r_p * r_p).sum() + (r_b * r_b).sum() + (r_g * r_g).sum()
 
 
-def optimize_pose_graph(g: PoseGraphData, iterations: int = 10):
-    """Levenberg-Marquardt over the masked window, `iterations` steps.
+def _lm_solve_step(H, grad, lam, pin, active):
+    """The dense part of an LM step: Jacobi scaling, the pin of inactive
+    rows, damping, the float32 Cholesky and its two triangular solves.
+    Returns (dx [D], info): the step (0 on inactive rows) and
+    `cholesky_ex`'s info (!= 0: the factorization failed, a rejected
+    step)."""
+    # Jacobi-precondition before the float32 Cholesky: factor weights
+    # span ~1e-8 (the wide gauge prior) to ~1e6 (tight betweens,
+    # fit-scaled loop factors), far beyond float32 solve conditioning;
+    # after scaling, the uniform relative damping `lam` (floor 1e-6)
+    # bounds the condition number even along the gauge direction.
+    d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12)) + pin
+    A = H / (d[:, None] * d[None, :]) + torch.diag(lam + pin)
+    L, info = torch.linalg.cholesky_ex(A)
+    dy = torch.cholesky_solve((-grad / d)[:, None], L)[:, 0]
+    return torch.where(active, dy / d, 0.0), info
 
-    Returns (optimized poses [K, 6], final cost []).  Inactive poses
-    (mask False) are pinned by a unit ridge so H stays invertible."""
+
+def optimize_pose_graph_reference(g: PoseGraphData, iterations: int = 10,
+                                  accepts: list | None = None):
+    """Plain PyTorch version of `optimize_pose_graph` on any device: the
+    LM steps driven from the host over all K poses.  accepts: a list that
+    gets each step's accept flag (a bool tensor)."""
     K = g.poses.shape[0]
     active = g.pose_mask.repeat_interleave(6)
     pin = torch.where(active, 0.0, 1.0)
@@ -227,20 +265,13 @@ def optimize_pose_graph(g: PoseGraphData, iterations: int = 10):
     lam = torch.tensor(1e-4, dtype=torch.float32, device=poses.device)
     for _ in range(iterations):
         H, grad, _ = _assemble(g, poses, K)
-        # Jacobi-precondition before the float32 Cholesky: factor weights
-        # span ~1e-8 (the wide gauge prior) to ~1e6 (tight betweens,
-        # fit-scaled loop factors), far beyond float32 solve conditioning;
-        # after scaling, the uniform relative damping `lam` (floor 1e-6)
-        # bounds the condition number even along the gauge direction.
-        d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12)) + pin
-        A = H / (d[:, None] * d[None, :]) + torch.diag(lam + pin)
-        L, info = torch.linalg.cholesky_ex(A)
-        dy = torch.cholesky_solve((-grad / d)[:, None], L)[:, 0]
-        dx = torch.where(active, dy / d, 0.0)
+        dx, info = _lm_solve_step(H, grad, lam, pin, active)
         new_poses = poses + dx.reshape(K, 6)
         new_cost = _total_cost(g, new_poses)
         # a failed factorization is a rejected step (the JAX solve's NaN)
         accept = (info == 0) & (new_cost < cost)
+        if accepts is not None:
+            accepts.append(accept)
         poses = torch.where(accept, new_poses, poses)
         cost = torch.where(accept, new_cost, cost)
         lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-6),
@@ -248,11 +279,182 @@ def optimize_pose_graph(g: PoseGraphData, iterations: int = 10):
     return poses, cost
 
 
+class LiveSet(NamedTuple):
+    """The live poses of a graph, compacted in pose order."""
+
+    n: int                # live count (read on the host)
+    idx: torch.Tensor     # i64 [n] the pose of each live row
+    rowmap: torch.Tensor  # i32 [K] the live row of each pose, -1 if none
+    rows: torch.Tensor    # i32 [Fp + 2 Fb + Fg] the live rows of the
+    #                       factors' endpoints (prior, btw_i, btw_j, gps);
+    #                       0 on masked slots
+
+
+def _endpoints(g: PoseGraphData):
+    """(pose index, mask) of every factor endpoint, in `LiveSet.rows`'
+    order."""
+    return (torch.cat([g.prior_idx, g.btw_i, g.btw_j, g.gps_idx]),
+            torch.cat([g.prior_mask, g.btw_mask, g.btw_mask, g.gps_mask]))
+
+
+def live_set(g: PoseGraphData) -> LiveSet:
+    """The live poses (active, or an endpoint of an unmasked factor) and
+    the factors' endpoints remapped to them, built on the graph's device;
+    one host read, the live count."""
+    K = g.poses.shape[0]
+    dev = g.poses.device
+    ends, emask = _endpoints(g)
+    hits = torch.zeros(K, dtype=torch.int32, device=dev)
+    hits.index_add_(0, ends.long(), emask.to(torch.int32))
+    live = g.pose_mask | (hits > 0)
+    rank = torch.cumsum(live, 0, dtype=torch.int32) - 1
+    n = int(rank[-1]) + 1 if K else 0
+    rowmap = torch.where(live, rank, -1)
+    # every non-live pose lands in the spare slot n
+    idx = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    idx.scatter_(0, torch.where(live, rank, n).long(),
+                 torch.arange(K, device=dev))
+    rows = torch.where(emask, rowmap[ends.long()], 0)
+    return LiveSet(n, idx[:n], rowmap, rows)
+
+
+def live_subgraph(g: PoseGraphData, ls: LiveSet) -> PoseGraphData:
+    """The graph on its live poses alone (K = ls.n), the factors' endpoints
+    remapped."""
+    Fp, Fb = g.prior_idx.shape[0], g.btw_i.shape[0]
+    r = torch.split(ls.rows, [Fp, Fb, Fb, g.gps_idx.shape[0]])
+    return g._replace(poses=g.poses[ls.idx], pose_mask=g.pose_mask[ls.idx],
+                      prior_idx=r[0], btw_i=r[1], btw_j=r[2], gps_idx=r[3])
+
+
+def _check_graph(g: PoseGraphData):
+    K = g.pose_mask.shape[0]
+    want = {"poses": ((K, 6), torch.float32),
+            "pose_mask": ((K,), torch.bool)}
+    for kind, names, w in (("prior", ("prior_idx",), 6),
+                           ("btw", ("btw_i", "btw_j"), 6),
+                           ("gps", ("gps_idx",), 3)):
+        F = getattr(g, names[0]).shape[0]
+        want.update({n: ((F,), torch.int32) for n in names})
+        want.update({f"{kind}_meas": ((F, w), torch.float32),
+                     f"{kind}_sigma": ((F, w), torch.float32),
+                     f"{kind}_mask": ((F,), torch.bool)})
+    for name, (shape, dtype) in want.items():
+        t = getattr(g, name)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != g.poses.device:
+            raise ValueError(f"{name} is on {t.device}, poses on "
+                             f"{g.poses.device}")
+
+
+def _contiguous(g: PoseGraphData) -> PoseGraphData:
+    return PoseGraphData(*(t.contiguous() for t in g))
+
+
+def optimize_pose_graph(g: PoseGraphData, iterations: int = 10,
+                        accepts: list | None = None):
+    """Levenberg-Marquardt over the masked window, `iterations` steps.
+
+    Returns (optimized poses [K, 6], final cost []).  Inactive poses
+    (mask False) are pinned by a unit ridge so H stays invertible.  CPU
+    tensors run `optimize_pose_graph_reference`; CUDA tensors launch the
+    kernel (route A up to kernels.POSE_GRAPH_LM_MAX_LIVE live poses, route
+    B above), or raise.  accepts: a list that gets each step's accept flag
+    (a bool tensor)."""
+    _check_graph(g)
+    dev = g.poses.device
+    if dev.type == "cpu":
+        return optimize_pose_graph_reference(g, iterations, accepts)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    g = _contiguous(g)
+    ls = live_set(g)
+    iterations = max(iterations, 0)
+    acc = torch.zeros(iterations, dtype=torch.int32, device=dev)
+    if ls.n == 0:
+        # every factor masked, no pose active: the cost is 0, nothing moves
+        poses = g.poses.clone()
+        cost = torch.zeros((), dtype=torch.float32, device=dev)
+    elif ls.n <= kernels.POSE_GRAPH_LM_MAX_LIVE:
+        poses = torch.empty_like(g.poses)
+        cost = torch.empty((), dtype=torch.float32, device=dev)
+        kernels.launch_pose_graph_lm(g, ls, iterations, poses, cost, acc)
+        optimize_pose_graph.launches += 1
+    else:
+        poses, cost = _route_b(g, ls, iterations, acc)
+    if accepts is not None:
+        accepts.extend(acc != 0)
+    return poses, cost
+
+
+optimize_pose_graph.launches = 0      # route A: one a solve
+optimize_pose_graph.launches_b = 0    # route B: two an iteration
+
+
+def _route_b(g: PoseGraphData, ls: LiveSet, iterations: int, acc):
+    """The LM on n live poses past route A's cap: an iteration is one
+    assemble launch (H, grad and, at iteration 0, the cost into global
+    memory), `_lm_solve_step` at D = 6n and one update launch (the new
+    cost, accept and lam on the device)."""
+    dev = g.poses.device
+    D = 6 * ls.n
+    sub = live_subgraph(g, ls)
+    poses = sub.poses      # a copy: the update kernel writes it
+    active = sub.pose_mask.repeat_interleave(6)
+    pin = torch.where(active, 0.0, 1.0)
+    H = torch.empty(D, D, dtype=torch.float32, device=dev)
+    grad = torch.empty(D, dtype=torch.float32, device=dev)
+    state = torch.full((2,), 1e-4, dtype=torch.float32,
+                       device=dev)                       # cost, lam
+    if iterations == 0:    # the cost alone
+        kernels.launch_pose_graph_assemble(g, ls, poses, H, grad, state, 0)
+        optimize_pose_graph.launches_b += 1
+    for it in range(iterations):
+        kernels.launch_pose_graph_assemble(g, ls, poses, H, grad, state, it)
+        dx, info = _lm_solve_step(H, grad, state[1], pin, active)
+        kernels.launch_pose_graph_update(g, ls, poses, dx, info, state, acc,
+                                         it)
+        optimize_pose_graph.launches_b += 2
+    out = g.poses.clone()
+    out.index_copy_(0, ls.idx, poses)
+    return out, state[0].clone()
+
+
+def graph_factor_blocks_reference(g: PoseGraphData, poses):
+    """Plain PyTorch version of `graph_factor_blocks` on any device."""
+    return _graph_cost_terms(g, poses)
+
+
 def graph_factor_blocks(g: PoseGraphData, poses):
     """Whitened per-factor residuals + Jacobian blocks at `poses` (masked
     entries zeroed): the square-root-form inputs of the host-side float64
-    marginal covariances."""
-    return _graph_cost_terms(g, poses)
+    marginal covariances, ((r_p [Fp, 6], J_p [Fp, 6, 6]), (r_b [Fb, 6],
+    J_bi, J_bj [Fb, 6, 6]), (r_g [Fg, 3], J_g [Fg, 3, 6])).  CPU tensors
+    run the plain version; CUDA tensors launch `fbpr_pose_graph_blocks`,
+    or raise."""
+    _check_graph(g._replace(poses=poses))
+    dev = poses.device
+    if dev.type == "cpu":
+        return graph_factor_blocks_reference(g, poses)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    g = _contiguous(g._replace(poses=poses))
+    Fp, Fb, Fg = (g.prior_idx.shape[0], g.btw_i.shape[0],
+                  g.gps_idx.shape[0])
+
+    def e(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    out = ((e(Fp, 6), e(Fp, 6, 6)), (e(Fb, 6), e(Fb, 6, 6), e(Fb, 6, 6)),
+           (e(Fg, 3), e(Fg, 3, 6)))
+    kernels.launch_pose_graph_blocks(g, _endpoints(g)[0], out)
+    graph_factor_blocks.launches += 1
+    return out
+
+
+graph_factor_blocks.launches = 0
 
 
 def pose_marginal_covariances(g: PoseGraphData, poses, idxs,

@@ -10,14 +10,14 @@ the nvcc processes of all sources run at once):
 The build runs at first use, into `build/` beside the package (the file name
 carries a hash of the flags, the source and the `csrc/` headers it
 includes, so an edited source or header rebuilds).  `SOURCE_FLAGS` adds a
-source's own flags (rounds_gn.cu: no FMA contraction).
+source's own flags (rounds_gn.cu, pose_graph_lm.cu: no FMA contraction).
 Importing this module builds nothing: the CPU tests import every module.
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns `cudaGetLastError()`; the launch
 helpers below raise when it is not 0.  Validation of shapes, dtypes and
 devices is the callers' (`ops/fetch.py`, `ops/gn_round.py`,
-`ops/rounds_gn.py`, `ops/features.py`).
+`ops/rounds_gn.py`, `ops/features.py`, `graph/pose_graph.py`).
 """
 
 from __future__ import annotations
@@ -45,18 +45,27 @@ FETCH_TILE = 128          # queries per block of both fetch kernels
                           # (csrc/fetch_tile.cuh kTile)
 RING_PICK_MAX_W = 8192    # csrc/ring_pick.cu: a window's slots and sort
                           # words (15 B a slot) fit 227 KB of shared memory
+POSE_GRAPH_LM_MAX_LIVE = 38  # csrc/pose_graph_lm.cu kMaxLive: route A's H
+                             # (6n x (6n + 1) floats) and buffers fit 227 KB
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Flags of one source on top of NVCC_FLAGS.  rounds_gn.cu stands for the
-# port's plain-PyTorch loop body, whose operations round one by one, and
-# is held to it within 1e-5: its multiply-adds are not contracted into
-# FMAs (chip_smoke.py's probe (b) prints the FMA build beside it).
-SOURCE_FLAGS = {"rounds_gn": ["-fmad=false"]}
+# Flags of one source on top of NVCC_FLAGS.  rounds_gn.cu and
+# pose_graph_lm.cu stand for the port's plain-PyTorch loop bodies, whose
+# operations round one by one: their multiply-adds are not contracted into
+# FMAs (chip_smoke.py's probe (b) prints rounds_gn's FMA build beside it;
+# the pose graph's factors repeat the plain version's dual-number
+# operations, whose NaN and infinite Jacobian entries must fall where the
+# plain version's do).
+SOURCE_FLAGS = {"rounds_gn": ["-fmad=false"], "pose_graph_lm": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+# a pose graph's factors (csrc/pose_graph_lm.cu Factors): the endpoints
+# (prior, between i, between j, GPS), then meas, sigma, mask of each kind,
+# Fp, Fb, Fg
+_FACTORS = [_P] * 10 + [_I] * 3
 _SIGNATURES = {
     # table, rows, W, bcell, qx, qy, qz, Q, K, d2, cand, stream
     "fbpr_block_fetch": [_P, _L, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P],
@@ -75,6 +84,17 @@ _SIGNATURES = {
     # curv, col, picked, sp, ep, sector_ok, n_windows, W, edge_threshold,
     # surf_threshold, strict, label, stream
     "fbpr_ring_pick": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _P, _P],
+    # poses, pose_mask, live_idx, rowmap, *_FACTORS, K, n, iterations,
+    # out_poses, out_cost, accepts, stream
+    "fbpr_pose_graph_lm": [_P, _P, _P, _P, *_FACTORS, _I, _I, _I, _P, _P, _P,
+                           _P],
+    # live poses, *_FACTORS, n, H, grad, state, it, stream
+    "fbpr_pose_graph_assemble": [_P, *_FACTORS, _I, _P, _P, _P, _I, _P],
+    # live poses, dx, info, *_FACTORS, n, state, accepts, it, stream
+    "fbpr_pose_graph_update": [_P, _P, _P, *_FACTORS, _I, _P, _P, _I, _P],
+    # poses, K, *_FACTORS, r_p, J_p, r_b, J_bi, J_bj, r_g, J_g, stream
+    "fbpr_pose_graph_blocks": [_P, _I, *_FACTORS, _P, _P, _P, _P, _P, _P, _P,
+                               _P],
 }
 
 
@@ -270,3 +290,70 @@ def launch_ring_pick(curv, col, picked, sp, ep, sector_ok, label, *,
             curv.numel() // max(W, 1), W, edge_threshold, surf_threshold,
             int(strict), label.data_ptr(), _stream(curv))
     _check_rc("fbpr_ring_pick", rc)
+
+
+def _factor_args(g, ends):
+    """The pose graph's factor arguments (`_FACTORS`) of a PoseGraphData
+    with contiguous tensors; ends: the factors' endpoints, int32 [Fp + 2 Fb
+    + Fg]."""
+    return (ends.data_ptr(), g.prior_meas.data_ptr(),
+            g.prior_sigma.data_ptr(), g.prior_mask.data_ptr(),
+            g.btw_meas.data_ptr(), g.btw_sigma.data_ptr(),
+            g.btw_mask.data_ptr(), g.gps_meas.data_ptr(),
+            g.gps_sigma.data_ptr(), g.gps_mask.data_ptr(),
+            g.prior_idx.shape[0], g.btw_i.shape[0], g.gps_idx.shape[0])
+
+
+def launch_pose_graph_lm(g, ls, iterations, out_poses, out_cost, accepts):
+    """csrc/pose_graph_lm.cu route A on a validated graph (see
+    graph/pose_graph.py) and its live set: writes out_poses [K, 6],
+    out_cost [] and accepts [iterations] (int32)."""
+    if not 0 < ls.n <= POSE_GRAPH_LM_MAX_LIVE:
+        raise ValueError(f"{ls.n} live poses: route A takes 1 to "
+                         f"{POSE_GRAPH_LM_MAX_LIVE}")
+    lib = library()
+    with torch.cuda.device(g.poses.device):
+        rc = lib.fbpr_pose_graph_lm(
+            g.poses.data_ptr(), g.pose_mask.data_ptr(), ls.idx.data_ptr(),
+            ls.rowmap.data_ptr(), *_factor_args(g, ls.rows),
+            g.poses.shape[0], ls.n, iterations, out_poses.data_ptr(),
+            out_cost.data_ptr(), accepts.data_ptr(), _stream(g.poses))
+    _check_rc("fbpr_pose_graph_lm", rc)
+
+
+def launch_pose_graph_assemble(g, ls, poses, H, grad, state, it):
+    """Route B's assemble kernel: H [D, D] and grad [D] at the live poses
+    [n, 6]; at it == 0 also the cost into state[0]."""
+    lib = library()
+    with torch.cuda.device(poses.device):
+        rc = lib.fbpr_pose_graph_assemble(
+            poses.data_ptr(), *_factor_args(g, ls.rows), ls.n,
+            H.data_ptr(), grad.data_ptr(), state.data_ptr(), it,
+            _stream(poses))
+    _check_rc("fbpr_pose_graph_assemble", rc)
+
+
+def launch_pose_graph_update(g, ls, poses, dx, info, state, accepts, it):
+    """Route B's update kernel: the new cost at poses + dx, accept and lam,
+    applied to poses [n, 6], state (cost, lam) and accepts[it]."""
+    lib = library()
+    with torch.cuda.device(poses.device):
+        rc = lib.fbpr_pose_graph_update(
+            poses.data_ptr(), dx.data_ptr(), info.data_ptr(),
+            *_factor_args(g, ls.rows), ls.n, state.data_ptr(),
+            accepts.data_ptr(), it, _stream(poses))
+    _check_rc("fbpr_pose_graph_update", rc)
+
+
+def launch_pose_graph_blocks(g, ends, out):
+    """graph_factor_blocks' kernel at g.poses; ends: the factors' pose
+    indices (int32 [Fp + 2 Fb + Fg]); out: ((r_p, J_p), (r_b, J_bi, J_bj),
+    (r_g, J_g)), written."""
+    (rp, Jp), (rb, Jbi, Jbj), (rg, Jg) = out
+    lib = library()
+    with torch.cuda.device(g.poses.device):
+        rc = lib.fbpr_pose_graph_blocks(
+            g.poses.data_ptr(), g.poses.shape[0], *_factor_args(g, ends),
+            rp.data_ptr(), Jp.data_ptr(), rb.data_ptr(), Jbi.data_ptr(),
+            Jbj.data_ptr(), rg.data_ptr(), Jg.data_ptr(), _stream(g.poses))
+    _check_rc("fbpr_pose_graph_blocks", rc)

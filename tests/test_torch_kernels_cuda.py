@@ -44,14 +44,28 @@ the card (tests/rounds_scenes.py's edge lanes at K 6, 8 and 16, one lane at
 the localization step's caps, a batch): flags, iterations and n_corr
 equal, pose and matP within 1e-5, a degenerate lane's pose within 1e-3;
 `register_rounds_core` on the step's tables with no host sync under the
-CUDA sync debug mode "error"; K=7 refused on the card.
+CUDA sync debug mode "error"; K=7 refused on the card.  The pose-graph LM
+kernel `csrc/pose_graph_lm.cu` against its plain version on the card
+(`optimize_pose_graph_reference`, tests/pose_graph_scenes.py's graphs):
+the chain, GPS and loop graphs at the SLAM window's shape and in 512 slots
+on route A, in one launch with one host sync (the live count), poses
+within 1e-4 and cost within 1e-4 relative (another summation order;
+float32 Cholesky on the card against cuSOLVER's); route B at the cap + 1
+and at 200 live poses the same, with no host sync inside its iterations;
+the factor blocks (`graph_factor_blocks`) with NaN in the same places and
+every other entry within 1e-5; gimbal lock and a non-finite H rejected
+with the poses bitwise unchanged; route B rejecting a factorization
+reported failed; two launches bitwise equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from feature_base_pointcloud_registration_tpu_torch import kernels
 from feature_base_pointcloud_registration_tpu_torch.config import Params
+from feature_base_pointcloud_registration_tpu_torch.graph import (
+    pose_graph as tpg)
 from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
     SyntheticWorld, build_feature_map, pose6_to_matrix_np, simulate_scan)
 from feature_base_pointcloud_registration_tpu_torch.ops import (
@@ -63,6 +77,7 @@ from feature_base_pointcloud_registration_tpu_torch.parallel import (
 from feature_base_pointcloud_registration_tpu_torch.pipeline import (
     cloud_info, frontend as tfront, localization as tloc)
 
+import pose_graph_scenes as pgs
 import rounds_scenes as rs
 
 FeatureMap, ScanFeatures = cloud_info.FeatureMap, cloud_info.ScanFeatures
@@ -1349,3 +1364,152 @@ def test_ring_pick_rejects_what_the_kernel_does_not_take(cuda):
     wide["sector_ok"][..., 1:] = False
     _assert_kernel_picks_as_plain({k: v.contiguous() for k, v in
                                    wide.items()}, 1.0, 0.1, True)
+
+
+# ------------------------------------------------------- pose-graph LM
+
+def _pose_graph_kw(kind):
+    return {"chain": {}, "gps": dict(gps=True, noise=0.0),
+            "loop": dict(loop=True, noise=0.05)}[kind]
+
+
+def _host_syncs(caught):
+    """The synchronizing operations the CUDA sync debug mode reported (not
+    its one-time notice that the mode is a prototype)."""
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _lm_counts():
+    return (tpg.optimize_pose_graph.launches,
+            tpg.optimize_pose_graph.launches_b)
+
+
+def _assert_lm_as_plain(g, iterations):
+    """The kernel's solve against the plain version's on the card: poses
+    within 1e-4, cost within 1e-4 relative.  Returns the kernel's."""
+    acc_k, acc_p = [], []
+    pk, ck = tpg.optimize_pose_graph(g, iterations, acc_k)
+    pp, cp = tpg.optimize_pose_graph_reference(g, iterations, acc_p)
+    torch.cuda.synchronize()
+    assert pk.shape == g.poses.shape and bool(torch.isfinite(pk).all())
+    assert float((pk - pp).abs().max()) <= 1e-4
+    # a converged graph's cost (~1e-8) is rounding noise: abs 1e-6
+    assert float(ck) == pytest.approx(float(cp), rel=1e-4, abs=1e-6)
+    assert len(acc_k) == len(acc_p) == iterations
+    return pk, ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["window", "slots512"])
+@pytest.mark.parametrize("kind", ["chain", "gps", "loop"])
+def test_pose_graph_lm_kernel_matches_plain(cuda, kind, shape):
+    g, _ = pgs.chain(shape, device=cuda, **_pose_graph_kw(kind))
+    a0, b0 = _lm_counts()
+    with pytest.warns(UserWarning, match="synchroniz") as caught:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tpg.optimize_pose_graph(g, 12)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert _host_syncs(caught) == 1
+    assert _lm_counts() == (a0 + 1, b0)
+    pk, _ = _assert_lm_as_plain(g, 12)
+    # the non-live slots come back as they were, bitwise
+    assert torch.equal(pk[20:], g.poses[20:])
+    again = tpg.optimize_pose_graph(g, 12)
+    assert torch.equal(again[0], pk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [kernels.POSE_GRAPH_LM_MAX_LIVE,
+                               kernels.POSE_GRAPH_LM_MAX_LIVE + 1, 200])
+def test_pose_graph_lm_routes_by_live_count(cuda, n):
+    g, _ = pgs.big_chain(n, device=cuda)
+    a0, b0 = _lm_counts()
+    route_b = n > kernels.POSE_GRAPH_LM_MAX_LIVE
+    with pytest.warns(UserWarning, match="synchroniz") as caught:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tpg.optimize_pose_graph(g, 12)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert _host_syncs(caught) == 1
+    assert _lm_counts() == ((a0, b0 + 24) if route_b else (a0 + 1, b0))
+    pk, _ = _assert_lm_as_plain(g, 12)
+    assert torch.equal(tpg.optimize_pose_graph(g, 12)[0], pk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", pgs.BLOCK_CASES)
+def test_pose_graph_blocks_kernel_matches_plain(cuda, case):
+    g = pgs.blocks_graph(case, device=cuda)
+    before = tpg.graph_factor_blocks.launches
+    got = [t for grp in tpg.graph_factor_blocks(g, g.poses) for t in grp]
+    want = [t for grp in tpg.graph_factor_blocks_reference(g, g.poses)
+            for t in grp]
+    assert tpg.graph_factor_blocks.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        keep = ~torch.isnan(b)
+        assert float((a[keep] - b[keep]).abs().max()) <= 1e-5
+    if case == "near_pi_axis":
+        assert bool(torch.isnan(got[1]).any())
+    else:
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gimbal", "near_pi_axis"])
+def test_pose_graph_lm_rejects_a_non_finite_hessian(cuda, which):
+    """Gimbal lock (asin's infinite derivative) and a rotation error near
+    pi about an axis (sqrt(0)'s): H is not finite, every pivot test fails,
+    every step is rejected, the poses come back bitwise."""
+    g = (pgs.gimbal(device=cuda) if which == "gimbal"
+         else pgs.blocks_graph("near_pi_axis", device=cuda))
+    acc = []
+    pk, ck = tpg.optimize_pose_graph(g, 8, acc)
+    pp, cp = tpg.optimize_pose_graph_reference(g, 8)
+    assert torch.equal(pk, g.poses) and torch.equal(pp, g.poses)
+    assert not any(bool(a) for a in acc)
+    assert float(ck) == pytest.approx(float(cp), rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_pose_graph_lm_route_b_rejects_a_failed_factorization(
+        cuda, monkeypatch):
+    """Route B's dense solve is torch.linalg.cholesky_ex: forced to report
+    failure with a finite L (plain gradient descent, which lowers the
+    cost), the update kernel must reject every step."""
+    g, _ = pgs.big_chain(kernels.POSE_GRAPH_LM_MAX_LIVE + 1, device=cuda)
+
+    def failed(A):
+        return (torch.eye(A.shape[0], device=A.device),
+                torch.ones((), dtype=torch.int32, device=A.device))
+
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", failed)
+    acc = []
+    pk, ck = tpg.optimize_pose_graph(g, 2, acc)
+    cost0 = tpg._total_cost(g, g.poses)
+    monkeypatch.undo()
+    assert torch.equal(pk, g.poses) and not any(bool(a) for a in acc)
+    assert float(ck) == pytest.approx(float(cost0), rel=1e-5)
+    # the garbage step would have lowered the cost: taken only if the
+    # failure flag were ignored
+    K = g.poses.shape[0]
+    H, grad, _ = tpg._assemble(g, g.poses, K)
+    active = g.pose_mask.repeat_interleave(6)
+    d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12)) + torch.where(
+        active, 0.0, 1.0)
+    step = torch.where(active, -grad / d / d, 0.0)
+    assert float(tpg._total_cost(g, g.poses + step.reshape(K, 6))) < float(
+        cost0)
+
+
+@pytest.mark.cuda
+def test_pose_graph_lm_raises_off_the_kernel(cuda):
+    g, _ = pgs.chain("window", device=cuda)
+    with pytest.raises(ValueError):
+        tpg.optimize_pose_graph(g._replace(gps_mask=g.gps_mask.int()), 2)
+    with pytest.raises(ValueError):
+        tpg.graph_factor_blocks(g, g.poses.cpu())

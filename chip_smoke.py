@@ -187,7 +187,13 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            one preintegration's and one chain LM's device operations and
            ms, host syncs a step, a profiled ImuOdometry correction, each
            table's kind, rows and bytes, the caps reported; the pose-graph
-           LM counted and timed in turns as in phase 8;
+           LM counted and timed in turns as in phase 8; the IMU odometry's
+           kernels counted: one imu_chain_lm and one preintegrate launch a
+           correction (none at the initialization), one imu_chain_blocks a
+           window reset's marginal, one propagate_states a flush and a
+           re-propagation; every correction's chain solve again on the
+           kernel and on the parent's loop (optimize_imu_chain_reference
+           on the card) in turns, the chain LM's ms a step on each;
   phase 10 the KITTI and multi-session entry points: (a) load_scan and
            iter_scans on the three HDL-64 scans of tests/data/kitti_mini
            bitwise equal to native.kitti_read_bin, their strict features
@@ -233,6 +239,30 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            pose_graph_blocks` lines: the factor blocks at random rotations,
            identity, near pi and near pi about an axis, NaN in the plain
            version's places and the rest within 1e-5;
+           `probe imu_chain_lm` lines: the IMU chain LM on the card
+           (optimize_imu_chain: the kernel) against its plain version on
+           the card at (a) phase 9's last full window (K 16), (b) its first
+           correction after a window reset (2 live), (c) K 100 (the
+           reference's reset interval), (d) tests/imu_chain_scenes.py's
+           scenes (an
+           interior masked state, a state without a preintegration, K 1, a
+           NaN interval covariance and a near-pi pose error about an axis:
+           every step rejected, the states bitwise; pitch pi/2, roll
+           across pi, dbg 0 and not 0); each with kernel ms (CUDA events),
+           plain ms, bound, states |diff| (<= 1e-4, NaN in the same
+           places), the cost's relative difference (<= 1e-3; the plain
+           cost at the kernel's states within 1e-4), accepts and two
+           launches bitwise; `probe imu_chain_blocks` (non-finite entries
+           in the same places, the rest within 1e-4 of the block's
+           largest, both beside the float64 blocks); `probe preintegrate`
+           and `probe propagate_states` at phase 9's interval and stream,
+           a 64-sample capped interval and a 1024-sample buffer with
+           interior masked samples (the leaves within 1e-6 of max(1,
+           largest), cov rtol 1e-5 with a floor of 1e-7 of its largest;
+           above 64 live samples 1e-5 and a floor of 1e-6, where the kernel
+           is as near the float64 plain version as the plain version,
+           within a factor of 2; R, p, v within 1e-5), each beside its
+           plain version and bound, two launches bitwise;
   phase 11 the sharded solvers and the XLA solver variants at the bench's
            width: (a) shard_register_tables(make_mesh("cuda"),
            solver="fused") on a one-rank NCCL group (a FileStore), on the
@@ -920,23 +950,37 @@ def lm_route_recorder(fn, routes):
     return recorded
 
 
-def lm_in_turns(calls):
-    """Every recorded optimize_pose_graph call ((args, kw, out)) solved again
-    on the kernel and on the parent's loop (optimize_pose_graph_reference on
-    the card, the route before the kernel), in turns (the kernel first on
-    even calls): [(kernel ms, plain ms, K, plain pose |diff| from the
-    recorded solve)], host wall with the device synchronized."""
+def lm_routes(lm):
+    """(entry point, its plain version, the size of a call's first
+    argument) of the LM kernel lm: "pose_graph_lm" (optimize_pose_graph,
+    poses) or "imu_chain_lm" (optimize_imu_chain, states)."""
+    if lm == "pose_graph_lm":
+        from feature_base_pointcloud_registration_tpu_torch.graph import (
+            pose_graph as tpg)
+        return (tpg.optimize_pose_graph, tpg.optimize_pose_graph_reference,
+                lambda g: g.poses.shape[0])
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tig)
+    return (tig.optimize_imu_chain, tig.optimize_imu_chain_reference,
+            lambda d: d.states.shape[0])
+
+
+def lm_in_turns(calls, lm):
+    """Every recorded call ((args, kw, out)) of the LM kernel lm's entry
+    point solved again on the kernel and on the parent's loop (its plain
+    version on the card, the route before the kernel), in turns (the
+    kernel first on even calls): [(kernel ms, plain ms, K, plain |diff| of
+    the first output from the recorded solve)], host wall with the device
+    synchronized."""
     import torch
 
-    from feature_base_pointcloud_registration_tpu_torch.graph import (
-        pose_graph as tpg)
+    kernel, plain, size = lm_routes(lm)
     out = []
     for i, (a, kw, res) in enumerate(calls):
         ms, d = {}, 0.0
         for route in (("kernel", "plain") if i % 2 == 0
                       else ("plain", "kernel")):
-            fn = (tpg.optimize_pose_graph if route == "kernel"
-                  else tpg.optimize_pose_graph_reference)
+            fn = kernel if route == "kernel" else plain
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r = fn(*a, **kw)
@@ -944,24 +988,26 @@ def lm_in_turns(calls):
             ms[route] = (time.perf_counter() - t0) * 1e3
             if route == "plain":
                 d = float((r[0] - res[0]).abs().max())
-        out.append((ms["kernel"], ms["plain"], a[0].poses.shape[0], d))
+        out.append((ms["kernel"], ms["plain"], size(a[0]), d))
     return out
 
 
-def print_lm_in_turns(phase, calls, steps, step_ms, window_k=None):
-    """The `time <phase> graph LM in turns` line: each recorded solve again
-    on the kernel and on the parent's loop (lm_in_turns), by graph size,
-    and the LM's ms a step on each over `steps` steps beside the step's
-    mean `step_ms`."""
-    turns = lm_in_turns(calls)
+def print_lm_in_turns(phase, calls, steps, step_ms, lm="pose_graph_lm"):
+    """The `time <phase> graph LM in turns` line (`chain LM` for
+    imu_chain_lm): each recorded solve again on the kernel and on the
+    parent's loop (lm_in_turns), by size, and the LM's ms a step on each
+    over `steps` steps beside the step's mean `step_ms`.  Returns (kernel
+    ms a step, parent's loop ms a step)."""
+    turns = lm_in_turns(calls, lm)
     by_k = {}
     for k_ms, p_ms, K_, _ in turns:
         by_k.setdefault(K_, []).append((k_ms, p_ms))
     ker = sum(t[0] for t in turns) / steps
     pla = sum(t[1] for t in turns) / steps
-    print(f"time {phase} graph LM in turns (every solve of the run again, "
-          f"on the pose_graph_lm kernel and on the parent's loop, "
-          f"optimize_pose_graph_reference, in turns): " + "; ".join(
+    what = "graph" if lm == "pose_graph_lm" else "chain"
+    print(f"time {phase} {what} LM in turns (every solve of the run again, "
+          f"on the {lm} kernel and on the parent's loop, "
+          f"{lm_routes(lm)[1].__name__}, in turns): " + "; ".join(
               f"K {K_}: {len(v)} solves, kernel "
               f"{np.mean([x for x, _ in v]):.3f} ms, parent's loop "
               f"{np.mean([y for _, y in v]):.2f} ms"
@@ -1313,6 +1359,437 @@ def pose_graph_probes(dev):
         torch.linalg.cholesky_ex = real
     out["blocks_max_abs_err"] = max(blk.values())
     return out
+
+
+def imu_counters():
+    """{name: wrapper} of the IMU odometry's kernel launches (each wrapper
+    keeps `launches`): the chain LM (fbpr_imu_chain_lm, one a solve), its
+    factor blocks (fbpr_imu_chain_blocks, one a window reset's marginal),
+    the preintegration and the propagation (csrc/preintegration.cu)."""
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tig)
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tpre)
+    return {"imu_chain_lm": tig.optimize_imu_chain,
+            "imu_chain_blocks": tig.chain_factor_blocks,
+            "preintegrate": tpre.preintegrate,
+            "propagate_states": tpre.propagate_states}
+
+
+def chain_recorder(fn, calls, clone_ms):
+    """fn (an optimize_imu_chain) appending each call's ((chain data,
+    cloned: ImuOdometry updates its preintegration window in place, *args),
+    kw, result) to calls; the clones' host ms summed in clone_ms["ms"],
+    which the step's wall leaves out."""
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tig)
+
+    def recorded(d, *a, **kw):
+        t0 = time.perf_counter()
+        kept = tig.ImuChainData(*(type(x)(*(t.clone() for t in x))
+                                  if isinstance(x, tuple) else x.clone()
+                                  for x in d))
+        clone_ms["ms"] += (time.perf_counter() - t0) * 1e3
+        out = fn(d, *a, **kw)
+        calls.append(((kept, *a), kw, out))
+        return out
+    return recorded
+
+
+# phase 9's IMU inputs kept for the IMU probes: chain data by probe name,
+# "preintegrate" / "propagate" (args, kw) of the last calls
+IMU_INPUTS = {}
+
+# Operations the IMU kernels' functions need, counted from their
+# arithmetic (csrc/imu_chain.cuh, csrc/pose_graph.cuh,
+# csrc/preintegration.cu).  One operation is one float add, subtract,
+# multiply, divide, compare, square root, sine, cosine or arccosine.
+# Blocks, primal: a 3x3 product 9 x (3 multiplies + 2 adds); a 3x3 matrix
+# times a vector 3 x 5; euler_to_rot six sines and cosines and 21 for R's
+# entries; so3_exp the norm and its test 7, the axis 3, [k]x 3, [k]x^2 45,
+# sin, cos, 1 - cos 3, R 9 x 4; so3_log on the branch away from pi that
+# the data take (trace 2, (trace - 1) / 2 2, clamp 1, acos 1, the
+# skew part 3, the test 1, 2 sin 2, theta / (2 sin) 1, the product 3).
+OPS_MAT3, OPS_VEC3, OPS_EULER = 9 * 5, 3 * 5, 6 + 21
+OPS_EXP = 7 + 3 + 3 + 45 + 3 + 9 * 4
+OPS_LOG = 2 + 2 + 1 + 1 + 3 + 1 + 2 + 1 + 3
+# Tangents (the .t halves of pose_graph.cuh's Dual operators, as
+# jax.jacfwd's batched tangents of (s_i, s_j) carry them: both states vary,
+# the chain data are constants): a product of two varying factors 3, with a
+# constant 1; a sum 1, with a constant 0; a quotient by a varying divisor
+# 3; a sine 1 and a cosine 2 (the other function is the primal's); acos 6.
+OPS_EULER_T = 3 * 1 + 3 * 2 + (3 + 10 + 10 + 3 + 10 + 10 + 1 + 3 + 3)
+OPS_MAT3_T, OPS_MAT3_TT = 9 * 5, 9 * (3 * 3 + 2)   # one / both varying
+OPS_VEC3_T, OPS_VEC3_TT = 3 * 5, 3 * (3 * 3 + 2)
+OPS_EXP_T = 7 + 3 * 3 + 3 + OPS_MAT3_TT + 4 + 9 * 7
+OPS_LOG_T = 2 + 1 + 6 + 3 + 2 + 3 + 3 * 3
+# The chain's factors.  Primal: the IMU residual (two rotations, g and the
+# bias offsets 9, Exp(dR_dbg dbg), dR Exp, dv and dp 2 x 36, Ri^T Rj and
+# dR^T (Ri^T Rj), the log, r_v 27, r_p 36), whitened by forward
+# substitution 81, with the bias residual 20; the pose prior
+# (local_coords and the division by sigma).  A factor's cost adds the
+# squares and their sums: 18 + 12 and 12.
+OPS_IMU_RES = (2 * OPS_EULER + 9 + OPS_VEC3 + OPS_EXP + OPS_MAT3
+               + 2 * (2 * OPS_VEC3 + 6) + 2 * OPS_MAT3 + OPS_LOG + 27 + 36)
+CHAIN_OPS_IMU = OPS_IMU_RES + 81 + 20
+CHAIN_OPS_PRIOR = 2 * OPS_EULER + OPS_MAT3 + 3 + OPS_LOG + OPS_VEC3 + 6
+# A Jacobian column's tangent pass: of the IMU and bias factors (30
+# columns: the IMU residual's tangents, r_v and r_p 39 and 45 of them,
+# whitened 81, the bias residual's 12); of the pose prior (15); of the
+# init prior (15, factor 0 alone: a subtraction and a division an entry).
+# The primal runs once a factor, not once a column.
+CHAIN_OPS_COLUMN = (2 * OPS_EULER_T + OPS_VEC3_T + OPS_EXP_T + OPS_MAT3_T
+                    + 2 * (2 * OPS_VEC3_T + 3) + 2 * OPS_MAT3_TT + OPS_LOG_T
+                    + 39 + 45 + 81 + 12)
+CHAIN_OPS_PRIOR_COLUMN = OPS_EULER_T + OPS_MAT3_T + 3 + OPS_LOG_T \
+    + OPS_VEC3_T + 6
+CHAIN_OPS_INIT_COLUMN = 15 * 2
+# H's blocks a state: a diagonal block's 225 entries of (9 + 9 + 6 + 6 + 6)
+# multiply-adds, a lower block's 225 of 9 + 6, grad's 15 of 36; a block of
+# the Cholesky (the 120-entry update of 15 multiply-adds, the 15x15 factor
+# 15^3 / 3, the off-diagonal block's 15 rows of 15^2 for L^-T) and of the
+# two solves (2 x (15 x 30 + 15^2))
+CHAIN_OPS_H = 225 * 72 + 225 * 30 + 15 * 72
+CHAIN_OPS_CHOL_BLOCK = 120 * 30 + 1125 + 15 * 225
+CHAIN_OPS_SOLVE_BLOCK = 2 * (15 * 30 + 225)
+# A live sample of the preintegration: its state-free terms (a and w 6,
+# w dt 3, Exp 97, Jr 98, the noise 7, int_noise 6, [a]x 3), then the
+# step: dR [a]x on [a]x's 6 nonzeros 27, dR Exp 45, Exp^T dR_dbg - Jr dt
+# 63, dR a 15, dR [a]x dR_dbg 45; A's entries 48; A cov and (A cov) A^T on
+# A's 36 structural nonzeros (6 of them ones: 30 x 9 multiplies and 27 x 9
+# adds each); (B noise) B^T on B's 27 (27 multiplies, the 45 nonzero
+# entries of the product 5 each, B's entries 36); the sum and int_noise
+# 84; the bias Jacobians 144; dv, dp, dt 25.  A live sample of the
+# propagation: a, w dt 9, Exp 97, R Exp 45, R a + g 16, p 18, v 6.
+PREINT_OPS_SAMPLE = (6 + 3 + OPS_EXP + 98 + 7 + 6 + 3
+                     + 27 + OPS_MAT3 + 63 + OPS_VEC3 + OPS_MAT3 + 48
+                     + 2 * (30 * 9 + 27 * 9) + (27 + 45 * 5 + 36) + 84
+                     + 144 + 25)
+PROPAGATE_OPS_SAMPLE = 9 + OPS_EXP + OPS_MAT3 + 16 + 18 + 6
+
+
+def chain_lm_bound(d, iterations):
+    """(bound_ms, bound_by) of a chain LM solve: the chain data read once
+    and states, cost and accept flags written once over the memory rate,
+    or the operations over the fp32 rate, the larger.  The factors are
+    counted by their masks (a masked one needs nothing), the linear algebra
+    over all K states (an inactive state is pinned in H)."""
+    K = d.states.shape[0]
+    live = d.state_mask.bool()
+    n_imu = int((d.preint_mask.bool() & live).sum())
+    n_pp = int((d.pose_meas_mask.bool() & live).sum())
+    cost = (n_imu * (CHAIN_OPS_IMU + 30) + n_pp * (CHAIN_OPS_PRIOR + 12)
+            + 2 * CHAIN_OPS_INIT_COLUMN)
+    ops = (cost + K * 81 * 3 + iterations * (
+        n_imu * (CHAIN_OPS_IMU + 30 * CHAIN_OPS_COLUMN)
+        + n_pp * (CHAIN_OPS_PRIOR + 15 * CHAIN_OPS_PRIOR_COLUMN)
+        + 15 * CHAIN_OPS_INIT_COLUMN + K * CHAIN_OPS_H + 225 * K * 4
+        + K * (CHAIN_OPS_CHOL_BLOCK + CHAIN_OPS_SOLVE_BLOCK) + cost))
+    nbytes = (sum(t.numel() * t.element_size() for t in d
+                  if not isinstance(t, tuple))
+              + sum(t.numel() * t.element_size() for t in d.preint)
+              + K * 60 + 4 + iterations * 4)
+    return bound(nbytes, ops)
+
+
+def sample_bound(n, live, per_sample_ops, out_bytes):
+    """(bound_ms, bound_by) of a preintegration or propagation of n samples
+    (live of them): acc, gyr, dt and the mask read once, out_bytes
+    written."""
+    return bound(29 * n + out_bytes, live * per_sample_ops)
+
+
+def chain_probe(name, d, iterations=4, unchanged=False):
+    """One `probe imu_chain_lm` line: optimize_imu_chain on the card (the
+    kernel) against its plain version (optimize_imu_chain_reference, run
+    on the card) on the same chain: states within 1e-4 with NaN in the
+    same places, the cost that of the kernel's states (1e-4 relative) and
+    within 1e-3 relative of the plain version's (or NaN in both), one
+    launch, two launches bitwise; unchanged: the states must come back
+    bitwise, every step rejected.  Kernel ms by CUDA events (the launch
+    alone), plain ms.  Returns the probe's record; raises where it
+    fails."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tig)
+    oic = tig.optimize_imu_chain
+    l0 = oic.launches
+    acc_k, acc_p = [], []
+    sk, ck = oic(d, iterations, acc_k)
+    launches = oic.launches - l0
+    sk2, ck2 = oic(d, iterations)
+    both_nan = bool(torch.isnan(ck)) and bool(torch.isnan(ck2))
+    bitwise = bool(torch.equal(sk, sk2) and (torch.equal(ck, ck2)
+                                             or both_nan))
+    sp, cp = tig.optimize_imu_chain_reference(d, iterations, acc_p)
+    same_nan = bool(torch.equal(torch.isnan(sk), torch.isnan(sp)))
+    fin = ~torch.isnan(sp)
+    err = float((sk - sp)[fin].abs().max()) if bool(fin.any()) else 0.0
+    ck_, cp_ = float(ck), float(cp)
+    at = float(tig._cost(d, sk, tig._whitener(d)))
+    cost_rel = abs(ck_ - cp_) / max(abs(cp_), 1e-30)
+    self_rel = abs(ck_ - at) / max(abs(at), 1e-30)
+    cost_ok = (np.isnan(ck_) and np.isnan(cp_)) or (
+        (cost_rel <= 1e-3 or abs(ck_ - cp_) <= 1e-4)
+        and (self_rel <= 1e-4 or abs(ck_ - at) <= 1e-4))
+    agree = sum(bool(x) == bool(y) for x, y in zip(acc_k, acc_p))
+    dc = tig._contiguous(d)
+    K = d.states.shape[0]
+    out = torch.empty_like(dc.states)
+    cost = torch.empty((), device=dc.states.device)
+    acc = torch.zeros(iterations, dtype=torch.int32, device=dc.states.device)
+    scratch = torch.empty(kernels.imu_chain_floats(K),
+                          device=dc.states.device)
+    ms = cuda_ms(lambda: kernels.launch_imu_chain_lm(
+        dc, iterations, out, cost, acc, scratch), 20)
+    plain_ms = cuda_ms(lambda: tig.optimize_imu_chain_reference(
+        d, iterations), 2)
+    b_ms, b_by = chain_lm_bound(d, iterations)
+    rec = dict(K=K, live=int(d.state_mask.sum()), iterations=iterations,
+               launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=err, cost_rel_err=cost_rel,
+               accepts_equal=agree,
+               accepts=int(sum(bool(x) for x in acc_k)), bitwise=bitwise)
+    print(f"probe imu_chain_lm {name}: K {K}, {rec['live']} live, "
+          f"{iterations} iterations, {launches} launch: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}, "
+          f"{b_ms / ms:.3%} of it); states |diff| max {err:.3e} (NaN "
+          f"placement equal {same_nan}), cost {ck_:.6e} vs {cp_:.6e} (rel "
+          f"{cost_rel:.3e}; the plain cost at the kernel's states rel "
+          f"{self_rel:.3e}); accepts {rec['accepts']}, equal on "
+          f"{agree}/{iterations} iterations; two launches bitwise {bitwise}",
+          flush=True)
+    if not (err <= 1e-4 and same_nan and cost_ok and bitwise
+            and launches == 1):
+        raise AssertionError(f"imu_chain_lm {name}: states {err}, NaN "
+                             f"{same_nan}, cost rel {cost_rel} / "
+                             f"{self_rel}, bitwise {bitwise}, launches "
+                             f"{launches}")
+    if unchanged and not (torch.equal(sk, d.states) and rec["accepts"] == 0):
+        raise AssertionError(f"imu_chain_lm {name}: the states moved")
+    return rec
+
+
+CHAIN_BLOCK_NAMES = ("r_imu", "Ji", "Jj", "r_b", "Jbi", "Jbj", "r_pp", "Jpp",
+                     "r_0", "J_0")
+
+
+def _rel_block_err(got, want):
+    """{block: |got - want| max over the finite entries / the block's
+    largest finite entry of want}."""
+    import torch
+    out = {}
+    for n, a, b in zip(CHAIN_BLOCK_NAMES, got, want):
+        f = torch.isfinite(b)
+        if bool(f.any()):
+            scale = max(float(b[f].abs().max()), 1e-30)
+            out[n] = float((a[f].double() - b[f].double()).abs().max()) / scale
+    return out
+
+
+def chain_blocks_probe(name, d):
+    """One `probe imu_chain_blocks` line: chain_factor_blocks' kernel
+    against its plain version on the card: NaN (and infinities) in the same
+    places, every other entry within 1e-4 of its block's largest (the bound
+    of tests/test_torch_imu.py for these blocks: whitened by sqrt(cov) ~
+    1e-5, a rounding difference grows), both beside the plain version run
+    in float64.  Returns the largest relative difference."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tig)
+    got = [t for g in tig.chain_factor_blocks(d, d.states) for t in g]
+    want = [t for g in tig.chain_factor_blocks_reference(d, d.states)
+            for t in g]
+    d64 = tig.ImuChainData(*(type(x)(*(t.double() for t in x))
+                             if isinstance(x, tuple)
+                             else x.double() if x.is_floating_point() else x
+                             for x in d))
+    exact = [t for g in tig.chain_factor_blocks_reference(d64, d64.states)
+             for t in g]
+    same = all(torch.equal(torch.isfinite(a), torch.isfinite(b))
+               and torch.equal(torch.isnan(a), torch.isnan(b))
+               for a, b in zip(got, want))
+    errs = _rel_block_err(got, want)
+    worst = max(errs, key=errs.get)
+    rel = errs[worst]
+    k64, p64 = _rel_block_err(got, exact), _rel_block_err(want, exact)
+    n_bad = sum(int((~torch.isfinite(b)).sum()) for b in want)
+    ms = cuda_ms(lambda: tig.chain_factor_blocks(d, d.states), 20)
+    plain_ms = cuda_ms(lambda: tig.chain_factor_blocks_reference(
+        d, d.states), 3)
+    print(f"probe imu_chain_blocks {name}: K {d.states.shape[0]}, kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms; non-finite entries "
+          f"{n_bad}, placement equal {same}; |diff| / block max {rel:.3e} "
+          f"elsewhere ({worst}); from the float64 blocks: kernel "
+          f"{max(k64.values(), default=0.0):.3e}, plain "
+          f"{max(p64.values(), default=0.0):.3e}", flush=True)
+    if not (same and rel <= 1e-4):
+        raise AssertionError(f"imu_chain_blocks {name}: placement {same}, "
+                             f"{rel}")
+    return rel
+
+
+def preint_probe(name, args, kw):
+    """One `probe preintegrate` line: preintegrate on the card (the kernel)
+    against preintegrate_reference on the card with the same arguments,
+    held by tests/imu_chain_scenes.py's preint_agreement: up to 64 live
+    samples dR, dv, dp, dt and the bias Jacobians within 1e-6 of max(1,
+    their largest entry) and cov within rtol 1e-5 with a floor of 1e-7 of
+    its largest entry; above, 1e-5 and a floor of 1e-6, where the kernel is
+    as near a float64 run of the plain version as the plain version is,
+    within a factor of 2; two launches bitwise.  Kernel ms: the launch
+    alone; the entry point's beside it.  Returns the probe's record."""
+    import torch
+
+    import imu_chain_scenes as ics
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tpre)
+    n = args[0].shape[0]
+    mask = args[3]
+    l0 = tpre.preintegrate.launches
+    got = tpre.preintegrate(*args, **kw)
+    launches = tpre.preintegrate.launches - l0
+    again = tpre.preintegrate(*args, **kw)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tpre.preintegrate_reference(*args, **kw)
+    ok, rep = ics.preint_agreement(got, want, args, kw)
+    live, errs = rep["live"], rep["errs"]
+    # the launch alone on the entry point's prepared inputs, and the entry
+    # point (its copies of strided samples, uploads and allocations)
+    dev = args[0].device
+    acc, gyr, dt = tpre._samples(*args[:3])
+    m, ba, bg = (tpre._device_mask(mask, n, dev), tpre._vec3(args[4], dev),
+                 tpre._vec3(args[5], dev))
+    var = [float(v) for v in (*args[6:], *kw.values())] + [1e-8]
+    ms = cuda_ms(lambda: kernels.launch_preintegrate(
+        acc, gyr, dt, m, ba, bg, got, acc_var=var[0], gyr_var=var[1],
+        int_var=var[2]), 20)
+    entry_ms = cuda_ms(lambda: tpre.preintegrate(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: tpre.preintegrate_reference(*args, **kw), 2)
+    b_ms, b_by = sample_bound(n, live, PREINT_OPS_SAMPLE, 148 * 4)
+    rec = dict(N=n, live=live, launches=launches, ms=ms, entry_ms=entry_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(errs.values()), bitwise=bitwise)
+    print(f"probe preintegrate {name}: {n} samples, {live} live, {launches} "
+          f"launch: kernel {ms:.4f} ms (the entry point {entry_ms:.4f} ms), "
+          f"plain {plain_ms:.2f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}, {b_ms / ms:.3%} of it); |diff| max "
+          + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
+          + f", the cov floor it needs {rep['cov_floor_needed']:.2e} of the "
+          f"largest entry" + ("".join(
+              f"; from the float64 plain version, {w} (leaves, cov) "
+              f"{rep[k][0]:.3e}, {rep[k][1]:.3e}"
+              for w, k in (("kernel", "kernel_f64"), ("plain", "plain_f64")))
+              if "kernel_f64" in rep else "")
+          + f" (within bounds {ok}); two launches bitwise {bitwise}",
+          flush=True)
+    if not (ok and bitwise and launches == 1):
+        raise AssertionError(f"preintegrate {name}: {errs}, bitwise "
+                             f"{bitwise}, launches {launches}")
+    return rec
+
+
+def propagate_probe(name, args, kw):
+    """One `probe propagate_states` line: propagate_states on the card
+    against propagate_states_reference on the card: R, p, v within 1e-5 of
+    max(1, their largest entry), two launches bitwise.  Kernel ms: the
+    launch alone; the entry point's beside it.  Returns the probe's
+    record."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tpre)
+    n = args[3].shape[0]
+    mask = args[6]
+    live = n if mask is None else int(torch.as_tensor(mask).sum())
+    l0 = tpre.propagate_states.launches
+    got = tpre.propagate_states(*args, **kw)
+    launches = tpre.propagate_states.launches - l0
+    again = tpre.propagate_states(*args, **kw)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tpre.propagate_states_reference(*args, **kw)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    ok = all(e <= 1e-5 * max(1.0, float(b.abs().max()))
+             for e, b in zip(errs, want))
+    dev = args[3].device
+    acc, gyr, dt = tpre._samples(*args[3:6])
+    m, ba, bg = (tpre._device_mask(mask, n, dev), tpre._vec3(args[1], dev),
+                 tpre._vec3(args[2], dev))
+    nav = tpre.NavState(*(t.contiguous() for t in args[0]))
+    gravity = float(kw.get("gravity", args[7] if len(args) > 7 else 9.80511))
+    ms = cuda_ms(lambda: kernels.launch_propagate_states(
+        nav, ba, bg, acc, gyr, dt, m, got, gravity=gravity), 20)
+    entry_ms = cuda_ms(lambda: tpre.propagate_states(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: tpre.propagate_states_reference(*args, **kw),
+                       2)
+    b_ms, b_by = sample_bound(n, live, PROPAGATE_OPS_SAMPLE, 60 * n)
+    rec = dict(N=n, live=live, launches=launches, ms=ms, entry_ms=entry_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(errs), bitwise=bitwise)
+    print(f"probe propagate_states {name}: {n} samples, {live} live, "
+          f"{launches} launch: kernel {ms:.4f} ms (the entry point "
+          f"{entry_ms:.4f} ms), plain {plain_ms:.2f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by}, {b_ms / ms:.3%} of it); R, p, v "
+          f"|diff| max {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e} (within "
+          f"1e-5 {ok}); two launches bitwise {bitwise}", flush=True)
+    if not (ok and bitwise and launches == 1):
+        raise AssertionError(f"propagate_states {name}: {errs}, bitwise "
+                             f"{bitwise}, launches {launches}")
+    return rec
+
+
+def imu_probes(dev):
+    """The probe lines of the IMU odometry's kernels: `probe imu_chain_lm`
+    at (a) phase 9's last full window, (b) its first correction after a
+    window reset, (c) K 100 (tests/imu_chain_scenes.py), (d) the edge
+    scenes of tests/imu_chain_scenes.py;
+    `probe imu_chain_blocks` on (a) and the scenes; `probe preintegrate` and
+    `probe propagate_states` at phase 9's interval, a 64-sample capped
+    interval and a 1024-sample buffer with interior masked samples.
+    Returns {"chain": {name: record}, "blocks_max_rel_err": x, "preint":
+    {...}, "propagate": {...}}."""
+    import torch
+
+    import imu_chain_scenes as ics
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tpre)
+    chain = {}
+    for name in ("(a) phase 9 last full window",
+                 "(b) phase 9 first correction after a reset"):
+        chain[name] = chain_probe(name, IMU_INPUTS[name])
+    chain["(c) K 100"] = chain_probe("(c) K 100", ics.scene("k100", dev))
+    for sc in ics.CPU_SCENES:
+        chain[f"(d) {sc}"] = chain_probe(
+            f"(d) {sc}", ics.scene(sc, dev),
+            unchanged=sc in ("nan_cov", "near_pi_axis"))
+    blk = [chain_blocks_probe("(a) phase 9 last full window",
+                              IMU_INPUTS["(a) phase 9 last full window"])]
+    blk += [chain_blocks_probe(f"(d) {sc}", ics.scene(sc, dev))
+            for sc in ics.SCENES]
+    preint, prop = {}, {}
+    a, kw = IMU_INPUTS["preintegrate"]
+    preint["phase 9 interval"] = preint_probe("phase 9 interval", a, kw)
+    a, kw = IMU_INPUTS["propagate"]
+    prop["phase 9 stream"] = propagate_probe("phase 9 stream", a, kw)
+    nav = tpre.NavState(
+        torch.from_numpy(ics.rot((0.1, -0.2, 0.7)).astype(np.float32)).to(
+            dev), torch.tensor([1.0, -2.0, 0.5], device=dev),
+        torch.tensor([1.2, 0.1, 0.0], device=dev))
+    for kind, name in (("cap64", "64-sample capped interval"),
+                       ("buffer1024", "1024-sample buffer, interior "
+                                      "masked samples")):
+        acc, gyr, dt, m, ba, bg = ics.buffer(kind, dev)
+        preint[name] = preint_probe(name, (acc, gyr, dt, m, ba, bg,
+                                           ics.ACC_VAR, ics.GYR_VAR), {})
+        prop[name] = propagate_probe(name, (nav, ba, bg, acc, gyr, dt, m),
+                                     dict(gravity=ics.G))
+    return {"chain": chain, "blocks_max_rel_err": max(blk),
+            "preint": preint, "propagate": prop}
 
 
 def sync_counter(fn, counts):
@@ -2869,11 +3346,13 @@ def lio_phase(dev):
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
                "ring_pick": ring_pick_wrapper(),
-               "rounds_gn": rounds_gn_wrapper(), **pose_graph_counters()}
+               "rounds_gn": rounds_gn_wrapper(), **pose_graph_counters(),
+               **imu_counters()}
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": False}
     checked_fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
     timer = StageTimer(dev)
+    chain_calls, clone_ms = [], {"ms": 0.0}
     topo, ekf, nav, stream = topology(dev)
     log = topo.slam._log
     odo = topo.odo
@@ -2886,9 +3365,12 @@ def lio_phase(dev):
     real = {(m, n): getattr(m, n) for m, n, _ in module_fns}
     routes = []
     for m, n, stage in module_fns:
-        setattr(m, n, timer.wrap(stage, lm_route_recorder(
+        timed = timer.wrap(stage, lm_route_recorder(
             real[(m, n)], routes) if n == "optimize_pose_graph"
-            else real[(m, n)]))
+            else real[(m, n)])
+        # the chain data cloned outside the stage's timing
+        setattr(m, n, chain_recorder(timed, chain_calls, clone_ms)
+                if n == "optimize_imu_chain" else timed)
     timed_handle = timer.wrap("handle_odometry", odo.handle_odometry)
     profiled = {}
 
@@ -2909,12 +3391,13 @@ def lio_phase(dev):
     odo.handle_odometry = handle_odometry
     odo.flush_imu_odometry = timer.wrap("flush_imu_odometry",
                                         odo.flush_imu_odometry)
-    resets = []
+    resets, reset_at = [], []
     reset_window = odo._reset_window
 
     def counted_reset():
         resets.append((odo.key, getattr(odo, "_last_chain_data", None)
                        is not None))
+        reset_at.append(len(chain_calls))
         reset_window()
     odo._reset_window = counted_reset
     # the SLAM calls in order (add_gps and step), for the resume check
@@ -2949,6 +3432,7 @@ def lio_phase(dev):
             kf_before = topo.slam.n_keyframes
             copied = bool(profiled)
             stages0 = {n_: sum(v) for n_, v in timer.ms.items()}
+            clone0 = clone_ms["ms"]
             timer.sync()
             t0 = time.perf_counter()
             with warnings.catch_warnings(record=True) as caught:
@@ -2966,9 +3450,11 @@ def lio_phase(dev):
                     raise AssertionError(f"phase 9 input {k}: launches {got}"
                                          " before the buffer emitted")
                 continue
-            # the profile's copy of the odometry is not the step's work
+            # the profile's copy of the odometry and the chain data's
+            # clones for the replay in turns are not the step's work
             wall.append((time.perf_counter() - t0) * 1e3 - (
-                profiled["copy_ms"] if profiled and not copied else 0.0))
+                profiled["copy_ms"] if profiled and not copied else 0.0)
+                - (clone_ms["ms"] - clone0))
             stage_ms.append({n_: sum(v) - stages0.get(n_, 0.0)
                              for n_, v in timer.ms.items()})
             syncs.append(sum("synchroniz" in str(w_.message)
@@ -2983,6 +3469,14 @@ def lio_phase(dev):
                     or (want and ks != {LOC_K})):
                 raise AssertionError(f"phase 9 step {len(ests)}: launches "
                                      f"{got}, K {ks}")
+            # the IMU correction: one chain LM and one preintegration (none
+            # at the initialization), a marginal's blocks at a window
+            # reset, a flush's and a re-propagation's propagate
+            if not (got["imu_chain_lm"] == got["preintegrate"] <= 1
+                    and got["imu_chain_blocks"] <= got["imu_chain_lm"]
+                    and got["propagate_states"] <= 2):
+                raise AssertionError(f"phase 9 step {len(ests)}: IMU "
+                                     f"launches {got}")
             registered += want > 0
             if len(ests) == LIO_CKPT:
                 tckpt.save_checkpoint(topo.slam, ckpt_dir)
@@ -3054,6 +3548,32 @@ def lio_phase(dev):
                              f"failures {len(failures)}")
     if not gps:
         raise AssertionError("phase 9: no GPS factor")
+    flushes = sum(out is not None
+                  for _, _, out in timer.calls["flush_imu_odometry"])
+    n_corr = len(timer.calls["chain LM"])
+    n_prop = len(timer.calls["propagate"])
+    print(f"phase 9 IMU kernels: {n_corr} corrections, imu_chain_lm "
+          f"{launches['imu_chain_lm']} launches, preintegrate "
+          f"{launches['preintegrate']}, imu_chain_blocks "
+          f"{launches['imu_chain_blocks']} ({n_marginal} window resets "
+          f"through the marginal), propagate_states "
+          f"{launches['propagate_states']} ({flushes} flushes, "
+          f"{n_prop - flushes} re-propagations)", flush=True)
+    if not (launches["imu_chain_lm"] == launches["preintegrate"] == n_corr
+            == len(chain_calls) == len(timer.calls["preintegrate"]) > 0
+            and launches["imu_chain_blocks"] == n_marginal
+            and launches["propagate_states"] == n_prop > flushes > 0):
+        raise AssertionError(f"phase 9: IMU launches {launches}, "
+                             f"corrections {n_corr}, propagations "
+                             f"{n_prop}, flushes {flushes}")
+    full = [a[0] for a, _, _ in chain_calls if bool(a[0].state_mask.all())]
+    after = chain_calls[reset_at[0]][0][0]
+    if not (full and int(after.state_mask.sum()) == 2):
+        raise AssertionError("phase 9: no full window or reset window kept")
+    IMU_INPUTS["(a) phase 9 last full window"] = full[-1]
+    IMU_INPUTS["(b) phase 9 first correction after a reset"] = after
+    IMU_INPUTS["preintegrate"] = timer.calls["preintegrate"][-1][:2]
+    IMU_INPUTS["propagate"] = timer.calls["propagate"][-1][:2]
 
     # ---- accuracy against the truth (the map frame is the truth's) ----
     est = np.stack(ests)
@@ -3132,7 +3652,8 @@ def lio_phase(dev):
           f"{equal}, pose |diff| max {d_res:.3e} (bound 1e-5); repeated on "
           f"the same inputs, the window pose-graph LM (the pose_graph_lm "
           f"kernel) bitwise {torch.equal(lm[0], lm[1])}, the IMU chain "
-          f"LM (no scatter) bitwise {torch.equal(ch[0], ch[1])}", flush=True)
+          f"LM (the imu_chain_lm kernel) bitwise "
+          f"{torch.equal(ch[0], ch[1])}", flush=True)
     if not (n_steps == LIO_RESUMED and d_res <= 1e-5):
         raise AssertionError(f"phase 9: resumed {n_steps} steps, {d_res}")
 
@@ -3155,6 +3676,11 @@ def lio_phase(dev):
           f"{max(syncs[LIO_CHECKED + 1:])}", flush=True)
     print_lm_in_turns("phase 9", timer.calls["pose graph LM"], len(ests),
                       steps_ms.mean())
+    k_step, p_step = print_lm_in_turns("phase 9", chain_calls, len(ests),
+                                       steps_ms.mean(), lm="imu_chain_lm")
+    IMU_INPUTS["in_turns"] = dict(kernel_ms_step=k_step,
+                                  parent_loop_ms_step=p_step,
+                                  lio_step_ms=float(steps_ms.mean()))
     worst = LIO_CHECKED + 1 + int(np.argmax(steps_ms))
     print(f"time phase 9 slowest step: step {worst} (t {t_ests[worst]:.1f}"
           f" s) {wall[worst]:.2f} ms: " + ", ".join(
@@ -4488,6 +5014,13 @@ def main():
     main_lm = rp_lm["(a) phase 8 window"]
     kt["pose_graph_lm"] = (main_lm["ms"], main_lm["plain_ms"])
     bounds["pose_graph_lm"] = (main_lm["bound_ms"], main_lm["bound_by"])
+    rp_imu = imu_probes(dev)
+    for name, rec in (("imu_chain_lm", rp_imu["chain"][
+            "(a) phase 9 last full window"]),
+                      ("preintegration", rp_imu["preint"][
+                          "phase 9 interval"])):
+        kt[name] = (rec["ms"], rec["plain_ms"])
+        bounds[name] = (rec["bound_ms"], rec["bound_by"])
     sh_launches, sh_err = sharded_phase(dev, types.SimpleNamespace(
         feats=feats3, guesses=guesses_t, fmap=fmap, center=center, half=half,
         tabs=tabs, rtabs=rtabs, queries_surf=queries["surf"][1],
@@ -4588,6 +5121,36 @@ def main():
                   "max_abs_err", "cost_rel_err", "accepts_equal",
                   "bitwise")}
                       for n, r in rp_lm.items() if isinstance(r, dict)}),
+        entry("imu_chain_lm", "imu_chain_lm.cu",
+              xla_loop_line("imu_graph.py", "lax.scan(", sub="graph"),
+              lio_launches["imu_chain_lm"],
+              max(r["max_abs_err"] for r in rp_imu["chain"].values()),
+              "imu_chain_lm",
+              launches_blocks=lio_launches["imu_chain_blocks"],
+              max_rel_err_blocks=rp_imu["blocks_max_rel_err"],
+              phase9_in_turns=IMU_INPUTS["in_turns"],
+              probes={n: {k: r[k] for k in (
+                  "K", "live", "iterations", "ms", "plain_ms", "bound_ms",
+                  "bound_by", "max_abs_err", "cost_rel_err",
+                  "accepts_equal", "bitwise")}
+                      for n, r in rp_imu["chain"].items()}),
+        entry("preintegration", "preintegration.cu",
+              xla_loop_line("preintegration.py", "lax.scan(body, init",
+                            sub="imu"),
+              lio_launches["preintegrate"],
+              max(r["max_abs_err"] for r in rp_imu["preint"].values()),
+              "preintegration",
+              launches_propagate_states=lio_launches["propagate_states"],
+              max_abs_err_propagate_states=max(
+                  r["max_abs_err"] for r in rp_imu["propagate"].values()),
+              propagate_states={k: rp_imu["propagate"]["phase 9 stream"][k]
+                                for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")},
+              probes={f"{kind} {n}": {k: r[k] for k in (
+                  "N", "live", "ms", "entry_ms", "plain_ms", "bound_ms",
+                  "bound_by", "max_abs_err", "bitwise")}
+                      for kind in ("preint", "propagate")
+                      for n, r in rp_imu[kind].items()}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

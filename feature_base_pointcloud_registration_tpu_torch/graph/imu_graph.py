@@ -27,6 +27,18 @@ additions, with no scatter, so it is deterministic on every device.  The LM
 loop makes no host decision: a step is accepted with `torch.where`, and a
 failed factorization is a rejected step.  Marginal covariances are solved
 on the host in float64, as in the JAX package.
+
+The JAX package compiles the LM steps into one device loop (`lax.scan`).
+`optimize_imu_chain` and `chain_factor_blocks` dispatch by the chain's
+device:
+
+  * CPU tensors run `optimize_imu_chain_reference` /
+    `chain_factor_blocks_reference`, the loop above driven from the host;
+  * CUDA tensors launch `csrc/imu_chain_lm.cu`: the whole LM in one launch
+    of one CTA (`fbpr_imu_chain_lm`; H's block-tridiagonal structure
+    factored block by block in global scratch, every window size), or
+    the factor blocks (`fbpr_imu_chain_blocks`), with no host read;
+  * any other device raises.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..geom.se3 import euler_to_rot, so3_exp, so3_log
 from ..imu.preintegration import PreintState
 from .pose_graph import _with_jacobians
@@ -221,8 +234,11 @@ def _assemble(d: ImuChainData, states, L):
     return H, grad
 
 
-def optimize_imu_chain(d: ImuChainData, iterations: int = 5):
-    """LM over the masked IMU chain window; returns (states, cost)."""
+def optimize_imu_chain_reference(d: ImuChainData, iterations: int = 5,
+                                 accepts: list | None = None):
+    """Plain PyTorch version of `optimize_imu_chain` on any device: the LM
+    steps driven from the host.  accepts: a list that gets each step's
+    accept flag (a bool tensor)."""
     K = d.states.shape[0]
     L = _whitener(d)
     active = d.state_mask.repeat_interleave(STATE_DIM)
@@ -243,6 +259,8 @@ def optimize_imu_chain(d: ImuChainData, iterations: int = 5):
         new_cost = _cost(d, new_states, L)
         # a failed factorization is a rejected step (the JAX solve's NaN)
         accept = (info == 0) & (new_cost < cost)
+        if accepts is not None:
+            accepts.append(accept)
         states = torch.where(accept, new_states, states)
         cost = torch.where(accept, new_cost, cost)
         lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-6),
@@ -250,10 +268,109 @@ def optimize_imu_chain(d: ImuChainData, iterations: int = 5):
     return states, cost
 
 
+def _check_chain(d: ImuChainData):
+    """The kernel's contract: float32 (bool masks) of the chain's shapes,
+    every tensor on the states' device."""
+    K = d.states.shape[0] if d.states.dim() == 2 else 0
+    f32, b8 = torch.float32, torch.bool
+    want = {"states": ((K, STATE_DIM), f32), "state_mask": ((K,), b8),
+            "preint_mask": ((K,), b8), "pose_meas": ((K, 6), f32),
+            "pose_sigma": ((K, 6), f32), "pose_meas_mask": ((K,), b8),
+            "prior_state": ((STATE_DIM,), f32),
+            "prior_sigma": ((STATE_DIM,), f32), "bias_sigma": ((6,), f32),
+            "gravity": ((), f32)}
+    leaves = {"dR": (3, 3), "dv": (3,), "dp": (3,), "dt": (),
+              "dR_dbg": (3, 3), "dv_dba": (3, 3), "dv_dbg": (3, 3),
+              "dp_dba": (3, 3), "dp_dbg": (3, 3), "cov": (9, 9),
+              "bias_acc": (3,), "bias_gyr": (3,)}
+    tensors = {n: getattr(d, n) for n in want}
+    for n, shape in leaves.items():
+        want[f"preint.{n}"] = ((K, *shape), f32)
+        tensors[f"preint.{n}"] = getattr(d.preint, n)
+    if K == 0:
+        raise ValueError(f"states must be float32 (K, 15) with K >= 1, got "
+                         f"{d.states.dtype} {tuple(d.states.shape)}")
+    for name, (shape, dtype) in want.items():
+        t = tensors[name]
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != d.states.device:
+            raise ValueError(f"{name} is on {t.device}, states on "
+                             f"{d.states.device}")
+
+
+def _contiguous(d: ImuChainData) -> ImuChainData:
+    return ImuChainData(*(PreintState(*(t.contiguous() for t in x))
+                          if isinstance(x, PreintState) else x.contiguous()
+                          for x in d))
+
+
+def optimize_imu_chain(d: ImuChainData, iterations: int = 5,
+                       accepts: list | None = None):
+    """LM over the masked IMU chain window; returns (states, cost).  CPU
+    tensors run `optimize_imu_chain_reference`; CUDA tensors launch
+    `fbpr_imu_chain_lm` (every iteration in one launch), or raise.
+    accepts: a list that gets each step's accept flag (a bool tensor)."""
+    dev = d.states.device
+    if dev.type == "cpu":
+        return optimize_imu_chain_reference(d, iterations, accepts)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_chain(d)
+    d = _contiguous(d)
+    K = d.states.shape[0]
+    iterations = max(iterations, 0)
+    states = torch.empty_like(d.states)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    acc = torch.zeros(iterations, dtype=torch.int32, device=dev)
+    scratch = torch.empty(kernels.imu_chain_floats(K), dtype=torch.float32,
+                          device=dev)
+    kernels.launch_imu_chain_lm(d, iterations, states, cost, acc, scratch)
+    optimize_imu_chain.launches += 1
+    if accepts is not None:
+        accepts.extend(acc != 0)
+    return states, cost
+
+
+optimize_imu_chain.launches = 0
+
+
+def chain_factor_blocks_reference(d: ImuChainData, states):
+    """Plain PyTorch version of `chain_factor_blocks` on any device."""
+    return _all_residuals_and_jacs(d, states, _whitener(d))
+
+
 def chain_factor_blocks(d: ImuChainData, states):
     """Whitened per-factor residual/Jacobian blocks at `states`:
-    ((r_imu, Ji, Jj), (r_b, Jbi, Jbj), (r_pp, Jpp), (r_0, J_0))."""
-    return _all_residuals_and_jacs(d, states, _whitener(d))
+    ((r_imu, Ji, Jj), (r_b, Jbi, Jbj), (r_pp, Jpp), (r_0, J_0)).  CPU
+    tensors run the plain version; CUDA tensors launch
+    `fbpr_imu_chain_blocks`, or raise."""
+    dev = d.states.device
+    if states.device != dev:
+        raise ValueError(f"states are on {states.device}, the chain on {dev}")
+    if dev.type == "cpu":
+        return chain_factor_blocks_reference(d, states)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    d = d._replace(states=states)
+    _check_chain(d)
+    d = _contiguous(d)
+    K = states.shape[0]
+
+    def e(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    out = ((e(K, 9), e(K, 9, STATE_DIM), e(K, 9, STATE_DIM)),
+           (e(K, 6), e(K, 6, STATE_DIM), e(K, 6, STATE_DIM)),
+           (e(K, 6), e(K, 6, STATE_DIM)),
+           (e(STATE_DIM), e(STATE_DIM, STATE_DIM)))
+    kernels.launch_imu_chain_blocks(d, d.states, out)
+    chain_factor_blocks.launches += 1
+    return out
+
+
+chain_factor_blocks.launches = 0
 
 
 def state_marginal_covariance(d: ImuChainData, states, idx: int):

@@ -12,12 +12,20 @@ with first-order bias Jacobians and 9x9 (theta, v, p) covariance
 propagation, in float32 and in the JAX package's order of operations.
 
 The JAX package scans a fixed-size masked buffer, where a masked slot
-leaves the state unchanged.  Here the mask is read on the host and only the
-live samples are integrated (each one a chain of small device ops): the
-result is the same, and a 1024-slot buffer with 20 live samples costs 20
-steps, not 1024.  What does not depend on the running state (the bias-
-corrected samples, Exp(w dt), the right Jacobian) is computed for all live
-samples at once before the serial chain.
+leaves the state unchanged (two compiled device loops, `lax.scan`).
+`preintegrate` and `propagate_states` dispatch by the samples' device:
+
+  * CPU tensors run `preintegrate_reference` / `propagate_states_reference`:
+    the mask read on the host and only the live samples integrated, each
+    one a chain of small device ops (the result is the same, and a
+    1024-slot buffer with 20 live samples costs 20 steps, not 1024); what
+    does not depend on the running state (the bias-corrected samples,
+    Exp(w dt), the right Jacobian) is computed for all live samples at
+    once before the serial chain;
+  * CUDA tensors launch `csrc/preintegration.cu` (`fbpr_preintegrate`,
+    `fbpr_propagate_states`): one launch a call, the mask read on the
+    device, nothing read back;
+  * any other device raises.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..geom.se3 import so3_exp
 
 
@@ -179,13 +188,10 @@ def integrate_measurement(state: PreintState, acc, gyr, dt,
     return _integrate(state, terms[0][0], dt, *(t[0] for t in terms[1:]))
 
 
-def preintegrate(acc, gyr, dt, mask, bias_acc, bias_gyr,
-                 acc_noise_var, gyr_noise_var, int_noise_var=1e-8):
-    """Integrate the live samples of a buffer into one PreintState.
-
-    acc, gyr: [N,3]; dt: [N] tensors on the device; mask: [N] (numpy,
-    tensor or None = all live; read on the host) — masked samples are
-    skipped, as the JAX scan skips them."""
+def preintegrate_reference(acc, gyr, dt, mask, bias_acc, bias_gyr,
+                           acc_noise_var, gyr_noise_var, int_noise_var=1e-8):
+    """Plain PyTorch version of `preintegrate` on any device (the mask read
+    on the host)."""
     live = _live(mask, acc.shape[0])
     state = PreintState.zero(bias_acc, bias_gyr, device=acc.device)
     if len(live) == 0:
@@ -234,14 +240,10 @@ def failure_detection(vel, bias_acc, bias_gyr,
             | (torch.linalg.norm(bias_gyr) > bias_limit))
 
 
-def propagate_states(nav: NavState, bias_acc, bias_gyr, acc, gyr, dt, mask,
-                     gravity=9.80511):
-    """NavState at every IMU sample time (the imuHandler prediction stream,
-    ref: src/imuPreintegration.cpp:440-446 per sample).
-
-    acc, gyr: [N,3]; dt: [N] tensors; mask: [N] (numpy, tensor or None;
-    read on the host).  Returns NavState with leading [N]; a masked sample
-    repeats the state before it, as in the JAX scan."""
+def propagate_states_reference(nav: NavState, bias_acc, bias_gyr, acc, gyr,
+                               dt, mask, gravity=9.80511):
+    """Plain PyTorch version of `propagate_states` on any device (the mask
+    read on the host)."""
     n = acc.shape[0]
     live = set(_live(mask, n).tolist())
     g = torch.tensor([0.0, 0.0, -gravity], device=acc.device)
@@ -258,3 +260,112 @@ def propagate_states(nav: NavState, bias_acc, bias_gyr, acc, gyr, dt, mask,
                            v=nav.v + acc_w * d)
         out.append(nav)
     return NavState(*(torch.stack(f) for f in zip(*out)))
+
+
+def _device_mask(mask, n, dev):
+    """The mask as a contiguous bool [n] tensor on dev (an upload from a
+    host array or tensor), or None (every sample live)."""
+    if mask is None:
+        return None
+    m = torch.as_tensor(np.asarray(mask, bool) if not isinstance(
+        mask, torch.Tensor) else mask, device=dev).to(torch.bool)
+    if tuple(m.shape) != (n,):
+        raise ValueError(f"mask must be [{n}], got {tuple(m.shape)}")
+    return m.contiguous()
+
+
+def _samples(acc, gyr, dt):
+    """acc, gyr [N, 3] and dt [N]: float32, contiguous, on acc's device."""
+    n = acc.shape[0]
+    for name, t, shape in (("acc", acc, (n, 3)), ("gyr", gyr, (n, 3)),
+                           ("dt", dt, (n,))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != acc.device:
+            raise ValueError(f"{name} is on {t.device}, acc on {acc.device}")
+    return acc.contiguous(), gyr.contiguous(), dt.contiguous()
+
+
+def _vec3(x, dev):
+    """A bias: float32 [3] on dev."""
+    t = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    if tuple(t.shape) != (3,):
+        raise ValueError(f"a bias must be [3], got {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def preintegrate(acc, gyr, dt, mask, bias_acc, bias_gyr,
+                 acc_noise_var, gyr_noise_var, int_noise_var=1e-8):
+    """Integrate the live samples of a buffer into one PreintState.
+
+    acc, gyr: [N,3]; dt: [N] tensors on the device; mask: [N] (numpy,
+    tensor or None = all live) — masked samples are skipped, as the JAX
+    scan skips them.  CPU tensors run `preintegrate_reference`; CUDA
+    tensors launch `fbpr_preintegrate` (the mask on the device), or
+    raise."""
+    dev = acc.device
+    if dev.type == "cpu":
+        return preintegrate_reference(acc, gyr, dt, mask, bias_acc, bias_gyr,
+                                      acc_noise_var, gyr_noise_var,
+                                      int_noise_var)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    acc, gyr, dt = _samples(acc, gyr, dt)
+    m = _device_mask(mask, acc.shape[0], dev)
+    ba, bg = _vec3(bias_acc, dev), _vec3(bias_gyr, dev)
+
+    def e(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    out = PreintState(dR=e(3, 3), dv=e(3), dp=e(3), dt=e(), dR_dbg=e(3, 3),
+                      dv_dba=e(3, 3), dv_dbg=e(3, 3), dp_dba=e(3, 3),
+                      dp_dbg=e(3, 3), cov=e(9, 9), bias_acc=e(3),
+                      bias_gyr=e(3))
+    kernels.launch_preintegrate(
+        acc, gyr, dt, m, ba, bg, out, acc_var=float(acc_noise_var),
+        gyr_var=float(gyr_noise_var), int_var=float(int_noise_var))
+    preintegrate.launches += 1
+    return out
+
+
+preintegrate.launches = 0
+
+
+def propagate_states(nav: NavState, bias_acc, bias_gyr, acc, gyr, dt, mask,
+                     gravity=9.80511):
+    """NavState at every IMU sample time (the imuHandler prediction stream,
+    ref: src/imuPreintegration.cpp:440-446 per sample).
+
+    acc, gyr: [N,3]; dt: [N] tensors; mask: [N] (numpy, tensor or None).
+    Returns NavState with leading [N]; a masked sample repeats the state
+    before it, as in the JAX scan.  CPU tensors run
+    `propagate_states_reference`; CUDA tensors launch
+    `fbpr_propagate_states` (the mask on the device), or raise."""
+    dev = acc.device
+    if dev.type == "cpu":
+        return propagate_states_reference(nav, bias_acc, bias_gyr, acc, gyr,
+                                          dt, mask, gravity)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    acc, gyr, dt = _samples(acc, gyr, dt)
+    n = acc.shape[0]
+    if n == 0:
+        raise ValueError("propagate_states needs at least one sample")
+    m = _device_mask(mask, n, dev)
+    nav = NavState(*(torch.as_tensor(t, dtype=torch.float32,
+                                     device=dev).contiguous() for t in nav))
+    if tuple(nav.R.shape) != (3, 3) or nav.p.shape != (3,) \
+            or nav.v.shape != (3,):
+        raise ValueError("nav must be R [3, 3], p [3], v [3]")
+    out = NavState(torch.empty(n, 3, 3, device=dev),
+                   torch.empty(n, 3, device=dev),
+                   torch.empty(n, 3, device=dev))
+    kernels.launch_propagate_states(
+        nav, _vec3(bias_acc, dev), _vec3(bias_gyr, dev), acc, gyr, dt, m,
+        out, gravity=float(gravity))
+    propagate_states.launches += 1
+    return out
+
+
+propagate_states.launches = 0

@@ -10,14 +10,16 @@ the nvcc processes of all sources run at once):
 The build runs at first use, into `build/` beside the package (the file name
 carries a hash of the flags, the source and the `csrc/` headers it
 includes, so an edited source or header rebuilds).  `SOURCE_FLAGS` adds a
-source's own flags (rounds_gn.cu, pose_graph_lm.cu: no FMA contraction).
+source's own flags (rounds_gn.cu, pose_graph_lm.cu, imu_chain_lm.cu,
+preintegration.cu: no FMA contraction).
 Importing this module builds nothing: the CPU tests import every module.
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns `cudaGetLastError()`; the launch
 helpers below raise when it is not 0.  Validation of shapes, dtypes and
 devices is the callers' (`ops/fetch.py`, `ops/gn_round.py`,
-`ops/rounds_gn.py`, `ops/features.py`, `graph/pose_graph.py`).
+`ops/rounds_gn.py`, `ops/features.py`, `graph/pose_graph.py`,
+`graph/imu_graph.py`, `imu/preintegration.py`).
 """
 
 from __future__ import annotations
@@ -49,14 +51,17 @@ POSE_GRAPH_LM_MAX_LIVE = 38  # csrc/pose_graph_lm.cu kMaxLive: route A's H
                              # (6n x (6n + 1) floats) and buffers fit 227 KB
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Flags of one source on top of NVCC_FLAGS.  rounds_gn.cu and
-# pose_graph_lm.cu stand for the port's plain-PyTorch loop bodies, whose
-# operations round one by one: their multiply-adds are not contracted into
-# FMAs (chip_smoke.py's probe (b) prints rounds_gn's FMA build beside it;
-# the pose graph's factors repeat the plain version's dual-number
-# operations, whose NaN and infinite Jacobian entries must fall where the
-# plain version's do).
-SOURCE_FLAGS = {"rounds_gn": ["-fmad=false"], "pose_graph_lm": ["-fmad=false"]}
+# Flags of one source on top of NVCC_FLAGS.  rounds_gn.cu,
+# pose_graph_lm.cu, imu_chain_lm.cu and preintegration.cu stand for the
+# port's plain-PyTorch loop bodies, whose operations round one by one: their
+# multiply-adds are not contracted into FMAs (chip_smoke.py's probe (b)
+# prints rounds_gn's FMA build beside it; the pose graph's and the IMU
+# chain's factors repeat the plain version's dual-number operations, whose
+# NaN and infinite Jacobian entries must fall where the plain version's
+# do).
+SOURCE_FLAGS = {"rounds_gn": ["-fmad=false"], "pose_graph_lm": ["-fmad=false"],
+                "imu_chain_lm": ["-fmad=false"],
+                "preintegration": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,6 +71,10 @@ _F = ctypes.c_float
 # (prior, between i, between j, GPS), then meas, sigma, mask of each kind,
 # Fp, Fb, Fg
 _FACTORS = [_P] * 10 + [_I] * 3
+# an IMU chain (csrc/imu_chain.cuh ChainData): states, state_mask, the
+# twelve preintegration leaves, preint_mask, pose_meas, pose_sigma,
+# pose_meas_mask, prior_state, prior_sigma, bias_sigma, gravity; K
+_CHAIN = [_P] * 22 + [_I]
 _SIGNATURES = {
     # table, rows, W, bcell, qx, qy, qz, Q, K, d2, cand, stream
     "fbpr_block_fetch": [_P, _L, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P],
@@ -95,6 +104,18 @@ _SIGNATURES = {
     # poses, K, *_FACTORS, r_p, J_p, r_b, J_bi, J_bj, r_g, J_g, stream
     "fbpr_pose_graph_blocks": [_P, _I, *_FACTORS, _P, _P, _P, _P, _P, _P, _P,
                                _P],
+    # *_CHAIN, iterations, scratch, scratch floats, out_states, out_cost,
+    # accepts, stream
+    "fbpr_imu_chain_lm": [*_CHAIN, _I, _P, _L, _P, _P, _P, _P],
+    # *_CHAIN, states, r_imu, Ji, Jj, r_b, Jbi, Jbj, r_pp, Jpp, r_0, J_0,
+    # stream
+    "fbpr_imu_chain_blocks": [*_CHAIN, _P, *[_P] * 10, _P],
+    # acc, gyr, dt, mask, bias_acc, bias_gyr, acc_var, gyr_var, int_var, N,
+    # the twelve PreintState leaves, stream
+    "fbpr_preintegrate": [*[_P] * 6, _F, _F, _F, _I, *[_P] * 12, _P],
+    # R0, p0, v0, bias_acc, bias_gyr, acc, gyr, dt, mask, -gravity, N, R, p,
+    # v, stream
+    "fbpr_propagate_states": [*[_P] * 9, _F, _I, _P, _P, _P, _P],
 }
 
 
@@ -357,3 +378,88 @@ def launch_pose_graph_blocks(g, ends, out):
             rp.data_ptr(), Jp.data_ptr(), rb.data_ptr(), Jbi.data_ptr(),
             Jbj.data_ptr(), rg.data_ptr(), Jg.data_ptr(), _stream(g.poses))
     _check_rc("fbpr_pose_graph_blocks", rc)
+
+
+def imu_chain_floats(K: int) -> int:
+    """Floats of csrc/imu_chain_lm.cu's chain_floats(K): a solve's states,
+    buffers, whitening factors, factor blocks and H's blocks, its global
+    scratch (the kernel refuses a smaller one)."""
+    return 1182 * K + 240
+
+
+def _chain_args(d):
+    """The IMU chain's arguments (`_CHAIN`) of an ImuChainData with
+    contiguous tensors."""
+    p = d.preint
+    return (d.states.data_ptr(), d.state_mask.data_ptr(), p.dR.data_ptr(),
+            p.dv.data_ptr(), p.dp.data_ptr(), p.dt.data_ptr(),
+            p.dR_dbg.data_ptr(), p.dv_dba.data_ptr(), p.dv_dbg.data_ptr(),
+            p.dp_dba.data_ptr(), p.dp_dbg.data_ptr(), p.cov.data_ptr(),
+            p.bias_acc.data_ptr(), p.bias_gyr.data_ptr(),
+            d.preint_mask.data_ptr(), d.pose_meas.data_ptr(),
+            d.pose_sigma.data_ptr(), d.pose_meas_mask.data_ptr(),
+            d.prior_state.data_ptr(), d.prior_sigma.data_ptr(),
+            d.bias_sigma.data_ptr(), d.gravity.data_ptr(),
+            d.states.shape[0])
+
+
+def launch_imu_chain_lm(d, iterations, out_states, out_cost, accepts,
+                        scratch):
+    """csrc/imu_chain_lm.cu on a validated chain (see graph/imu_graph.py):
+    writes out_states [K, 15], out_cost [] and accepts [iterations]
+    (int32).  scratch: imu_chain_floats(K) float32 of global memory, the
+    solve's working set."""
+    K = d.states.shape[0]
+    if scratch is None or scratch.numel() < imu_chain_floats(K):
+        raise ValueError(f"K={K}: the chain LM needs {imu_chain_floats(K)} "
+                         f"floats of scratch")
+    lib = library()
+    with torch.cuda.device(d.states.device):
+        rc = lib.fbpr_imu_chain_lm(
+            *_chain_args(d), iterations, scratch.data_ptr(), scratch.numel(),
+            out_states.data_ptr(), out_cost.data_ptr(), accepts.data_ptr(),
+            _stream(d.states))
+    _check_rc("fbpr_imu_chain_lm", rc)
+
+
+def launch_imu_chain_blocks(d, states, out):
+    """chain_factor_blocks' kernel at states [K, 15]; out: ((r_imu, Ji,
+    Jj), (r_b, Jbi, Jbj), (r_pp, Jpp), (r_0, J_0)), written."""
+    lib = library()
+    with torch.cuda.device(states.device):
+        rc = lib.fbpr_imu_chain_blocks(
+            *_chain_args(d), states.data_ptr(),
+            *(t.data_ptr() for grp in out for t in grp), _stream(states))
+    _check_rc("fbpr_imu_chain_blocks", rc)
+
+
+def launch_preintegrate(acc, gyr, dt, mask, bias_acc, bias_gyr, out, *,
+                        acc_var: float, gyr_var: float, int_var: float):
+    """csrc/preintegration.cu's fbpr_preintegrate on validated CUDA tensors
+    (see imu/preintegration.py); mask: bool [N] or None (every sample
+    live); out: the twelve PreintState leaves, written."""
+    lib = library()
+    with torch.cuda.device(acc.device):
+        rc = lib.fbpr_preintegrate(
+            acc.data_ptr(), gyr.data_ptr(), dt.data_ptr(),
+            mask.data_ptr() if mask is not None else None,
+            bias_acc.data_ptr(), bias_gyr.data_ptr(), acc_var, gyr_var,
+            int_var, acc.shape[0], *(t.data_ptr() for t in out),
+            _stream(acc))
+    _check_rc("fbpr_preintegrate", rc)
+
+
+def launch_propagate_states(nav, bias_acc, bias_gyr, acc, gyr, dt, mask,
+                            out, *, gravity: float):
+    """csrc/preintegration.cu's fbpr_propagate_states on validated CUDA
+    tensors (see imu/preintegration.py); nav: (R [3, 3], p [3], v [3]);
+    out: (R [N, 3, 3], p [N, 3], v [N, 3]), written."""
+    lib = library()
+    with torch.cuda.device(acc.device):
+        rc = lib.fbpr_propagate_states(
+            *(t.data_ptr() for t in nav), bias_acc.data_ptr(),
+            bias_gyr.data_ptr(), acc.data_ptr(), gyr.data_ptr(),
+            dt.data_ptr(), mask.data_ptr() if mask is not None else None,
+            -gravity, acc.shape[0], *(t.data_ptr() for t in out),
+            _stream(acc))
+    _check_rc("fbpr_propagate_states", rc)

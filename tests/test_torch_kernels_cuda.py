@@ -55,7 +55,27 @@ and at 200 live poses the same, with no host sync inside its iterations;
 the factor blocks (`graph_factor_blocks`) with NaN in the same places and
 every other entry within 1e-5; gimbal lock and a non-finite H rejected
 with the poses bitwise unchanged; route B rejecting a factorization
-reported failed; two launches bitwise equal.
+reported failed; two launches bitwise equal.  The IMU odometry's kernels
+(csrc/imu_chain_lm.cu, csrc/preintegration.cu) against their plain
+versions on the card (tests/imu_chain_scenes.py): the chain LM on every
+scene (K 16 windows, K 1, K 100), in one launch with no host sync, states
+within 1e-4 with NaN in the same places, the cost that of the states it
+comes with (1e-4 relative) and within 1e-3 relative of the plain
+version's (or NaN in both: states 1e-5 apart move a cost of residuals
+whitened by ~1e-5 sigmas by up to 6e-4 relative at K 100), two launches
+bitwise; the factor blocks
+with NaN in the same places and every other entry within 1e-5 of its
+block's largest; the preintegration (dR, dv, dp, dt and the bias
+Jacobians within 1e-6 of max(1, their largest entry), cov within rtol 1e-5
+with a floor of 1e-7 of its largest entry; for the 1024-sample buffer's
+731 live samples, over which the float32 rounding of the plain version's
+cuBLAS products and the kernel's walks apart, 1e-5 of max(1, largest) and
+cov within rtol 1e-5 with a floor of 1e-6, held only where the kernel is
+as near a float64 run of the plain version as the plain version, within
+a factor of 2) and the propagation (R,
+p, v within 1e-5 of max(1, their largest entry)) on one LIO interval, a
+64-sample interval, a 1024-sample buffer with interior masked samples and
+a buffer with none live, with no host sync and two launches bitwise.
 """
 
 import numpy as np
@@ -77,6 +97,7 @@ from feature_base_pointcloud_registration_tpu_torch.parallel import (
 from feature_base_pointcloud_registration_tpu_torch.pipeline import (
     cloud_info, frontend as tfront, localization as tloc)
 
+import imu_chain_scenes as ics
 import pose_graph_scenes as pgs
 import rounds_scenes as rs
 
@@ -1513,3 +1534,179 @@ def test_pose_graph_lm_raises_off_the_kernel(cuda):
         tpg.optimize_pose_graph(g._replace(gps_mask=g.gps_mask.int()), 2)
     with pytest.raises(ValueError):
         tpg.graph_factor_blocks(g, g.poses.cpu())
+
+
+# ---------------------------------------------- IMU chain LM, preintegration
+
+def _syncs_of(fn):
+    """fn's result and its host syncs in the CUDA sync debug mode."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, _host_syncs(caught)
+
+
+def _same_nan_within(a, b, tol):
+    """NaN (and infinities) in the same places and the rest within tol;
+    returns the largest difference."""
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    fin = torch.isfinite(b)
+    assert torch.equal(torch.isfinite(a), fin)
+    assert torch.equal(a[torch.isinf(b)], b[torch.isinf(b)])
+    err = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+    assert err <= tol, (err, tol)
+    return err
+
+
+def _assert_chain_as_plain(d, iterations=4):
+    """The kernel's chain solve against the plain version's on the card:
+    one launch, no host sync, states within 1e-4 (NaN in the same places),
+    the cost that of the kernel's states (1e-4 relative) and within 1e-3
+    relative of the plain version's (or both NaN), two launches bitwise."""
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tg)
+    before = tg.optimize_imu_chain.launches
+    acc_k, acc_p = [], []
+    (sk, ck), syncs = _syncs_of(lambda: tg.optimize_imu_chain(
+        d, iterations, acc_k))
+    sp, cp = tg.optimize_imu_chain_reference(d, iterations, acc_p)
+    torch.cuda.synchronize()
+    assert tg.optimize_imu_chain.launches == before + 1 and syncs == 0
+    agree = sum(bool(x) == bool(y) for x, y in zip(acc_k, acc_p))
+    print(f"chain LM K {d.states.shape[0]}: states |diff| max "
+          f"{float((sk - sp).abs().max()):.3e}, cost {float(ck):.6e} vs "
+          f"{float(cp):.6e}, accepts equal on {agree}/{iterations}")
+    _same_nan_within(sk, sp, 1e-4)
+    if np.isnan(float(cp)):
+        assert np.isnan(float(ck))
+    else:
+        # the cost is that of the states it comes with, and within 1e-3 of
+        # the plain version's (states 1e-5 apart move a cost of residuals
+        # whitened by ~1e-5 sigmas by up to 6e-4 relative before the
+        # window converges, K 100)
+        at = tg._cost(d, sk, tg._whitener(d))
+        assert float(ck) == pytest.approx(float(at), rel=1e-4, abs=1e-4)
+        assert float(ck) == pytest.approx(float(cp), rel=1e-3, abs=1e-4)
+    again = tg.optimize_imu_chain(d, iterations)
+    assert torch.equal(again[0], sk) and (
+        torch.equal(again[1], ck) or bool(torch.isnan(ck)))
+    return sk, ck, acc_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ics.SCENES)
+def test_imu_chain_lm_kernel_matches_plain(cuda, name):
+    d = ics.scene(name, device=cuda)
+    sk, _, acc = _assert_chain_as_plain(d)
+    if name in ("nan_cov", "near_pi_axis"):     # every step rejected
+        assert torch.equal(sk, d.states) and not any(bool(a) for a in acc)
+    if name == "interior_masked":               # the inactive state pinned
+        assert torch.equal(sk[7], d.states[7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ics.SCENES)
+def test_imu_chain_blocks_kernel_matches_plain(cuda, name):
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tg)
+    d = ics.scene(name, device=cuda)
+    before = tg.chain_factor_blocks.launches
+    got, syncs = _syncs_of(lambda: tg.chain_factor_blocks(d, d.states))
+    want = tg.chain_factor_blocks_reference(d, d.states)
+    assert tg.chain_factor_blocks.launches == before + 1 and syncs == 0
+    errs = []
+    for a, b in zip((t for g in got for t in g), (t for g in want for t in g)):
+        fin = b[torch.isfinite(b)]
+        scale = max(float(fin.abs().max()), 1e-30) if fin.numel() else 1.0
+        errs.append(_same_nan_within(a, b, 1e-5 * scale) / scale)
+    print(f"chain blocks {name}: |diff| / block max, max {max(errs):.3e}")
+    if name in ("nan_cov", "near_pi_axis"):
+        assert not all(bool(torch.isfinite(t).all()) for g in got for t in g)
+
+
+def _pre_leaves_as_plain(got, want, args):
+    """The PreintState leaves by ics.preint_agreement (the CPU bounds up to
+    64 live samples; above, 1e-5 and a cov floor of 1e-6, the kernel as
+    near the float64 plain version as the plain version, within a factor
+    of 2), NaN in the same places; prints the measured figures first."""
+    ok, rep = ics.preint_agreement(got, want, args, {})
+    print(rep)
+    for a, b in zip(got, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+    assert ok, rep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ics.BUFFERS)
+def test_preintegrate_kernel_matches_plain(cuda, kind):
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tp)
+    buf = ics.buffer(kind, device=cuda)
+    before = tp.preintegrate.launches
+    got, syncs = _syncs_of(lambda: tp.preintegrate(*buf, ics.ACC_VAR,
+                                                   ics.GYR_VAR))
+    want = tp.preintegrate_reference(*buf, ics.ACC_VAR, ics.GYR_VAR)
+    assert tp.preintegrate.launches == before + 1 and syncs == 0
+    assert all(t.shape == w.shape and t.is_contiguous()
+               for t, w in zip(got, want))
+    print(f"preintegrate {kind}: ", end="")
+    _pre_leaves_as_plain(got, want, (*buf, ics.ACC_VAR, ics.GYR_VAR))
+    again = tp.preintegrate(*buf, ics.ACC_VAR, ics.GYR_VAR)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    if kind == "none_live":
+        assert float(got.dt) == 0.0 and torch.equal(
+            got.dR, torch.eye(3, device=cuda))
+    # the mask as a host array: uploaded, the same result
+    if buf[3] is not None:
+        host = tp.preintegrate(*buf[:3], buf[3].cpu().numpy(), *buf[4:],
+                               ics.ACC_VAR, ics.GYR_VAR)
+        assert all(torch.equal(a, b) for a, b in zip(host, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ics.BUFFERS)
+def test_propagate_states_kernel_matches_plain(cuda, kind):
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tp)
+    acc, gyr, dt, m, ba, bg = ics.buffer(kind, device=cuda)
+    nav = tp.NavState(
+        torch.from_numpy(ics.rot((0.1, -0.2, 0.7)).astype(np.float32)).to(
+            cuda), torch.tensor([1.0, -2.0, 0.5], device=cuda),
+        torch.tensor([1.2, 0.1, 0.0], device=cuda))
+    before = tp.propagate_states.launches
+    got, syncs = _syncs_of(lambda: tp.propagate_states(
+        nav, ba, bg, acc, gyr, dt, m, gravity=ics.G))
+    want = tp.propagate_states_reference(nav, ba, bg, acc, gyr, dt, m,
+                                         gravity=ics.G)
+    assert tp.propagate_states.launches == before + 1 and syncs == 0
+    errs = [_same_nan_within(a, b, 1e-5 * max(1.0, float(b.abs().max())))
+            for a, b in zip(got, want)]
+    print(f"propagate_states {kind}: R, p, v |diff| max {errs}")
+    again = tp.propagate_states(nav, ba, bg, acc, gyr, dt, m, gravity=ics.G)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_imu_kernels_raise_off_the_kernel(cuda):
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        imu_graph as tg)
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tp)
+    d = ics.scene("full", device=cuda)
+    with pytest.raises(ValueError):
+        tg.optimize_imu_chain(d._replace(state_mask=d.state_mask.int()), 2)
+    with pytest.raises(ValueError):
+        tg.chain_factor_blocks(d, d.states.cpu())
+    acc, gyr, dt, m, ba, bg = ics.buffer("cap64", device=cuda)
+    with pytest.raises(ValueError):
+        tp.preintegrate(acc, gyr, dt.double(), m, ba, bg, 1e-4, 1e-5)
+    with pytest.raises(ValueError):
+        tp.propagate_states(tp.NavState.identity(device=cuda), ba, bg,
+                            acc[:0], gyr[:0], dt[:0], None)

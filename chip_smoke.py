@@ -157,7 +157,12 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            full LM, ICP ms and iterations, host syncs a step (the CUDA
            sync debug mode), a profiled window LM solve, register_scan
            beside its bound, the knn selection against a stable sort, the
-           caps the step reported, each table's kind, rows and bytes; the
+           caps the step reported, each table's kind, rows and bytes; ICP
+           counted (one icp launch a run, no knn launch in the steps) and
+           every ICP run of the run again on the kernel and on the
+           parent's loop (icp_align_reference on the card) in turns, ms a
+           run and iterations on each; the exact solver's knn launches
+           counted (its first surf-map call kept for the probes); the
            pose-graph LM counted: every optimize_pose_graph call on the
            pose_graph_lm kernel (route A: one launch; route B: two an
            iteration), the marginals' factor blocks on its blocks entry;
@@ -224,6 +229,9 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            align_sessions(coarse=True) over 8 generator seeds (at least
            one within 0.3 m / 0.02 rad of the known offset, ICP alone
            too), timed stage by stage, profiled, its host syncs counted;
+           the k-NN and ICP kernels counted in (b) (none without --loop),
+           (c) (2 knn and 1 icp a pair: FPFH of both clouds, the
+           refinement) and (d)'s merge (1 icp, no knn);
   probes   `probe pose_graph_lm` lines (after phase 10): the pose-graph
            LM on the card (optimize_pose_graph: the kernel, its route by
            the live count) against its plain version on the card at (a)
@@ -263,6 +271,25 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            is as near the float64 plain version as the plain version,
            within a factor of 2; R, p, v within 1e-5), each beside its
            plain version and bound, two launches bitwise;
+           `probe knn` lines: the k-NN kernel (knn on the card, one
+           knn_stream launch) against its plain version on the card
+           (knn_reference) at (a) ICP's phase 8 shape (the accepted loop
+           candidates' source against their submap, k 1), (b) FPFH's (the
+           first pair of phase 10 (c): its target cloud in itself, k 16),
+           (c) the exact solver's surf map (phase 8's first checked
+           registration, k 5): no-neighbour slots exact, d2 within 1e-6
+           of the terms the formula cancels, index swaps only at near-ties,
+           two launches bitwise, the launch and the call timed beside the
+           plain version and the bound, the build with FMA contraction
+           beside; `probe icp` lines: the ICP kernel (icp_align, one
+           cooperative launch) against its plain version on the card
+           (icp_align_reference) and on the CPU at (a) phase 8's accepted
+           loop candidates, (b) phase 10 (c)'s first pair, (c) phase 10
+           (d)'s merge: transform within 1e-4 (or twice the plain
+           version's own card-vs-CPU spread), converged and the fitness
+           gate equal, fitness within tests/icp_scenes.fitness_tol, two
+           launches bitwise, iterations of each, ms beside the bound, the
+           FMA build beside;
   phase 11 the sharded solvers and the XLA solver variants at the bench's
            width: (a) shard_register_tables(make_mesh("cuda"),
            solver="fused") on a one-rank NCCL group (a FileStore), on the
@@ -416,6 +443,15 @@ FAST_GRID_CAP = 48       # phase 11 (d): cell cap of the packed 1 m tables
 # (d): at least one draw within this (m, rotation) of the known offset: the
 # basin of ICP alone, 0.184 m off on the CPU in both packages (PERF.md)
 ALIGN_BOUND = (0.3, 0.02)
+# operations of the streamed k-NN a (query, live map point) pair: q . m (3
+# multiplies, 2 adds) and (|q|^2 + |m|^2) - 2 q.m (3)
+KNN_OPS_PAIR = 8
+# operations of ICP a source row and trip besides its pairs: T src (9
+# multiplies, 9 adds), the centroid's sum (3), the weights' sums (2), the
+# centroids (6 multiplies, 6 adds), H ((s - mu) wn: 3 + 3, nn - mu: 3, the
+# outer product's 9 multiplies and 9 adds)
+ICP_OPS_ROW = 18 + 3 + 2 + 12 + 27
+ICP_TOL = 1e-4           # m / rad: icp.cu's transform against its plain version
 
 
 def tpu_kernel_line(file_name, kernel):
@@ -1056,19 +1092,6 @@ def rounds_agreement(sa, sb):
     return same, (sa[:, :6] - sb[:, :6]).abs().max(1).values
 
 
-def rounds_fma_build():
-    """A build of csrc/rounds_gn.cu with FMA contraction (the shipped one
-    has none: kernels.SOURCE_FLAGS), loaded for probe (b)."""
-    from feature_base_pointcloud_registration_tpu_torch import kernels
-    shipped = dict(kernels.SOURCE_FLAGS)
-    kernels.SOURCE_FLAGS.pop("rounds_gn", None)
-    try:
-        so = kernels._build([kernels.CSRC / "rounds_gn.cu"])[0]
-    finally:
-        kernels.SOURCE_FLAGS.update(shipped)
-    return kernels.load(so)
-
-
 def rounds_probe(name, args, kw, fma_lib=None):
     """One `probe rounds_gn` line: the kernel against its plain version
     (rounds_gn_reference, run on the card) on the same packed inputs, both
@@ -1172,7 +1195,7 @@ def rounds_probes(dev):
     picks near the world origin; min_plane_spread 0.05 at K 16).  Returns
     {name: record}."""
     import rounds_scenes as rs
-    fma = rounds_fma_build()
+    fma = fma_build("rounds_gn")
     out = {}
     for name, key, r in (("(a) phase 7 step 0 round 0", "phase 7", 0),
                          ("(b) phase 6 round 0", "phase 6", 0),
@@ -1790,6 +1813,284 @@ def imu_probes(dev):
                                      dict(gravity=ics.G))
     return {"chain": chain, "blocks_max_rel_err": max(blk),
             "preint": preint, "propagate": prop}
+
+# the inputs of ICP runs and k-NN calls of the phases, kept for the
+# `probe icp` / `probe knn` lines ({name: (args, kw)})
+ICP_INPUTS = {}
+KNN_INPUTS = {}
+# phase 8's ICP runs again on the kernel and on the parent's loop
+ICP_TURNS = {}
+
+
+def knn_icp_counters():
+    """{name: wrapper} of the k-NN and ICP kernels (ops/knn.py::knn, one
+    fbpr_knn launch a call; ops/icp.py::icp_align, one fbpr_icp launch a
+    run), each with its `launches` count."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        icp as ticp, knn as tknn)
+    return {"knn": tknn.knn, "icp": ticp.icp_align}
+
+
+@contextlib.contextmanager
+def icp_recorder(module, key):
+    """While the block runs, module.icp_align keeps its first call's inputs
+    in ICP_INPUTS[key] (a first recorded input stays)."""
+    real = module.icp_align
+
+    def recorded(*a, **kw):
+        ICP_INPUTS.setdefault(key, (a, kw))
+        return real(*a, **kw)
+
+    module.icp_align = recorded
+    try:
+        yield
+    finally:
+        module.icp_align = real
+
+
+def icp_in_turns(calls):
+    """Every recorded icp_align call ((args, kw, out)) again on the kernel
+    and on the parent's loop (icp_align_reference on the card, the route
+    before the kernel), in turns (the kernel first on even calls): [(kernel
+    ms, plain ms, kernel iterations, plain iterations, transform |diff|)],
+    host wall with the device synchronized."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        icp as ticp)
+    out = []
+    for i, (a, kw, _) in enumerate(calls):
+        ms, res = {}, {}
+        for route in (("kernel", "plain") if i % 2 == 0
+                      else ("plain", "kernel")):
+            fn = (ticp.icp_align if route == "kernel"
+                  else ticp.icp_align_reference)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[route] = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms[route] = (time.perf_counter() - t0) * 1e3
+        out.append((ms["kernel"], ms["plain"],
+                    int(res["kernel"].iterations),
+                    int(res["plain"].iterations),
+                    float((res["kernel"].transform
+                           - res["plain"].transform).abs().max())))
+    return out
+
+
+def fma_build(stem):
+    """A build of csrc/<stem>.cu with FMA contraction (the shipped one has
+    none: kernels.SOURCE_FLAGS), loaded."""
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    shipped = dict(kernels.SOURCE_FLAGS)
+    kernels.SOURCE_FLAGS.pop(stem, None)
+    try:
+        so = kernels._build([kernels.CSRC / f"{stem}.cu"])[0]
+    finally:
+        kernels.SOURCE_FLAGS.update(shipped)
+    return kernels.load(so)
+
+
+@contextlib.contextmanager
+def launching_with(name, lib):
+    """While the block runs, kernels.<name> launches the build lib."""
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    real = getattr(kernels, name)
+    setattr(kernels, name, functools.partial(real, lib=lib))
+    try:
+        yield
+    finally:
+        setattr(kernels, name, real)
+
+
+def knn_bound(q, ref, mask, k):
+    """(bound_ms, bound_by) of one k-NN call: queries [S, Q, 3] (12 B a
+    point), the map (13 B a point, once a set for per-set maps), the
+    centroids and outputs (8 B a slot) moved once; KNN_OPS_PAIR operations
+    a (query, live map point) pair of each set."""
+    S, Q = q.shape[0], q.shape[1]
+    M = ref.shape[-2]
+    live = int(mask.sum()) * (S if mask.dim() == 1 else 1)
+    nbytes = 12 * S * Q + 13 * M * (S if ref.dim() == 3 else 1) \
+        + 12 * S + 8 * k * S * Q
+    return bound(nbytes, KNN_OPS_PAIR * Q * live)
+
+
+def icp_bound(args, trips):
+    """(bound_ms, bound_by) of one ICP run of `trips` trips (iterations + the
+    final fitness pass): src and dst with their masks (13 B a point) read
+    once, the outputs (80 B) written once; a trip's KNN_OPS_PAIR
+    operations a (live source row, live target point) pair and
+    ICP_OPS_ROW a source row."""
+    src, src_mask, dst, dst_mask = args[:4]
+    N, M = src.shape[0], dst.shape[0]
+    pairs = int(src_mask.sum()) * int(dst_mask.sum())
+    return bound(13 * (N + M) + 80,
+                 trips * (KNN_OPS_PAIR * pairs + ICP_OPS_ROW * N))
+
+
+def knn_probe(name, q, ref, mask, k, chunk, fma_lib):
+    """One `probe knn` line: the kernel (knn on the card, one launch)
+    against its plain version (knn_reference on the card) on one call's
+    inputs, held by icp_scenes.knn_agreement (no-neighbour slots exact, d2
+    within 1e-6 of the cancelled terms, index swaps only at near-ties, the
+    index sets equal where the k-th and (k+1)-th plain distances are
+    apart); the launch alone and the call timed by CUDA events beside the
+    plain version and the bound; two launches bitwise; the build with FMA
+    contraction held the same way and printed beside.  Returns the probe's
+    record."""
+    import torch
+
+    import icp_scenes
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        knn as tknn)
+    q3 = q.reshape(-1, q.shape[-2], 3).contiguous()
+    got = tknn.knn(q, ref, mask, k=k, chunk=chunk)
+    torch.cuda.synchronize()
+    again = tknn.knn(q, ref, mask, k=k, chunk=chunk)
+    want = tknn.knn_reference(q, ref, mask, k=k, chunk=chunk)
+    wide = tknn.knn_reference(q, ref, mask, k=k + 1, chunk=chunk)[0]
+
+    def agree(res):
+        flat = [t.reshape(-1, t.shape[-2], t.shape[-1])
+                for t in (*res, *want, wide)]
+        refs = ref.reshape(-1, *ref.shape[-2:]).expand(q3.shape[0], -1, -1)
+        out = [icp_scenes.knn_agreement(q3[s_], refs[s_], *(t[s_]
+                                                             for t in flat))
+               for s_ in range(q3.shape[0])]
+        return max(e for e, _ in out), sum(n for _, n in out)
+
+    err, swaps = agree(got)
+    bitwise = all(map(torch.equal, got, again))
+    center = q3.mean(-2)
+    d2o = torch.empty(*q3.shape[:2], k, device=q.device)
+    io = torch.empty(*q3.shape[:2], k, dtype=torch.int32, device=q.device)
+    r3 = ref.reshape(-1, *ref.shape[-2:]) if ref.dim() > 2 else ref
+    m2 = mask.reshape(-1, mask.shape[-1]) if mask.dim() > 1 else mask
+    ms = cuda_ms(lambda: kernels.launch_knn(q3, center, r3, m2, d2o, io,
+                                            one_chunk=ref.shape[-2] == chunk),
+                 20, graph=True)
+    call_ms = cuda_ms(lambda: tknn.knn(q, ref, mask, k=k, chunk=chunk), 20,
+                      graph=True)
+    plain_ms = cuda_ms(lambda: tknn.knn_reference(q, ref, mask, k=k,
+                                                  chunk=chunk), 3)
+    b_ms, b_by = knn_bound(q3, r3, m2, k)
+    with launching_with("launch_knn", fma_lib):
+        f_err, f_swaps = agree(tknn.knn(q, ref, mask, k=k, chunk=chunk))
+    rec = dict(S=q3.shape[0], Q=q3.shape[1], M=ref.shape[-2], k=k,
+               chunk=chunk, live=int(mask.sum()), ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=err, index_swaps=swaps, bitwise=bitwise,
+               fma_max_abs_err=f_err, fma_index_swaps=f_swaps)
+    print(f"probe knn {name}: S={rec['S']} Q={rec['Q']} M={rec['M']} "
+          f"(live {rec['live']}) k={k} chunk={chunk}: kernel {ms:.4f} ms "
+          f"(the call with its centroid {call_ms:.4f}), plain {plain_ms:.3f}"
+          f" ms, bound {b_ms:.5f} ms ({b_by}, {b_ms / ms:.2%} of it); d2 "
+          f"|diff| max {err:.3e} (within 1e-6 of the cancelled terms), "
+          f"index swaps at near-ties {swaps}, no-neighbour slots exact; two "
+          f"launches bitwise {bitwise}; the FMA build: d2 |diff| max "
+          f"{f_err:.3e}, swaps {f_swaps}", flush=True)
+    if not bitwise:
+        raise AssertionError(f"knn {name}: two launches differ")
+    return rec
+
+
+def icp_probe(name, args, kw, fma_lib):
+    """One `probe icp` line: the kernel (icp_align on the card, one launch)
+    against its plain version on the card (icp_align_reference, the
+    parent's loop) and on the CPU, on one recorded run's inputs: transform
+    within ICP_TOL (or, where the plain version's own card-vs-CPU spread is
+    larger, within twice that spread), converged and the loop closure's
+    fitness gate equal, fitness within icp_scenes.fitness_tol, two launches
+    bitwise; the kernel and the plain version timed by CUDA events beside
+    the bound; the build with FMA contraction printed beside.  Returns the
+    probe's record."""
+    import torch
+
+    import icp_scenes
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        icp as ticp)
+    got = ticp.icp_align(*args, **kw)
+    torch.cuda.synchronize()
+    again = ticp.icp_align(*args, **kw)
+    want = ticp.icp_align_reference(*args, **kw)
+    cpu = ticp.icp_align_reference(*(t.cpu() for t in args), **kw)
+    d = float((got.transform - want.transform).abs().max())
+    d_cpu = float((want.transform.cpu() - cpu.transform).abs().max())
+    tol = max(ICP_TOL, 2.0 * d_cpu)
+    f_tol = icp_scenes.fitness_tol(args[0].cpu(), args[1].cpu(),
+                                   want.transform.cpu())
+    gate = Params().history_keyframe_fitness_score
+    bitwise = all(map(torch.equal, got, again))
+    ms = cuda_ms(lambda: ticp.icp_align(*args, **kw), 5)
+    # no iteration: one 1-NN pass and the fitness, the rest of a run's
+    # trips apart
+    ms0 = cuda_ms(lambda: ticp.icp_align(*args, **dict(kw, max_iterations=0)),
+                  5)
+    plain_ms = cuda_ms(lambda: ticp.icp_align_reference(*args, **kw), 2)
+    its = int(got.iterations)
+    b_ms, b_by = icp_bound(args, its + 1)
+    with launching_with("launch_icp", fma_lib):
+        fma = ticp.icp_align(*args, **kw)
+    d_fma = float((fma.transform - want.transform).abs().max())
+    rec = dict(N=args[0].shape[0], M=args[2].shape[0],
+               live=(int(args[1].sum()), int(args[3].sum())),
+               max_corr_dist=kw.get("max_corr_dist", 100.0),
+               iterations=its, plain_iterations=int(want.iterations),
+               cpu_iterations=int(cpu.iterations),
+               fitness=float(got.fitness), plain_fitness=float(want.fitness),
+               converged=bool(got.converged), ms=ms, plain_ms=plain_ms,
+               no_iteration_ms=ms0, trip_ms=(ms - ms0) / max(its, 1),
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=d,
+               plain_card_vs_cpu_err=d_cpu, bitwise=bitwise,
+               fma_max_abs_err=d_fma, fma_iterations=int(fma.iterations))
+    print(f"probe icp {name}: N={rec['N']} M={rec['M']} live {rec['live']}"
+          f" max_corr_dist {rec['max_corr_dist']}: kernel {ms:.3f} ms "
+          f"({its} iterations, delta {float(got.delta):.3e}; with none, the "
+          f"1-NN pass and the fitness, {ms0:.4f} ms: {rec['trip_ms']:.4f} ms"
+          f" an iteration), plain "
+          f"{plain_ms:.2f} ms ({rec['plain_iterations']} iterations; on the "
+          f"CPU {rec['cpu_iterations']}), bound {b_ms:.5f} ms ({b_by}, "
+          f"{b_ms / ms:.2%} of it); transform |diff| {d:.3e} (the plain "
+          f"version card vs CPU {d_cpu:.3e}; held to {tol:.1e}); fitness "
+          f"{rec['fitness']:.7g} vs {rec['plain_fitness']:.7g} (held to "
+          f"{f_tol:.2e}), converged {rec['converged']} vs "
+          f"{bool(want.converged)}; two launches bitwise {bitwise}; the FMA "
+          f"build: transform |diff| {d_fma:.3e}, {rec['fma_iterations']} "
+          f"iterations", flush=True)
+    if not (d <= tol and bool(got.converged) == bool(want.converged)
+            and (rec["fitness"] < gate) == (rec["plain_fitness"] < gate)
+            and abs(rec["fitness"] - rec["plain_fitness"]) <= f_tol
+            and bitwise):
+        raise AssertionError(f"icp {name}: kernel != plain version")
+    return rec
+
+
+def knn_icp_probes(dev):
+    """The `probe knn` lines at (a) ICP's phase 8 shape (its loop
+    candidates' source against their submap, k 1), (b) FPFH's (phase 10
+    (c)'s first pair's target cloud in itself, k 16, 2048 points), (c) the
+    exact solver's surf map (phase 8's first checked registration, k 5);
+    the `probe icp` lines at (a) phase 8's loop candidates, (b) phase 10
+    (c)'s first pair, (c) phase 10 (d)'s merge.  Returns ({name: knn
+    record}, {name: icp record})."""
+    knn_lib, icp_lib = fma_build("knn_stream"), fma_build("icp")
+    (src, _, dst, dst_m), kw = ICP_INPUTS["(a) phase 8 loop candidates"]
+    (_, _, pd, pd_m), pkw = ICP_INPUTS["(b) phase 10 (c) pair"]
+    knn_rec = {
+        "(a) ICP phase 8": knn_probe("(a) ICP phase 8", src, dst, dst_m, 1,
+                                     kw.get("chunk", 2048), knn_lib),
+        "(b) FPFH phase 10 (c)": knn_probe(
+            "(b) FPFH phase 10 (c)", pd, pd, pd_m, 16,
+            pkw.get("chunk", 2048), knn_lib)}
+    a, kw = KNN_INPUTS["(c) exact solver surf map"]
+    knn_rec["(c) exact solver"] = knn_probe("(c) exact solver", *a[:3],
+                                            kw["k"], kw["chunk"], knn_lib)
+    icp_rec = {name: icp_probe(name, a, kw, icp_lib)
+               for name, (a, kw) in ICP_INPUTS.items()}
+    return knn_rec, icp_rec
 
 
 def sync_counter(fn, counts):
@@ -2873,7 +3174,7 @@ def slam_phase(dev):
         SyntheticWorld, constant_twist_platform, pose6_to_matrix_np,
         simulate_scan)
     from feature_base_pointcloud_registration_tpu_torch.ops import (
-        fetch as tfetch)
+        fetch as tfetch, knn as tknn)
     from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
         gn_round)
     from feature_base_pointcloud_registration_tpu_torch.ops.knn import (
@@ -2944,7 +3245,8 @@ def slam_phase(dev):
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
                "ring_pick": ring_pick_wrapper(),
-               "rounds_gn": rounds_gn_wrapper(), **pose_graph_counters()}
+               "rounds_gn": rounds_gn_wrapper(), **pose_graph_counters(),
+               **knn_icp_counters()}
     real = {name: getattr(tslam, name) for name in (
         "process_scan", "grid_register_step", "optimize_pose_graph",
         "icp_align")}
@@ -2965,7 +3267,8 @@ def slam_phase(dev):
             real[name], routes) if name == "optimize_pose_graph"
             else real[name]))
     methods = {"_surrounding_map": "local map", "_save_keyframe":
-               "keyframe + graph", "maybe_close_loop": "loop closure"}
+               "keyframe + graph", "maybe_close_loop": "loop closure",
+               "_world_cloud": "loop submaps"}
     for name, stage in methods.items():
         setattr(pipe, name, timer.wrap(stage, getattr(pipe, name)))
     tfetch.fetch_rows = checked_fetch_rows
@@ -3061,6 +3364,16 @@ def slam_phase(dev):
     if not (closures and pipe.reset_id >= 1 and min(icp_fit) <
             params.history_keyframe_fitness_score):
         raise AssertionError("phase 8: no loop closure accepted")
+    print(f"phase 8 icp: {launches['icp']} launches for {len(icps)} ICP "
+          f"runs (one a run), knn {launches['knn']} launches in the steps",
+          flush=True)
+    if launches["icp"] != len(icps) or launches["knn"]:
+        raise AssertionError(f"phase 8: icp launches {launches['icp']} for "
+                             f"{len(icps)} runs, knn {launches['knn']}")
+    accepted = [(a, kw) for a, kw, out in icps
+                if float(out.fitness) < params.history_keyframe_fitness_score
+                and bool(out.converged)]
+    ICP_INPUTS["(a) phase 8 loop candidates"] = accepted[0]
     full = [ms for (a, _, _), ms in zip(timer.calls["graph LM"],
                                         timer.ms["graph LM"])
             if a[0].poses.shape[0] == pipe.max_keyframes]
@@ -3112,14 +3425,27 @@ def slam_phase(dev):
     if not d_cpu <= 1e-4:
         raise AssertionError(f"phase 8: card vs CPU poses differ by {d_cpu}")
 
-    # ---- the exact solver on the first registration steps' local maps ----
-    exact, reg_ms, reg_bound = [], [], []
+    # ---- the exact solver on the first registration steps' local maps
+    # (the k-NN kernel counted; the first check's surf-map call kept) ----
+    exact, reg_ms, reg_bound, knn_calls = [], [], [], []
+    real_knn5 = tknn.knn5_points
+    knn0 = tknn.knn.launches
+
+    def recorded_knn5(q, ref, ref_mask, chunk=4096):
+        if len(knn_calls) < 2:
+            knn_calls.append(((q, ref, ref_mask), dict(k=5, chunk=chunk)))
+        return real_knn5(q, ref, ref_mask, chunk=chunk)
+
     for (a, kw, out), _ in zip(timer.calls["tables + solve"][:SLAM_CHECKED],
                                range(SLAM_CHECKED)):
         local_map, feats, guess = a
         timer.sync()
         t0 = time.perf_counter()
-        res = register_scan_with_params(params, feats, local_map, guess)
+        tknn.knn5_points = recorded_knn5
+        try:
+            res = register_scan_with_params(params, feats, local_map, guess)
+        finally:
+            tknn.knn5_points = real_knn5
         timer.sync()
         reg_ms.append((time.perf_counter() - t0) * 1e3)
         d = (res.pose6[0] - out.pose6[0]).abs().cpu().numpy()
@@ -3138,6 +3464,15 @@ def slam_phase(dev):
               flush=True)
     if not all(t_ <= 3e-3 and r_ <= 3e-3 for t_, r_ in exact):
         raise AssertionError(f"phase 8: exact vs grid {exact}")
+    launches["knn_exact_check"] = tknn.knn.launches - knn0
+    # corner then surf an iteration: the surf call has the larger map
+    KNN_INPUTS["(c) exact solver surf map"] = max(
+        knn_calls, key=lambda c: c[0][1].shape[-2])
+    print(f"phase 8 exact check: {launches['knn_exact_check']} knn launches"
+          f" in {SLAM_CHECKED} solves (a corner and a surf 5-NN an "
+          f"iteration)", flush=True)
+    if not launches["knn_exact_check"]:
+        raise AssertionError("phase 8: the exact solver launched no knn")
 
     # ---- save -> reload -> relocalize: the middle keyframe's scan, from
     # 0.14 m off, against the saved map, back to that keyframe's pose ----
@@ -3172,7 +3507,7 @@ def slam_phase(dev):
           f"1-{N_SLAM - 1}; p50 {np.median(steps_ms):.2f}, max "
           f"{steps_ms.max():.2f}); per step on average (synchronized host "
           f"clock; graph LM inside keyframe + graph and loop closure, ICP "
-          f"inside loop closure): " + ", ".join(
+          f"and loop submaps inside loop closure): " + ", ".join(
               f"{name} {ms:.2f} ms" for name, ms in split.items()),
           flush=True)
     print(f"time phase 8 graph: window LM {np.mean(window):.2f} ms "
@@ -3186,6 +3521,25 @@ def slam_phase(dev):
           f"{min(syncs[SLAM_CHECKED + 1:])} max "
           f"{max(syncs[SLAM_CHECKED + 1:])}", flush=True)
     print_lm_in_turns("phase 8", lm_calls, N_SLAM - 1, steps_ms.mean())
+    turns = icp_in_turns(icps)
+    ker = sum(t_[0] for t_ in turns) / (N_SLAM - 1)
+    pla = sum(t_[1] for t_ in turns) / (N_SLAM - 1)
+    ICP_TURNS.update(runs=len(turns), kernel_ms=float(np.mean(
+        [t_[0] for t_ in turns])), plain_ms=float(np.mean(
+            [t_[1] for t_ in turns])), kernel_iterations=[t_[2] for t_ in turns],
+        plain_iterations=[t_[3] for t_ in turns], step_kernel_ms=ker,
+        step_plain_ms=pla, max_abs_err=max(t_[4] for t_ in turns))
+    print(f"time phase 8 ICP in turns (every ICP run of the run again, on "
+          f"the icp kernel and on the parent's loop, icp_align_reference, "
+          f"in turns): {len(turns)} runs, kernel "
+          f"{ICP_TURNS['kernel_ms']:.3f} ms a run (iterations "
+          f"{ICP_TURNS['kernel_iterations']}), parent's loop "
+          f"{ICP_TURNS['plain_ms']:.2f} ms a run (iterations "
+          f"{ICP_TURNS['plain_iterations']}); per step kernel {ker:.3f} ms, "
+          f"parent's loop {pla:.2f} ms (the step {steps_ms.mean():.2f} ms on "
+          f"the kernel, {steps_ms.mean() - ker + pla:.2f} ms with the "
+          f"parent's loop in its place); transform |diff| max "
+          f"{ICP_TURNS['max_abs_err']:.3e}", flush=True)
     # one window LM solve again (no state change), profiled: how much of
     # it the device is busy, and with what
     g, _ = pipe._window_graph_data()
@@ -3957,7 +4311,7 @@ def kitti_phase(dev):
             real["optimize_pose_graph"], routes))
         tfetch.fetch_rows = fetch_recorder(real_fetch_rows, calls, check)
         picks = ring_pick_wrapper()
-        lm_counts = pose_graph_counters()
+        lm_counts = {**pose_graph_counters(), **knn_icp_counters()}
         try:
             timer.sync()
             for w in (*counted.values(), picks, *lm_counts.values()):
@@ -4036,10 +4390,25 @@ def kitti_phase(dev):
         # cuSOLVER)
         run_kitti.main(["--data", drive, "--scans", "2", "--device",
                         dev.type])
+        pair_counts = knn_icp_counters()
         with coarse_stages(StageTimer(dev)) as stages:
+            timer.sync()
+            for w in pair_counts.values():
+                w.launches = 0
             res = run_kitti.main(["--data", drive, "--scans",
                                   str(KITTI_PAIRS), "--device", dev.type])
+            timer.sync()
+            for n_, w in pair_counts.items():
+                launches[f"{n_}_pairs"] = w.launches
         n_pairs = len(res["pair_ms"])
+        a, kw, _ = stages.calls["ICP"][0]
+        ICP_INPUTS["(b) phase 10 (c) pair"] = (a, kw)
+        print(f"phase 10 (c) launches: knn {launches['knn_pairs']} (FPFH of "
+              f"both clouds of {n_pairs} pairs), icp {launches['icp_pairs']}"
+              f" (one a pair)", flush=True)
+        if (launches["knn_pairs"], launches["icp_pairs"]) != (2 * n_pairs,
+                                                               n_pairs):
+            raise AssertionError(f"phase 10 (c): launches {launches}")
         still = run_kitti.chained_ate(np.zeros_like(res["traj"]),
                                       kitti.load_oxts_poses(os.path.join(
                                           drive, "oxts"))[:KITTI_PAIRS])
@@ -4103,7 +4472,8 @@ def multisession_phase(dev):
     counted = {"block_fetch": tfetch.block_fetch,
                "resident_fetch": tfetch.resident_fetch, "gn_round": gn_round,
                "ring_pick": ring_pick_wrapper(),
-               "rounds_gn": rounds_gn_wrapper(), **pose_graph_counters()}
+               "rounds_gn": rounds_gn_wrapper(), **pose_graph_counters(),
+               **knn_icp_counters()}
     real_step = tregister.grid_register_step
     real_fetch_rows = tfetch.fetch_rows
     calls, check = [], {"on": False}
@@ -4139,7 +4509,8 @@ def multisession_phase(dev):
         for w in counted.values():
             w.launches = 0
         t0 = time.perf_counter()
-        res = tms.merge_sessions(None, sa, sb, device=dev, **merge_kw)
+        with icp_recorder(tms, "(c) phase 10 (d) merge"):
+            res = tms.merge_sessions(None, sa, sb, device=dev, **merge_kw)
         timer.sync()
         t_merge = time.perf_counter() - t0
         launches = {n_: w.launches for n_, w in counted.items()}
@@ -4174,6 +4545,9 @@ def multisession_phase(dev):
     if launches["pose_graph_lm"] + launches["pose_graph_lm_b"] != 1:
         raise AssertionError(f"phase 10 (d): the joint graph's launches "
                              f"{launches}")
+    if (launches["icp"], launches["knn"]) != (1, 0):
+        raise AssertionError(f"phase 10 (d): the alignment's launches "
+                             f"{launches} (one icp, no knn)")
 
     # ---- the merged map, saved, loaded, and the held-out scan ----
     with tempfile.TemporaryDirectory() as out:
@@ -5021,6 +5395,11 @@ def main():
                           "phase 9 interval"])):
         kt[name] = (rec["ms"], rec["plain_ms"])
         bounds[name] = (rec["bound_ms"], rec["bound_by"])
+    rp_knn, rp_icp = knn_icp_probes(dev)
+    for name, rec in (("knn_stream", rp_knn["(b) FPFH phase 10 (c)"]),
+                      ("icp", rp_icp["(a) phase 8 loop candidates"])):
+        kt[name] = (rec["ms"], rec["plain_ms"])
+        bounds[name] = (rec["bound_ms"], rec["bound_by"])
     sh_launches, sh_err = sharded_phase(dev, types.SimpleNamespace(
         feats=feats3, guesses=guesses_t, fmap=fmap, center=center, half=half,
         tabs=tabs, rtabs=rtabs, queries_surf=queries["surf"][1],
@@ -5151,6 +5530,36 @@ def main():
                   "bound_by", "max_abs_err", "bitwise")}
                       for kind in ("preint", "propagate")
                       for n, r in rp_imu[kind].items()}),
+        entry("knn_stream", "knn_stream.cu",
+              xla_loop_line("knn.py", "lax.scan(body"),
+              kitti_launches["knn_pairs"],
+              max(r["max_abs_err"] for r in rp_knn.values()), "knn_stream",
+              launches_by_phase={
+                  "8 steps": slam_launches["knn"],
+                  "8 exact check": slam_launches["knn_exact_check"],
+                  "10b": kitti_launches["knn"],
+                  "10c": kitti_launches["knn_pairs"],
+                  "10d merge": ms_launches["knn"]},
+              probes={n: {k: r[k] for k in (
+                  "S", "Q", "M", "k", "live", "ms", "call_ms", "plain_ms",
+                  "bound_ms", "bound_by", "max_abs_err", "index_swaps",
+                  "bitwise", "fma_max_abs_err", "fma_index_swaps")}
+                      for n, r in rp_knn.items()}),
+        entry("icp", "icp.cu", xla_loop_line("icp.py", "lax.while_loop("),
+              slam_launches["icp"],
+              max(r["max_abs_err"] for r in rp_icp.values()), "icp",
+              launches_by_phase={"8": slam_launches["icp"],
+                                 "10b": kitti_launches["icp"],
+                                 "10c": kitti_launches["icp_pairs"],
+                                 "10d merge": ms_launches["icp"]},
+              phase8_in_turns=ICP_TURNS,
+              probes={n: {k: r[k] for k in (
+                  "N", "M", "live", "iterations", "plain_iterations", "ms",
+                  "no_iteration_ms", "trip_ms", "plain_ms", "bound_ms",
+                  "bound_by", "max_abs_err",
+                  "plain_card_vs_cpu_err", "fitness", "plain_fitness",
+                  "bitwise", "fma_max_abs_err")}
+                      for n, r in rp_icp.items()}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ The build runs at first use, into `build/` beside the package (the file name
 carries a hash of the flags, the source and the `csrc/` headers it
 includes, so an edited source or header rebuilds).  `SOURCE_FLAGS` adds a
 source's own flags (rounds_gn.cu, pose_graph_lm.cu, imu_chain_lm.cu,
-preintegration.cu: no FMA contraction).
+preintegration.cu, knn_stream.cu, icp.cu: no FMA contraction).
 Importing this module builds nothing: the CPU tests import every module.
 
 Each C entry point launches on the stream it is given (PyTorch's current
@@ -19,7 +19,8 @@ stream), allocates nothing, and returns `cudaGetLastError()`; the launch
 helpers below raise when it is not 0.  Validation of shapes, dtypes and
 devices is the callers' (`ops/fetch.py`, `ops/gn_round.py`,
 `ops/rounds_gn.py`, `ops/features.py`, `graph/pose_graph.py`,
-`graph/imu_graph.py`, `imu/preintegration.py`).
+`graph/imu_graph.py`, `imu/preintegration.py`, `ops/knn.py`,
+`ops/icp.py`).
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ RING_PICK_MAX_W = 8192    # csrc/ring_pick.cu: a window's slots and sort
                           # words (15 B a slot) fit 227 KB of shared memory
 POSE_GRAPH_LM_MAX_LIVE = 38  # csrc/pose_graph_lm.cu kMaxLive: route A's H
                              # (6n x (6n + 1) floats) and buffers fit 227 KB
+KNN_MAX_K = 16            # csrc/knn_stream.cu: template instances K 1..16
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Flags of one source on top of NVCC_FLAGS.  rounds_gn.cu,
@@ -58,15 +60,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # prints rounds_gn's FMA build beside it; the pose graph's and the IMU
 # chain's factors repeat the plain version's dual-number operations, whose
 # NaN and infinite Jacobian entries must fall where the plain version's
-# do).
+# do).  knn_stream.cu and icp.cu repeat the plain k-NN's norms and d2, and
+# the plain Kabsch's sums, each a separate PyTorch operation
+# (chip_smoke.py's `probe knn` / `probe icp` lines print their FMA builds
+# beside them).
 SOURCE_FLAGS = {"rounds_gn": ["-fmad=false"], "pose_graph_lm": ["-fmad=false"],
                 "imu_chain_lm": ["-fmad=false"],
-                "preintegration": ["-fmad=false"]}
+                "preintegration": ["-fmad=false"],
+                "knn_stream": ["-fmad=false"], "icp": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_D = ctypes.c_double
 # a pose graph's factors (csrc/pose_graph_lm.cu Factors): the endpoints
 # (prior, between i, between j, GPS), then meas, sigma, mask of each kind,
 # Fp, Fb, Fg
@@ -116,6 +123,16 @@ _SIGNATURES = {
     # R0, p0, v0, bias_acc, bias_gyr, acc, gyr, dt, mask, -gravity, N, R, p,
     # v, stream
     "fbpr_propagate_states": [*[_P] * 9, _F, _I, _P, _P, _P, _P],
+    # query, center, map, mask, map_stride, mask_stride, S, Q, M, one_chunk,
+    # K, d2, idx, stream
+    "fbpr_knn": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P],
+    # N, M, out (grid, splits, slice, scratch floats: int64 [4])
+    "fbpr_icp_plan": [_I, _I, _P],
+    # src, src_mask, dst, dst_mask, N, M, chunk, max_d2, max_iterations,
+    # eps, scratch, scratch floats, T, fitness, converged, iterations,
+    # delta, stream
+    "fbpr_icp": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _D, _P, _L, _P, _P, _P,
+                 _P, _P, _P],
 }
 
 
@@ -463,3 +480,58 @@ def launch_propagate_states(nav, bias_acc, bias_gyr, acc, gyr, dt, mask,
             -gravity, acc.shape[0], *(t.data_ptr() for t in out),
             _stream(acc))
     _check_rc("fbpr_propagate_states", rc)
+
+
+def launch_knn(query, center, ref, mask, d2, idx, *, one_chunk: bool,
+               lib: SimpleNamespace | None = None):
+    """csrc/knn_stream.cu on validated contiguous CUDA tensors (see
+    ops/knn.py): query [S, Q, 3], center [S, 3], ref [M, 3] (shared) or
+    [S, M, 3], mask [M] or [S, M] (bool); writes d2 and idx [S, Q, K].
+    lib: another build of the same entry point (`load`); by default the
+    shipped one."""
+    S, Q, _ = query.shape
+    M = ref.shape[-2]
+    K = d2.shape[-1]
+    if not 1 <= K <= KNN_MAX_K:
+        raise ValueError(f"k={K}: the k-NN kernel takes k in 1..{KNN_MAX_K}")
+    lib = lib or library()
+    with torch.cuda.device(query.device):
+        rc = lib.fbpr_knn(
+            query.data_ptr(), center.data_ptr(), ref.data_ptr(),
+            mask.data_ptr(), 3 * M if ref.dim() == 3 else 0,
+            M if mask.dim() == 2 else 0, S, Q, M, int(one_chunk), K,
+            d2.data_ptr(), idx.data_ptr(), _stream(query))
+    _check_rc("fbpr_knn", rc)
+
+
+def icp_plan(N: int, M: int, device,
+             lib: SimpleNamespace | None = None) -> tuple:
+    """(grid, splits, slice, scratch floats) of csrc/icp.cu at N source and
+    M target points on device; raises where it cannot launch
+    cooperatively."""
+    lib = lib or library()
+    out = (ctypes.c_int64 * 4)()
+    with torch.cuda.device(device):
+        rc = lib.fbpr_icp_plan(N, M, ctypes.addressof(out))
+    _check_rc("fbpr_icp_plan", rc)
+    return tuple(out)
+
+
+def launch_icp(src, src_mask, dst, dst_mask, out, *, chunk: int,
+               max_d2: float, max_iterations: int, eps: float,
+               lib: SimpleNamespace | None = None):
+    """csrc/icp.cu, one cooperative launch, on validated contiguous CUDA
+    tensors (see ops/icp.py): src [N, 3], src_mask [N], dst [M, 3],
+    dst_mask [M] (bool); out: (T [4, 4], fitness [], converged [] bool,
+    iterations [] int32, delta []), written."""
+    N, M = src.shape[0], dst.shape[0]
+    lib = lib or library()
+    scratch = torch.empty(icp_plan(N, M, src.device, lib)[3],
+                          dtype=torch.float32, device=src.device)
+    with torch.cuda.device(src.device):
+        rc = lib.fbpr_icp(
+            src.data_ptr(), src_mask.data_ptr(), dst.data_ptr(),
+            dst_mask.data_ptr(), N, M, chunk, max_d2, max_iterations, eps,
+            scratch.data_ptr(), scratch.numel(),
+            *(t.data_ptr() for t in out), _stream(src))
+    _check_rc("fbpr_icp", rc)

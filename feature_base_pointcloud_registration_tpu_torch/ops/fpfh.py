@@ -14,8 +14,9 @@ Implementation (Rusu et al., ICRA 2009), fixed-K neighborhoods:
   3. FPFH: SPFH(p) + mean_k SPFH(neighbor_k)/dist_k.
 
 Everything is [N, K]-shaped masked math on the points' device; the only
-searches are the streamed k-NN of `ops/knn.py`.  The JAX package computes
-all of it outside any Pallas kernel, and so does the port (PyTorch ops).
+searches are the streamed k-NN of `ops/knn.py` (one `csrc/knn_stream.cu`
+launch a search on the card).  The JAX package computes all of it outside
+any Pallas kernel; the rest is PyTorch ops in the port.
 """
 
 from __future__ import annotations

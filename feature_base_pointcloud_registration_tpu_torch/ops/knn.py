@@ -6,23 +6,32 @@ the map is streamed in chunks:
 
     d2(q, m) = |q|^2 + |m|^2 - 2 q . m^T      (one [Q, C] product per chunk)
 
-with an exact top-k per chunk and a running 2k-column merge, so memory
-holds the padded map and one [Q, C] distance buffer.  The cross term is a
-plain `torch.matmul` (TF32 off, see device.py), as the JAX package computes
-it outside any Pallas kernel.  Every selection is exact with ties to the
-lower index, the rule of `lax.top_k`: `torch.topk` does not promise an order
-among ties on CUDA, so `_extract_topk` selects on keys that make every entry
-distinct (the distance's bits, then the column).
+on coordinates centred on the query centroid, with an exact top-k and ties
+to the lower index.  Returned distances are exact squared distances;
+padded/masked map points get 3e38 and never beat a real point (their
+indices stay in range).  Every function broadcasts over leading batch dims:
+a batch of query sets against one shared map [M, 3] or one map per set
+[..., M, 3].
 
-Returned distances are exact squared distances; padded/masked map points get
-3e38 and never beat a real point (their indices stay in range).  Every
-function broadcasts over leading batch dims: a batch of query sets against
-one shared map [M, 3] or one map per set [..., M, 3].
+`knn` dispatches by device.  CPU tensors run `knn_reference`, the plain
+version: a Python loop of a `torch.matmul` (TF32 off, see device.py), a
+top-k and a running 2k-column merge a chunk, as the JAX package's
+`lax.scan` does.  `torch.topk` does not promise an order among ties on
+CUDA, so `_extract_topk` selects on keys that make every entry distinct
+(the distance's bits, then the column).  CUDA tensors launch
+`csrc/knn_stream.cu` (one launch a call, k up to `kernels.KNN_MAX_K`), the
+same selection in one pass over the map, or raise.  The result does not
+depend on `chunk` except in the plain version's no-neighbour slots: with
+one chunk (M == chunk) a slot past the live points holds the lowest masked
+indices; with more it holds index 0, since the running best starts at
+(3e38, 0) and wins every tie at 3e38.  The kernel returns the same.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import kernels
 
 _BIG = 3.0e38
 
@@ -62,7 +71,68 @@ def knn(query, ref, ref_mask, k: int = 5, chunk: int = 4096):
 
     query [..., Q, 3]; ref [..., M, 3] or [M, 3]; ref_mask [..., M] or [M].
     Returns (dists2 [..., Q, k] ascending, idx [..., Q, k] int32 into ref).
-    M must be a multiple of `chunk` (pad the map to its capacity)."""
+    M must be a multiple of `chunk` (pad the map to its capacity).  CPU
+    tensors run `knn_reference`; CUDA tensors launch `fbpr_knn`, or
+    raise."""
+    dev = query.device
+    if dev.type == "cpu":
+        return knn_reference(query, ref, ref_mask, k, chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    check_kernel_args(query, ref, ref_mask, k, chunk)
+    M = ref.shape[-2]
+    lead = query.shape[:-2]
+    Q = query.shape[-2]
+    q = query.reshape(-1, Q, 3).contiguous()
+    S = q.shape[0]
+    center = q.mean(-2)
+    r = ref.reshape(-1, M, 3) if ref.dim() > 2 else ref
+    msk = ref_mask.reshape(-1, M) if ref.dim() > 2 else ref_mask
+    d2 = torch.empty((S, Q, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((S, Q, k), dtype=torch.int32, device=dev)
+    kernels.launch_knn(q, center, r.contiguous(), msk.contiguous(), d2, idx,
+                       one_chunk=M == chunk)
+    _COUNTED.launches += 1
+    return d2.view(*lead, Q, k), idx.view(*lead, Q, k)
+
+
+knn.launches = 0
+# the counter's owner, whatever a caller rebinds `knn` to (a timing
+# wrapper, a recorder)
+_COUNTED = knn
+
+
+def check_kernel_args(query, ref, ref_mask, k: int, chunk: int):
+    """Raise ValueError where `fbpr_knn` does not take a call: M not a
+    multiple of chunk, k outside 1..min(KNN_MAX_K, chunk), shapes other
+    than query [..., Q, 3] against ref [M, 3] / [..., M, 3] and its mask,
+    dtypes other than float32 points and a bool mask, inputs on different
+    devices."""
+    M = ref.shape[-2] if ref.dim() >= 2 else 0
+    if ref.dim() >= 2 and M % chunk:
+        raise ValueError(f"map capacity {M} not a multiple of chunk {chunk}")
+    if not 1 <= k <= min(kernels.KNN_MAX_K, chunk):
+        raise ValueError(f"k={k}: the k-NN kernel takes k in 1.."
+                         f"{min(kernels.KNN_MAX_K, chunk)} (chunk {chunk})")
+    if query.dim() < 2 or query.shape[-1] != 3 or ref.dim() < 2 \
+            or ref.shape[-1] != 3 or M < 1 \
+            or ref.shape[:-2] not in ((), query.shape[:-2]) \
+            or ref_mask.shape != ref.shape[:-1]:
+        raise ValueError(f"knn: query {tuple(query.shape)}, ref "
+                         f"{tuple(ref.shape)}, ref_mask "
+                         f"{tuple(ref_mask.shape)}")
+    if query.dtype != torch.float32 or ref.dtype != torch.float32 \
+            or ref_mask.dtype != torch.bool:
+        raise ValueError(f"knn: dtypes {query.dtype}, {ref.dtype}, "
+                         f"{ref_mask.dtype} (float32, float32, bool)")
+    if ref.device != query.device or ref_mask.device != query.device:
+        raise ValueError("knn: query, ref and ref_mask on different devices")
+
+
+def knn_reference(query, ref, ref_mask, k: int = 5, chunk: int = 4096):
+    """The plain version of `knn` (the port's loop before the kernel): on
+    any device, a `torch.matmul`, a top-k and a running 2k-column merge a
+    map chunk."""
     M = ref.shape[-2]
     if M % chunk:
         raise ValueError(f"map capacity {M} not a multiple of chunk {chunk}")

@@ -8,8 +8,10 @@ against the JAX package's.
 
 `kitti` and `multisession` run `chip_smoke.kitti_phase` /
 `multisession_phase` on the CPU (the kernels' plain versions, counted as
-launches by wrappers around `ops.fetch.block_fetch` / `resident_fetch` and
-`ops.rounds_gn.rounds_gn`)
+launches by wrappers around `ops.fetch.block_fetch` / `resident_fetch`,
+`ops.rounds_gn.rounds_gn`, `ops.knn.knn`, `ops.icp.icp_align` and
+`graph.pose_graph.optimize_pose_graph` (one route-A launch a solve) /
+`graph_factor_blocks`)
 with `Params`' registration grid at +-(40, 40, 9) m instead of +-(60, 60,
 25) m: a whole number of 2 m cells off the default, so every table holds
 the same points in the same cells (the same poses) at a size a CPU host
@@ -51,10 +53,12 @@ def cpu_params():
 
 
 def counted_fetches():
-    """Count the plain fetches and GN rounds as chip_smoke counts kernel
-    launches."""
+    """Count the plain fetches, GN rounds, k-NN calls and ICP runs as
+    chip_smoke counts kernel launches."""
     from feature_base_pointcloud_registration_tpu_torch.ops import (
-        fetch, register, rounds_gn)
+        fetch, fpfh, icp, knn, register, rounds_gn)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline import (
+        multisession, slam)
 
     def counting(real):
         def f(*a, **kw):
@@ -66,6 +70,18 @@ def counted_fetches():
     for name in ("block_fetch", "resident_fetch"):
         setattr(fetch, name, counting(getattr(fetch, name)))
     rounds_gn.rounds_gn = register.rounds_gn = counting(rounds_gn.rounds_gn)
+    knn.knn = fpfh.knn = register.knn = counting(knn.knn)
+    icp.icp_align = slam.icp_align = multisession.icp_align = counting(
+        icp.icp_align)
+    # the pose-graph LM: every solve counted as one route-A launch
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        pose_graph)
+    lm = counting(pose_graph.optimize_pose_graph_reference)
+    lm.launches_b = 0
+    pose_graph.optimize_pose_graph = slam.optimize_pose_graph = \
+        multisession.optimize_pose_graph = lm
+    blocks = counting(pose_graph.graph_factor_blocks)
+    pose_graph.graph_factor_blocks = blocks
 
 
 def offset_error(T, true_ab):

@@ -76,6 +76,22 @@ a factor of 2) and the propagation (R,
 p, v within 1e-5 of max(1, their largest entry)) on one LIO interval, a
 64-sample interval, a 1024-sample buffer with interior masked samples and
 a buffer with none live, with no host sync and two launches bitwise.
+The streamed k-NN kernel (csrc/knn_stream.cu) against its plain version
+on the card (`knn_reference`) on tests/icp_scenes.py's scenes at k 1, 5
+and 16, a shared map and one map per set, one chunk and four: one launch
+and no host sync a call, the no-neighbour slots exact (the lowest masked
+indices with one chunk, 0 with more), d2 within 1e-6 of the terms the
+formula cancels, a differing index only at a near-tie, the index sets
+equal where the plain k-th and (k+1)-th distances lie apart, duplicates'
+ties to the lower index, two launches bitwise; k outside 1..16, float64
+and a mask on another device refused.  The ICP kernel (csrc/icp.cu)
+against its plain version on the card (`icp_align_reference`) on the
+scenes at small caps and at phase 8's, the pair's and the merge's caps:
+one launch and no host sync a run, transform within 1e-4, converged and
+the fitness gate equal, fitness within the k-NN's d2 tolerance averaged
+over the matches (`icp_scenes.fitness_tol`), iterations printed (the 1e-6
+epsilon sits on float32 rounding: one route may settle where the other
+swaps two matches to the cap), two launches bitwise, R = I where H = 0.
 """
 
 import numpy as np
@@ -1710,3 +1726,134 @@ def test_imu_kernels_raise_off_the_kernel(cuda):
     with pytest.raises(ValueError):
         tp.propagate_states(tp.NavState.identity(device=cuda), ba, bg,
                             acc[:0], gyr[:0], dt[:0], None)
+
+
+# ---- the streamed k-NN and ICP kernels (csrc/knn_stream.cu, csrc/icp.cu)
+
+import icp_scenes as iscn  # noqa: E402
+
+def _knn_inputs(scene, M, chunk, maps, dev, Q=2000):
+    """tests/icp_scenes.py's k-NN scene: one query set against its map, or
+    two sets (seeds 0 and 1) with one map each."""
+    sets = [iscn.knn_scene(scene, M, chunk, Q=Q, seed=s)
+            for s in ((0,) if maps == "shared" else (0, 1))]
+    if maps == "shared":
+        return [torch.from_numpy(a).to(dev) for a in sets[0]]
+    return [torch.from_numpy(np.stack(a)).to(dev) for a in zip(*sets)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", ["one", "four"])
+@pytest.mark.parametrize("maps", ["shared", "per_set"])
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("scene", iscn.KNN_SCENES)
+def test_knn_kernel_matches_plain(cuda, scene, k, maps, chunks):
+    """The k-NN kernel against its plain version on the card, in one launch
+    with no host sync (icp_scenes.knn_agreement's tolerances); two
+    launches bitwise."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        knn as tknn)
+    M = 4096
+    chunk = M if chunks == "one" else M // 4
+    q, ref, mask = _knn_inputs(scene, M, chunk, maps, cuda)
+    before = tknn.knn.launches
+    (d2k, ik), syncs = _syncs_of(lambda: tknn.knn(q, ref, mask, k=k,
+                                                  chunk=chunk))
+    assert tknn.knn.launches == before + 1 and syncs == 0
+    assert d2k.shape == (*q.shape[:-1], k) and ik.dtype == torch.int32
+    d2p, ip = tknn.knn_reference(q, ref, mask, k=k, chunk=chunk)
+    d2p1 = tknn.knn_reference(q, ref, mask, k=k + 1, chunk=chunk)[0]
+    sets = (((q, ref, d2k, ik, d2p, ip, d2p1),) if maps == "shared" else
+            zip(q, ref, d2k, ik, d2p, ip, d2p1))
+    out = [iscn.knn_agreement(*s) for s in sets]
+    print(f"knn {scene} k={k} {maps} {chunks}: d2 |diff| max "
+          f"{max(e for e, _ in out):.3e}, index differences "
+          f"{sum(n for _, n in out)}")
+    if scene == "duplicates":
+        want = [4, 5, 6, 7, 8][:k]
+        assert ik[..., 0, :len(want)].reshape(-1, len(want))[0].tolist() \
+            == want
+    again = tknn.knn(q, ref, mask, k=k, chunk=chunk)
+    assert torch.equal(again[0], d2k) and torch.equal(again[1], ik)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_refuses_what_it_does_not_take(cuda):
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        knn as tknn)
+    q, ref, mask = _knn_inputs("random", 1024, 256, "shared", cuda, Q=64)
+    for bad in (dict(k=17), dict(k=0), dict(chunk=384)):
+        kw = {"k": 5, "chunk": 256, **bad}
+        with pytest.raises(ValueError):
+            tknn.knn(q, ref, mask, **kw)
+    with pytest.raises(ValueError):
+        tknn.knn(q.double(), ref.double(), mask, k=5, chunk=256)
+    with pytest.raises(ValueError):
+        tknn.knn(q, ref, mask.cpu(), k=5, chunk=256)
+
+
+ICP_CAPS = {"small": (256, 1024, 256), "phase8": (4096, 16384, 2048),
+            "pair": (2048, 2048, 2048), "merge": (4096, 4096, 2048)}
+ICP_CASES = [(s, "small") for s in iscn.ICP_SCENES] + [
+    ("room", "phase8"), ("pair", "pair"), ("merge", "merge")]
+
+
+def _icp_inputs(scene, caps, dev):
+    N, M, chunk = ICP_CAPS[caps]
+    src, sm, dst, dm, kw = iscn.icp_scene(scene, N=N, M=M, chunk=chunk)
+    return [torch.from_numpy(a).to(dev) for a in (src, sm, dst, dm)], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,caps", ICP_CASES)
+def test_icp_kernel_matches_plain(cuda, scene, caps):
+    """One icp_align run on the card is one launch with no host sync; its
+    transform within 1e-4 of the plain version's on the card
+    (icp_align_reference, the parent's loop), converged and the loop
+    closure's fitness gate (< 0.3) equal, fitness within the k-NN's d2
+    tolerance averaged over the matches (icp_scenes.fitness_tol); two
+    launches bitwise; with no correspondence or one (H = 0) R is I in
+    both."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        icp as ticp)
+    args, kw = _icp_inputs(scene, caps, cuda)
+    before = ticp.icp_align.launches
+    got, syncs = _syncs_of(lambda: ticp.icp_align(*args, **kw))
+    assert ticp.icp_align.launches == before + 1 and syncs == 0
+    want = ticp.icp_align_reference(*args, **kw)
+    d = float((got.transform - want.transform).abs().max())
+    print(f"icp {scene} at {caps} caps: transform |diff| {d:.3e}, "
+          f"iterations {int(got.iterations)} vs {int(want.iterations)}, "
+          f"fitness {float(got.fitness):.7g} vs {float(want.fitness):.7g}, "
+          f"delta {float(got.delta):.3e} vs {float(want.delta):.3e}")
+    assert d <= 1e-4
+    assert bool(got.converged) == bool(want.converged)
+    assert (float(got.fitness) < 0.3) == (float(want.fitness) < 0.3)
+    tol = iscn.fitness_tol(args[0].cpu(), args[1].cpu(),
+                           want.transform.cpu())
+    assert abs(float(got.fitness) - float(want.fitness)) <= tol
+    assert got.iterations.dtype == torch.int32 \
+        and got.converged.dtype == torch.bool
+    if scene in ("far", "one_match"):
+        assert torch.equal(got.transform[:3, :3], torch.eye(3, device=cuda))
+        assert torch.equal(want.transform[:3, :3],
+                           torch.eye(3, device=cuda))
+    if scene == "far":
+        assert torch.equal(got.transform, torch.eye(4, device=cuda))
+    again = ticp.icp_align(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_icp_kernel_refuses_what_it_does_not_take(cuda):
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        icp as ticp)
+    (src, sm, dst, dm), kw = _icp_inputs("room", "small", cuda)
+    with pytest.raises(ValueError):
+        ticp.icp_align(src, sm, dst, dm, chunk=384)
+    with pytest.raises(ValueError):
+        ticp.icp_align(src, sm.float(), dst, dm, chunk=256)
+    with pytest.raises(ValueError):
+        ticp.icp_align(src.double(), sm, dst.double(), dm, chunk=256)
+    with pytest.raises(ValueError):
+        ticp.icp_align(src, sm, dst.cpu(), dm.cpu(), chunk=256)

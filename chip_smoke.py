@@ -89,7 +89,9 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            picking on the kernel and on its plain version in turns; the
            step's time, split and solve syncs with the rounds solver's
            iterations on rounds_gn and on the parent's loop
-           (rounds_gn_reference) in turns; the
+           (rounds_gn_reference) in turns; the step's time and split, and
+           a profiled step's device-busy share, with rounds_gn at the
+           rule's cluster size and at one CTA a lane, in turns; the
            ring-pick kernel bitwise against its plain version, timed
            beside it and its bound, at (a) this phase's scan (B=1,
            strict), (b) phase 3's batch (B=256, fast), (c) the HDL-64
@@ -136,7 +138,17 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            0.05 at K 16): pose and matP within 1e-5 on lanes whose flags,
            iterations and n_corr agree, a degenerate lane's pose within
            1e-3, agreement on >= 95% of lanes of a batch (a flip printed
-           at any B), each timed beside its plain version and its bound;
+           at any B), two launches bitwise, each timed beside its plain
+           version and its bound, at the rule's cluster size
+           (kernels.rounds_gn_cluster) and, at (a), (c) and (d), at every
+           cluster size 1-16; (a) and (c) timed at the rule's size and at
+           1 in turns; the clock64 split of an iteration (point loop,
+           in-CTA reduction, cluster combine, tail) from rounds_gn.cu's
+           diagnostic build (-DFBPR_ROUNDS_PROFILE) at (a), (b) round 1,
+           (c) and each swept size; ptxas of the shipped, FMA and
+           diagnostic builds; the resident clusters of each size; the C
+           sweep (one K=16 lane of P = 320 to 10240 live points at every
+           size: us an iteration, ROUNDS_MIN_SHARE's source);
   phase 8  the SLAM back end: SlamPipeline at its default capacities with
            loop closure on (default Params), 60 scans 0.7 s apart around a
            3 m circle that closes after 41.9 s, skewed by the motion,
@@ -168,7 +180,10 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            iteration), the marginals' factor blocks on its blocks entry;
            every solve of the run again on the kernel and on the parent's
            loop (optimize_pose_graph_reference on the card) in turns, the
-           LM's ms a step on each;
+           LM's ms a step on each; every grid_register_step call (tables +
+           solve) again with rounds_gn at the rule's cluster size and at
+           one CTA a lane in turns, ms a step on each and a profiled
+           call's device-busy share;
   phase 9  the LIO mode (examples/run.py --mode lio): LioTopology(Params(
            pose_cov_threshold=0), max_keyframes=256, imu_window=16,
            imu_max_samples=64) over 50 scans 0.2 s apart along
@@ -198,7 +213,9 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            window reset's marginal, one propagate_states a flush and a
            re-propagation; every correction's chain solve again on the
            kernel and on the parent's loop (optimize_imu_chain_reference
-           on the card) in turns, the chain LM's ms a step on each;
+           on the card) in turns, the chain LM's ms a step on each; the
+           tables + solve stage in turns at rounds_gn's two cluster sizes
+           as in phase 8;
   phase 10 the KITTI and multi-session entry points: (a) load_scan and
            iter_scans on the three HDL-64 scans of tests/data/kitti_mini
            bitwise equal to native.kitti_read_bin, their strict features
@@ -1064,6 +1081,69 @@ LM_INPUTS = {}
 # the inputs of the first rounds_gn calls of a phase ({phase: [(args,
 # kw), ...]}), kept for the rounds_gn probes
 ROUNDS_INPUTS = {}
+# the rounds_gn probes at every cluster size and the sizes' sweep
+ROUNDS_SWEEP = {}
+# the steps of phases 7-9 with rounds_gn at the rule's cluster size and at
+# cluster 1, in turns ({phase: {route: record}})
+ROUNDS_TURNS = {}
+
+
+def solve_in_turns(phase, calls, steps, step_ms):
+    """Every grid_register_step call of a phase (the `tables + solve`
+    stage's (args, kw, out)) again with the rounds kernel at the rule's
+    cluster size and at cluster 1: a warm-up pass, then in turns (chosen,
+    1, 1, chosen, twice; host wall, the device synchronized around each
+    call), then the last call
+    profiled on each route (device-busy share).  Prints the `time <phase>
+    tables + solve in turns` line: ms a step (the calls' sum over `steps`)
+    on each route and the step (step_ms, measured at the rule's) with
+    cluster 1 in its place.  Returns the record (ROUNDS_TURNS[phase])."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.ops.register import (
+        grid_register_step)
+    ms = {"chosen": [], "C=1": []}
+    diff = 0.0
+    for route in ("warm-up", *("chosen", "C=1", "C=1", "chosen") * 2):
+        with rounds_cluster(None if route != "C=1" else 1):
+            tot = 0.0
+            for a, kw, out in calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = grid_register_step(*a, **kw)
+                torch.cuda.synchronize()
+                tot += (time.perf_counter() - t0) * 1e3
+                diff = max(diff, float((res.pose6 - out.pose6).abs().max()))
+            ms.setdefault(route, []).append(tot / steps)
+    rec = {}
+    a, kw, _ = calls[-1]
+    for route in ("chosen", "C=1"):
+        with rounds_cluster(None if route == "chosen" else 1):
+            w_p, b_p, _ = profile_call(lambda: grid_register_step(*a, **kw))
+        rec[route] = dict(stage_ms_step=float(np.mean(ms[route])),
+                          passes=ms[route], profiled_wall_ms=w_p,
+                          profiled_busy_ms=b_p, busy_share=b_p / w_p)
+    rec["step_ms"] = step_ms
+    rec["step_ms_cluster1"] = (step_ms - rec["chosen"]["stage_ms_step"]
+                               + rec["C=1"]["stage_ms_step"])
+    rec["max_abs_err"] = diff
+    ROUNDS_TURNS[phase] = rec
+    print(f"time {phase} tables + solve in turns (every grid_register_step "
+          f"call of the run again, the rounds kernel at the rule's cluster "
+          f"size and at cluster 1, after a warm-up pass of "
+          f"{ms['warm-up'][0]:.3f} ms a step, in turns): {len(calls)} calls; "
+          f"a step "
+          f"{rec['chosen']['stage_ms_step']:.3f} ms at the rule's "
+          f"({ms['chosen']}), {rec['C=1']['stage_ms_step']:.3f} ms at "
+          f"cluster 1 ({ms['C=1']}); the step {step_ms:.2f} ms at the "
+          f"rule's, {rec['step_ms_cluster1']:.2f} ms with cluster 1's in its "
+          f"place; the last call profiled: wall "
+          f"{rec['chosen']['profiled_wall_ms']:.2f} / "
+          f"{rec['C=1']['profiled_wall_ms']:.2f} ms, device busy "
+          f"{rec['chosen']['busy_share']:.1%} / {rec['C=1']['busy_share']:.1%}"
+          f" (the rule's / cluster 1); poses vs the run |diff| max "
+          f"{diff:.3e}", flush=True)
+    return rec
 
 
 def record_rounds(name, n=1):
@@ -1115,10 +1195,11 @@ def rounds_probe(name, args, kw, fma_lib=None):
     from feature_base_pointcloud_registration_tpu_torch.ops.rounds_gn import (
         rounds_gn, rounds_gn_reference)
     K = kw["K"]
+    ref_kw = {k: v for k, v in kw.items() if k != "cluster"}
     sk, mk = rounds_gn(*args, **kw)
     torch.cuda.synchronize()
-    sr, mr = rounds_gn_reference(*args, **kw)
-    sc = rounds_gn_reference(*(t.cpu() for t in args), **kw)[0].to(sr)
+    sr, mr = rounds_gn_reference(*args, **ref_kw)
+    sc = rounds_gn_reference(*(t.cpu() for t in args), **ref_kw)[0].to(sr)
     B = sk.shape[0]
     same, dpose = rounds_agreement(sk, sr)
     deg = sr[:, 8] > 0
@@ -1137,8 +1218,11 @@ def rounds_probe(name, args, kw, fma_lib=None):
     tol = max(ROUNDS_TOL, 2.0 * err_c) if floor else ROUNDS_TOL
     eq_min = min(GN_EQUAL_LANES, eq_c - 0.02) if floor else GN_EQUAL_LANES
     flips = torch.nonzero(~same)[:, 0].tolist()
+    again = rounds_gn(*args, **kw)
+    bitwise = torch.equal(again[0], sk) and torch.equal(again[1], mk)
     ms = cuda_ms(lambda: rounds_gn(*args, **kw), 20, graph=True)
-    plain_ms = cuda_ms(lambda: rounds_gn_reference(*args, **kw), 2)
+    plain_ms = cuda_ms(lambda: rounds_gn_reference(*args, **ref_kw), 2)
+    C = rounds_cluster_of(args, kw)
     b_ms, b_by, _ = gn_bound(args, sr, K)
     its = (sr[:, 6] - args[0][:, 6]).long()
     rec = dict(B=B, K=K, Pc=args[2].shape[2], Ps=args[3].shape[2],
@@ -1148,9 +1232,11 @@ def rounds_probe(name, args, kw, fma_lib=None):
                equal_lanes=eq, flips=len(flips), max_abs_err=err,
                matP_err=err_m, degenerate_err=err_deg,
                plain_card_vs_cpu_err=err_c, plain_card_vs_cpu_equal=eq_c,
-               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               cluster=C, bitwise=bitwise)
     print(f"probe rounds_gn {name}: B={B} K={K} Pc={rec['Pc']} "
-          f"Ps={rec['Ps']} spread {rec['spread']}: kernel {ms:.4f} ms, "
+          f"Ps={rec['Ps']} spread {rec['spread']} cluster {C}"
+          f"{'' if 'cluster' in kw else ' (the rule)'}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}, "
           f"{b_ms / ms:.2%} of it); lane-iterations "
           f"{rec['lane_iterations']} (max {rec['max_iterations']}); pose "
@@ -1160,7 +1246,8 @@ def rounds_probe(name, args, kw, fma_lib=None):
           f"{eq:.4f} of lanes; the plain version on the card against it "
           f"on the CPU: equal on {eq_c:.4f}, pose |diff| max {err_c:.3e} "
           f"on agreeing lanes, {float(dpose_c.max()):.3e} on all; held to "
-          f"{tol:.3e} and {eq_min:.4f}", flush=True)
+          f"{tol:.3e} and {eq_min:.4f}; two launches bitwise {bitwise}",
+          flush=True)
     if fma_lib is not None:
         sf = [t.clone() for t in args[:2]]
         kernels.launch_rounds_gn(*sf, *args[2:], lib=fma_lib, **kw)
@@ -1184,6 +1271,156 @@ def rounds_probe(name, args, kw, fma_lib=None):
     if B >= 20 and not eq >= eq_min:
         raise AssertionError(f"rounds_gn {name}: lanes agree on {eq} "
                              f"(held to {eq_min})")
+    if not bitwise:
+        raise AssertionError(f"rounds_gn {name}: two launches differ")
+    return rec
+
+
+def rounds_cluster_of(args, kw):
+    """The cluster size rounds_gn launches at on these inputs: kw's, or
+    kernels.rounds_gn_cluster's on this card."""
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    if kw.get("cluster") is not None:
+        return kw["cluster"]
+    stat, _, fc, fs = args[:4]
+    return kernels.rounds_gn_cluster_on(stat.device.index or 0, stat.shape[0],
+                                        fc.shape[2] + fs.shape[2], kw["K"])
+
+
+@contextlib.contextmanager
+def rounds_cluster(C):
+    """While the block runs, every rounds_gn launch that names no cluster
+    size runs at C (None: the rule's, kernels.rounds_gn_cluster)."""
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    real = kernels.launch_rounds_gn
+
+    def forced(*a, cluster=None, **kw):
+        return real(*a, cluster=C if cluster is None else cluster, **kw)
+
+    kernels.launch_rounds_gn = forced
+    try:
+        yield
+    finally:
+        kernels.launch_rounds_gn = real
+
+
+def rounds_in_turns(name, args, kw, reps=20):
+    """rounds_gn at the rule's C and at C = 1 on the same inputs, in turns
+    (chosen, 1, 1, chosen), each timed by cuda_ms over a CUDA graph of reps
+    launches; prints the `probe rounds_gn <name> in turns` line and
+    returns {"chosen": ms, "C=1": ms, "cluster": C}."""
+    from feature_base_pointcloud_registration_tpu_torch.ops.rounds_gn import (
+        rounds_gn)
+    t = {"chosen": [], "C=1": []}
+    for route in ("chosen", "C=1", "C=1", "chosen"):
+        c = None if route == "chosen" else 1
+        t[route].append(cuda_ms(lambda: rounds_gn(*args, **kw, cluster=c),
+                                reps, graph=True))
+    out = {r: float(np.mean(v)) for r, v in t.items()}
+    out["cluster"] = rounds_cluster_of(args, kw)
+    print(f"probe rounds_gn {name} in turns (chosen, 1, 1, chosen): the "
+          f"rule's cluster {out['cluster']} {out['chosen']:.4f} ms "
+          f"({t['chosen']}), cluster 1 {out['C=1']:.4f} ms ({t['C=1']}): "
+          f"{out['C=1'] / out['chosen']:.2f}x", flush=True)
+    return out
+
+
+def rounds_sweep(dev, prof):
+    """`probe rounds_gn C sweep` lines: one lane at K=16 (tests/
+    rounds_scenes.py's plain lane at the step's caps, Pc 2048 + Ps 8192,
+    every point live) cut to its first P = Pc + Ps points, P from 320 to
+    10240, at every cluster size, 6 iterations each (the convergence test
+    off): us an iteration by CUDA events and the clock64 split of the
+    largest P.  The least points a CTA keeps where the next larger
+    cluster still gains 5% is where kernels.ROUNDS_MIN_SHARE comes from.
+    Returns {P: {C: us an iteration}}."""
+    import rounds_scenes as rs
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.ops.rounds_gn import (
+        rounds_gn)
+    K, iters = 16, 6
+    full = rs.packed(rs.plain_lanes(1, K, 2048, 8192), K, dev)
+    kw = dict(K=K, iters=iters, conv_rot_deg=0.0, conv_trans_cm=0.0)
+    out, gains = {}, []
+    for pc, ps in ((64, 256), (128, 512), (256, 1024), (512, 2048),
+                   (1024, 4096), (2048, 8192)):
+        stat, matP, fc, fs, cc, cs, dc, ds = full
+        args = (stat, matP, fc[:, :, :pc].contiguous(),
+                fs[:, :, :ps].contiguous(), cc[:, :pc].contiguous(),
+                cs[:, :ps].contiguous(), dc[:, :pc].contiguous(),
+                ds[:, :ps].contiguous())
+        P = pc + ps
+        row = {}
+        for C in (1, 2, 4, 8, 16):
+            row[C] = cuda_ms(lambda: rounds_gn(*args, **kw, cluster=C), 20,
+                             graph=True) * 1e3 / iters
+        out[P] = row
+        for C in (2, 4, 8, 16):
+            if row[C] <= 0.95 * row[C // 2]:
+                gains.append(P // C)
+        best = min(row, key=row.get)
+        print(f"probe rounds_gn C sweep P={P} (Pc {pc} + Ps {ps}, all "
+              f"live, K {K}): us an iteration by cluster size " + ", ".join(
+                  f"{C}: {us:.2f}" for C, us in row.items())
+              + f"; fastest {best} ({P // best} points a CTA)", flush=True)
+        if P == 10240:
+            for C in (1, 16):
+                rounds_split(f"C sweep P={P} cluster {C}", args,
+                             dict(kw, cluster=C), prof)
+    print(f"probe rounds_gn C sweep: the least points a CTA at which "
+          f"doubling the cluster still gained 5%: "
+          f"{min(gains) if gains else None}; kernels.ROUNDS_MIN_SHARE "
+          f"{kernels.ROUNDS_MIN_SHARE}", flush=True)
+    return out
+
+
+def rounds_split(name, args, kw, lib, reps=5):
+    """One `probe rounds_gn ... split` line: reps launches of the
+    diagnostic build (rounds_profile_build) on the same inputs, and the
+    iteration's parts from its clock64 sums, in us an iteration of a CTA
+    (the cycles over the clock that the kernel's own clock64 and
+    globaltimer give): the point loop (to the slowest thread), the in-CTA
+    reduction (reduce-scatter, the warps' sums in order), the cluster
+    combine (the barrier, which waits for the slowest CTA, and the rank
+    sums; 0 on one CTA) and the tail (step_warp, next_frame).  Returns the
+    record."""
+    import ctypes
+
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.ops.rounds_gn import (
+        rounds_gn)
+    out = (ctypes.c_uint64 * 8)()
+    torch.cuda.synchronize()
+    kernels._check_rc("fbpr_rounds_gn_profile", lib.fbpr_rounds_gn_profile(
+        ctypes.addressof(out), 1))
+    with launching_with("launch_rounds_gn", lib):
+        for _ in range(reps):
+            rounds_gn(*args, **kw)
+    torch.cuda.synchronize()
+    kernels._check_rc("fbpr_rounds_gn_profile", lib.fbpr_rounds_gn_profile(
+        ctypes.addressof(out), 1))
+    its, loop, red, comb, tail, cycles, ns, ctas = (int(v) for v in out)
+    ghz = cycles / max(ns, 1)
+    parts = {k: v / max(its, 1) / ghz / 1e3 for k, v in (
+        ("loop_us", loop), ("reduce_us", red), ("combine_us", comb),
+        ("tail_us", tail))}
+    total = sum(parts.values())
+    rec = dict(parts, iteration_us=total, kernel_us=ns / max(ctas, 1) / 1e3,
+               ghz=ghz, ctas=ctas // reps, iterations=its / max(ctas, 1),
+               cluster=rounds_cluster_of(args, kw))
+    print(f"probe rounds_gn {name} split (diagnostic build, clock64 on "
+          f"thread 0 of each CTA, {rec['ctas']} CTAs, cluster "
+          f"{rec['cluster']}, {rec['iterations']:.1f} iterations a CTA, "
+          f"clock {ghz:.3f} GHz): an iteration {total:.2f} us = point loop "
+          f"{parts['loop_us']:.2f} ({parts['loop_us'] / total:.1%}), in-CTA "
+          f"reduction {parts['reduce_us']:.2f} "
+          f"({parts['reduce_us'] / total:.1%}), cluster combine "
+          f"{parts['combine_us']:.2f} ({parts['combine_us'] / total:.1%}), "
+          f"tail {parts['tail_us']:.2f} ({parts['tail_us'] / total:.1%}); "
+          f"the kernel {rec['kernel_us']:.2f} us a CTA", flush=True)
     return rec
 
 
@@ -1195,8 +1432,16 @@ def rounds_probes(dev):
     picks near the world origin; min_plane_spread 0.05 at K 16).  Returns
     {name: record}."""
     import rounds_scenes as rs
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
     fma = fma_build("rounds_gn")
-    out = {}
+    prof = rounds_profile_build()
+    for K in kernels.SUPPORTED_K:
+        print(f"probe rounds_gn resident clusters at K={K} (cudaOccupancy"
+              f"MaxActiveClusters, 40 KB list): " + ", ".join(
+                  f"{C}: {kernels.rounds_gn_max_clusters(0, K, C)}"
+                  for C in (1, 2, 4, 8, 16)), flush=True)
+    out, sweep = {}, {}
     for name, key, r in (("(a) phase 7 step 0 round 0", "phase 7", 0),
                          ("(b) phase 6 round 0", "phase 6", 0),
                          ("(b) phase 6 round 1", "phase 6", 1),
@@ -1205,11 +1450,25 @@ def rounds_probes(dev):
         args, kw = ROUNDS_INPUTS[key][r]
         out[name] = rounds_probe(name, args, kw,
                                  fma if key == "phase 6" else None)
+        if name != "(b) phase 6 round 0":
+            out[name]["split"] = rounds_split(name, args, kw, prof)
+        if key == "phase 6":
+            continue
+        out[name]["in_turns"] = rounds_in_turns(name, args, kw)
+        for C in (1, 2, 4, 8, 16):
+            sub = f"{name} cluster {C}"
+            sweep[sub] = rounds_probe(sub, args, dict(kw, cluster=C))
+            sweep[sub]["split"] = rounds_split(sub, args, dict(kw, cluster=C),
+                                               prof)
     for K, spread in ((8, 0.0), (16, 0.05)):
+        name = f"(d) edge lanes K={K}"
         args = rs.packed(rs.edge_lanes(K), K, dev)
-        out[f"(d) edge lanes K={K}"] = rounds_probe(
-            f"(d) edge lanes K={K}", args,
-            dict(K=K, iters=10, min_plane_spread=spread))
+        kw = dict(K=K, iters=10, min_plane_spread=spread)
+        out[name] = rounds_probe(name, args, kw)
+        for C in (1, 2, 4, 8, 16):
+            sub = f"{name} cluster {C}"
+            sweep[sub] = rounds_probe(sub, args, dict(kw, cluster=C))
+    ROUNDS_SWEEP.update(probes=sweep, sizes=rounds_sweep(dev, prof))
     return out
 
 
@@ -1878,17 +2137,37 @@ def icp_in_turns(calls):
     return out
 
 
+def variant_build(stem, flags, label):
+    """A build of csrc/<stem>.cu with `flags` in place of its
+    kernels.SOURCE_FLAGS entry, loaded; its ptxas lines printed under
+    label."""
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    src = kernels.CSRC / f"{stem}.cu"
+    shipped = dict(kernels.SOURCE_FLAGS)
+    kernels.SOURCE_FLAGS[stem] = list(flags)
+    try:
+        so = kernels._build([src])[0]
+    finally:
+        kernels.SOURCE_FLAGS.clear()
+        kernels.SOURCE_FLAGS.update(shipped)
+    print_ptxas(label, kernels.BUILD_DIR / (so.stem + ".log"))
+    return kernels.load(so)
+
+
 def fma_build(stem):
     """A build of csrc/<stem>.cu with FMA contraction (the shipped one has
     none: kernels.SOURCE_FLAGS), loaded."""
+    return variant_build(stem, [], label=f"{stem} (FMA build)")
+
+
+def rounds_profile_build():
+    """rounds_gn.cu's diagnostic build: the shipped flags and
+    -DFBPR_ROUNDS_PROFILE (clock64 stamps, fbpr_rounds_gn_profile)."""
     from feature_base_pointcloud_registration_tpu_torch import kernels
-    shipped = dict(kernels.SOURCE_FLAGS)
-    kernels.SOURCE_FLAGS.pop(stem, None)
-    try:
-        so = kernels._build([kernels.CSRC / f"{stem}.cu"])[0]
-    finally:
-        kernels.SOURCE_FLAGS.update(shipped)
-    return kernels.load(so)
+    return variant_build("rounds_gn", [*kernels.SOURCE_FLAGS["rounds_gn"],
+                                       "-DFBPR_ROUNDS_PROFILE"],
+                         "rounds_gn (diagnostic build)")
+
 
 
 @contextlib.contextmanager
@@ -2597,6 +2876,54 @@ def localization_phase(dev):
               f"{ab['diff']:.3e}", flush=True)
     if max(solve_ab["kernel"]["syncs"]) != 0:
         raise AssertionError("phase 7: host syncs in the kernel's solve")
+    # the step with the rounds kernel at the rule's cluster size and at one
+    # CTA a lane, in turns: wall, split, and the last step profiled on each
+    clus = {r: {"wall": [], "split": [], "busy": [], "diff": 0.0}
+            for r in ("chosen", "C=1")}
+    for route in ("chosen", "C=1", "C=1", "chosen"):
+        ab = clus[route]
+        with rounds_cluster(None if route == "chosen" else 1):
+            ab["split"].append(step_split(params, gm, runs))
+            for j in range(3, 3 + n_split):
+                t, dsk_cpu = inputs[j]
+                pipe.pose = ests[j - 1].copy()
+                pipe.time_last_processing = -1.0
+                raw_j = raw_of(scans[j][0], dev)
+                dsk = DeskewInfo(*(a.to(dev) for a in dsk_cpu))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                est_j = pipe.step(raw_j, t, dsk)
+                torch.cuda.synchronize()
+                ab["wall"].append((time.perf_counter() - t0) * 1e3)
+                ab["diff"] = max(ab["diff"],
+                                 float(np.abs(est_j - ests[j]).max()))
+            t, dsk_cpu = inputs[-1]
+            pipe.pose = ests[-2].copy()
+            pipe.time_last_processing = -1.0
+            ab["busy"].append(profile_call(lambda: pipe.step(
+                raw_of(scans[N_LOC - 1][0], dev), t,
+                DeskewInfo(*(a.to(dev) for a in dsk_cpu))))[:2])
+    pipe.pose, pipe.time_last_processing = saved
+    for route, name in (("chosen", "the rule's cluster size "
+                                   f"({rounds_cluster_of(*ROUNDS_INPUTS['phase 7'][0])})"),
+                        ("C=1", "one CTA a lane (cluster 1)")):
+        ab = clus[route]
+        sp = np.mean(ab["split"], axis=0)
+        w_p = float(np.mean([w for w, _ in ab["busy"]]))
+        b_p = float(np.mean([b for _, b in ab["busy"]]))
+        ROUNDS_TURNS.setdefault("phase 7", {})[route] = dict(
+            wall_ms=float(np.mean(ab["wall"])), solve_ms=float(sp[3]),
+            tables_ms=float(sp[2]), busy_share=b_p / w_p)
+        print(f"time phase 7 step, steps 3-{2 + n_split} twice each in turns,"
+              f" the rounds kernel at {name}: wall "
+              f"{np.mean(ab['wall']):.2f} ms (median "
+              f"{np.median(ab['wall']):.2f}, min {np.min(ab['wall']):.2f}, "
+              f"max {np.max(ab['wall']):.2f}; {ab['wall']}); split (CUDA "
+              f"events) frontend {sp[0]:.2f} ms, crop {sp[1]:.2f} ms, tables "
+              f"{sp[2]:.2f} ms, solve {sp[3]:.2f} ms; step {N_LOC - 1} "
+              f"profiled twice: wall {w_p:.2f} ms, device busy {b_p:.2f} ms "
+              f"({b_p / w_p:.1%}); poses vs the main run |diff| max "
+              f"{ab['diff']:.3e}", flush=True)
     # one more step, profiled: how much of it the device is busy
     t, dsk_cpu = inputs[-1]
     pipe.time_last_processing = -1.0
@@ -3521,6 +3848,8 @@ def slam_phase(dev):
           f"{min(syncs[SLAM_CHECKED + 1:])} max "
           f"{max(syncs[SLAM_CHECKED + 1:])}", flush=True)
     print_lm_in_turns("phase 8", lm_calls, N_SLAM - 1, steps_ms.mean())
+    solve_in_turns("phase 8", timer.calls["tables + solve"], N_SLAM - 1,
+                   float(steps_ms.mean()))
     turns = icp_in_turns(icps)
     ker = sum(t_[0] for t_ in turns) / (N_SLAM - 1)
     pla = sum(t_[1] for t_ in turns) / (N_SLAM - 1)
@@ -3711,6 +4040,7 @@ def lio_phase(dev):
     log = topo.slam._log
     odo = topo.odo
     module_fns = [(tslam, "process_scan", "frontend"),
+                  (tslam, "grid_register_step", "tables + solve"),
                   (tslam, "optimize_pose_graph", "pose graph LM"),
                   (todo, "preintegrate", "preintegrate"),
                   (todo, "optimize_imu_chain", "chain LM"),
@@ -4020,7 +4350,8 @@ def lio_phase(dev):
           f"(handle_imu + GPS + handle_cloud; steps {LIO_CHECKED + 1}-"
           f"{n_t - 1}; p50 {np.median(steps_ms):.2f}, max "
           f"{steps_ms.max():.2f}); per step on average (synchronized host "
-          f"clock; frontend inside slam step; preintegrate, chain LM, the "
+          f"clock; frontend and tables + solve inside slam step; "
+          f"preintegrate, chain LM, the "
           f"window reset's marginal and the re-propagation inside "
           f"handle_odometry; propagate also inside flush_imu_odometry): "
           + ", ".join(f"{name} {ms:.2f} ms" for name, ms in split.items())
@@ -4032,6 +4363,8 @@ def lio_phase(dev):
                       steps_ms.mean())
     k_step, p_step = print_lm_in_turns("phase 9", chain_calls, len(ests),
                                        steps_ms.mean(), lm="imu_chain_lm")
+    solve_in_turns("phase 9", timer.calls["tables + solve"], len(ests),
+                   float(steps_ms.mean()))
     IMU_INPUTS["in_turns"] = dict(kernel_ms_step=k_step,
                                   parent_loop_ms_step=p_step,
                                   lio_step_ms=float(steps_ms.mean()))
@@ -5474,10 +5807,20 @@ def main():
                                          for r in rp_rounds.values()),
               launches_phase6=launches6["rounds_gn"],
               probes={n: {k: r[k] for k in (
-                  "B", "K", "Pc", "Ps", "lane_iterations", "equal_lanes",
-                  "flips", "ms", "plain_ms", "bound_ms", "bound_by",
-                  "max_abs_err", "plain_card_vs_cpu_err")}
+                  "B", "K", "Pc", "Ps", "cluster", "lane_iterations",
+                  "equal_lanes", "flips", "ms", "plain_ms", "bound_ms",
+                  "bound_by", "max_abs_err", "plain_card_vs_cpu_err",
+                  "bitwise")} | {k: r[k] for k in ("split", "in_turns")
+                                 if k in r}
                       for n, r in rp_rounds.items()},
+              cluster=main_rounds["cluster"],
+              cluster_probes={n: {k: r[k] for k in (
+                  "cluster", "ms", "max_abs_err", "equal_lanes", "bitwise")}
+                  | ({"iteration_us": r["split"]["iteration_us"]}
+                     if "split" in r else {})
+                  for n, r in ROUNDS_SWEEP["probes"].items()},
+              cluster_sweep_us=ROUNDS_SWEEP["sizes"],
+              steps_in_turns=ROUNDS_TURNS,
               **localization("rounds_gn")),
         entry("pose_graph_lm", "pose_graph_lm.cu",
               xla_loop_line("pose_graph.py", "lax.scan(", sub="graph"),

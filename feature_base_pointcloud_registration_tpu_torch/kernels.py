@@ -51,6 +51,12 @@ RING_PICK_MAX_W = 8192    # csrc/ring_pick.cu: a window's slots and sort
 POSE_GRAPH_LM_MAX_LIVE = 38  # csrc/pose_graph_lm.cu kMaxLive: route A's H
                              # (6n x (6n + 1) floats) and buffers fit 227 KB
 KNN_MAX_K = 16            # csrc/knn_stream.cu: template instances K 1..16
+ROUNDS_MAX_CLUSTER = 16   # csrc/rounds_gn.cu kMaxCluster: CTAs a lane
+# points (Pc + Ps) a CTA of csrc/rounds_gn.cu keeps at least when a lane is
+# spread over a cluster: chip_smoke.py's `probe rounds_gn C sweep` (one
+# K=16 lane of 320 to 10240 live points on an H100) ran fastest at 160
+# points a CTA at every size up to 2560 points, and at 16 CTAs above
+ROUNDS_MIN_SHARE = 160
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Flags of one source on top of NVCC_FLAGS.  rounds_gn.cu,
@@ -94,9 +100,14 @@ _SIGNATURES = {
                       _F, _I, _F, _P],
     # stat, matP, featc, feats, candc, cands, cd2, sd2, B, Pc, Ps, K, iters,
     # min_corr, eig_thresh, conv_rot_deg, conv_trans_cm, min_plane_spread,
-    # stream
+    # cluster, stream
     "fbpr_rounds_gn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _P],
+                       _F, _F, _F, _F, _I, _P],
+    # K, cluster, out (int32): resident clusters of that size
+    "fbpr_rounds_gn_max_clusters": [_I, _I, _P],
+    # out (uint64 [8]), reset: rounds_gn.cu's clock64 sums, defined only
+    # by its diagnostic build (-DFBPR_ROUNDS_PROFILE)
+    "fbpr_rounds_gn_profile": [_P, _I],
     # curv, col, picked, sp, ep, sector_ok, n_windows, W, edge_threshold,
     # surf_threshold, strict, label, stream
     "fbpr_ring_pick": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _P, _P],
@@ -134,6 +145,9 @@ _SIGNATURES = {
     "fbpr_icp": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _D, _P, _L, _P, _P, _P,
                  _P, _P, _P],
 }
+
+# entry points that only a diagnostic build of a source defines
+_DIAGNOSTIC = {"fbpr_rounds_gn_profile"}
 
 
 def _nvcc() -> str:
@@ -208,7 +222,7 @@ def library() -> SimpleNamespace:
     fns = {}
     for so in _build(sorted(CSRC.glob("*.cu"))):
         fns.update(vars(load(so)))
-    missing = set(_SIGNATURES) - set(fns)
+    missing = set(_SIGNATURES) - set(fns) - _DIAGNOSTIC
     if missing:
         raise RuntimeError(f"csrc/ defines no {sorted(missing)}")
     return SimpleNamespace(**fns)
@@ -287,26 +301,89 @@ def launch_gn_round(stat, matP, featc, feats, candc, cands, *, K: int,
     _check_rc("fbpr_gn_round", rc)
 
 
+def check_cluster(cluster: int):
+    """Raises unless cluster is a size csrc/rounds_gn.cu launches: a power
+    of two up to ROUNDS_MAX_CLUSTER."""
+    if (isinstance(cluster, bool) or not isinstance(cluster, int)
+            or not 1 <= cluster <= ROUNDS_MAX_CLUSTER
+            or cluster & (cluster - 1)):
+        raise ValueError(f"cluster={cluster!r}: rounds_gn takes a power of "
+                         f"two from 1 to {ROUNDS_MAX_CLUSTER}")
+
+
+def rounds_gn_cluster(B: int, P: int, n_sm: int, K: int,
+                      max_clusters=None) -> int:
+    """CTAs a lane of csrc/rounds_gn.cu, from shapes alone (the masks stay
+    on the card): the largest power of two C up to ROUNDS_MAX_CLUSTER such
+    that the B * C CTAs fit one wave of n_sm SMs (one CTA an SM at K=16,
+    two at K <= 8: the kernel's __launch_bounds__), each CTA keeps at
+    least ROUNDS_MIN_SHARE of the lane's P = Pc + Ps points, and, given
+    max_clusters(C) (the clusters of C that can be resident at once), B
+    of them are.  B = 256 gets C = 1; B = 1 at the step's feature caps
+    gets 16."""
+    slots = n_sm * (1 if K > 8 else 2)
+    C = ROUNDS_MAX_CLUSTER
+    while C > 1 and (B * C > slots or P < C * ROUNDS_MIN_SHARE
+                     or (max_clusters is not None and max_clusters(C) < B)):
+        C //= 2
+    return C
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def rounds_gn_max_clusters(index: int, K: int, cluster: int) -> int:
+    """Clusters of `cluster` CTAs of the shipped rounds_gn.cu (K instance)
+    that can be resident at once on CUDA device `index`, at the largest
+    live list's shared memory (cudaOccupancyMaxActiveClusters)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = library().fbpr_rounds_gn_max_clusters(K, cluster,
+                                                   ctypes.byref(out))
+    _check_rc("fbpr_rounds_gn_max_clusters", rc)
+    return out.value
+
+
+def rounds_gn_cluster_on(index: int, B: int, P: int, K: int) -> int:
+    """rounds_gn_cluster on CUDA device `index`: its SM count and the
+    clusters of each size it can hold resident."""
+    return rounds_gn_cluster(B, P, _sm_count(index), K,
+                             lambda C: rounds_gn_max_clusters(index, K, C))
+
+
 def launch_rounds_gn(stat, matP, featc, feats, candc, cands, cd2, sd2, *,
                      K: int, iters: int, min_corr: int, eig_thresh: float,
                      conv_rot_deg: float, conv_trans_cm: float,
-                     min_plane_spread: float,
+                     min_plane_spread: float, cluster: int | None = None,
                      lib: SimpleNamespace | None = None):
     """csrc/rounds_gn.cu on validated CUDA tensors (see ops/rounds_gn.py);
-    updates stat and matP in place.  lib: another build of the same entry
-    point (`load`), for comparisons of builds; by default the shipped
-    one."""
+    updates stat and matP in place.  cluster: CTAs a lane, by default
+    rounds_gn_cluster's; a size the card cannot co-schedule raises.  lib:
+    another build of the same entry point (`load`), for comparisons of
+    builds; by default the shipped one."""
     _check_k(K)
     lib = lib or library()
     B, _, Pc = featc.shape
     Ps = feats.shape[2]
+    index = stat.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    if cluster is None:
+        cluster = rounds_gn_cluster_on(index, B, Pc + Ps, K)
+    check_cluster(cluster)
+    if cluster > 1 and rounds_gn_max_clusters(index, K, cluster) < 1:
+        raise RuntimeError(f"rounds_gn: a cluster of {cluster} CTAs cannot "
+                           f"be resident on this card")
     with torch.cuda.device(stat.device):
         rc = lib.fbpr_rounds_gn(
             stat.data_ptr(), matP.data_ptr(), featc.data_ptr(),
             feats.data_ptr(), candc.data_ptr(), cands.data_ptr(),
             cd2.data_ptr(), sd2.data_ptr(), B, Pc, Ps, K, iters, min_corr,
             eig_thresh, conv_rot_deg, conv_trans_cm, min_plane_spread,
-            _stream(stat))
+            cluster, _stream(stat))
     _check_rc("fbpr_rounds_gn", rc)
 
 

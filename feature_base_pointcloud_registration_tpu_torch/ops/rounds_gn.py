@@ -5,9 +5,10 @@ one device loop (`lax.while_loop` inside `lax.scan` over the rounds).  The
 port's `ops/register.py::register_rounds_core` runs each round, after its
 two fetches, through `rounds_gn`:
 
-  * on CUDA tensors it launches the kernel `csrc/rounds_gn.cu` (one CTA a
-    lane, up to `iters` iterations each with the lane's own early exit, no
-    host sync);
+  * on CUDA tensors it launches the kernel `csrc/rounds_gn.cu` (a cluster
+    of C CTAs a lane, C from the shapes by `kernels.rounds_gn_cluster`, up
+    to `iters` iterations each with the lane's own early exit, no host
+    sync);
   * on CPU tensors it runs `rounds_gn_reference`, the port's loop body
     (`ops/register.py::round_iterations`: the candidate correspondences
     and `gn_step`, the lanes frozen with `torch.where`, one host check an
@@ -99,18 +100,23 @@ def rounds_gn_reference(stat, matP, featc, feats, candc, cands, cd2, sd2, *,
 def rounds_gn(stat, matP, featc, feats, candc, cands, cd2, sd2, *, K: int,
               iters: int, min_corr: int = 50, eig_thresh: float = 100.0,
               conv_rot_deg: float = 0.05, conv_trans_cm: float = 0.05,
-              min_plane_spread: float = 0.0):
+              min_plane_spread: float = 0.0, cluster: int | None = None):
     """Run one round of up to `iters` GN iterations for every lane, on the
     K candidates of each feature (the module docstring's layouts).
     Returns (stat', matP').  The caller resets converged (stat[:, 7]) at
     the round's start.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (K in kernels.SUPPORTED_K), or raise."""
+    (K in kernels.SUPPORTED_K), or raise.  cluster: the kernel's CTAs a
+    lane (a power of two up to kernels.ROUNDS_MAX_CLUSTER, checked on
+    every device), for measurements and tests; by default the kernel
+    picks it from the shapes."""
     args = dict(K=K, iters=iters, min_corr=min_corr, eig_thresh=eig_thresh,
                 conv_rot_deg=conv_rot_deg, conv_trans_cm=conv_trans_cm,
                 min_plane_spread=min_plane_spread)
     _check(stat, matP, featc, feats, candc, cands, cd2, sd2, K)
+    if cluster is not None:
+        kernels.check_cluster(cluster)
     if stat.device.type == "cpu":
         return rounds_gn_reference(stat, matP, featc, feats, candc, cands,
                                    cd2, sd2, **args)
@@ -119,7 +125,7 @@ def rounds_gn(stat, matP, featc, feats, candc, cands, cd2, sd2, *, K: int,
     stat = stat.clone()
     matP = matP.clone()
     kernels.launch_rounds_gn(stat, matP, featc, feats, candc, cands, cd2,
-                             sd2, **args)
+                             sd2, cluster=cluster, **args)
     rounds_gn.launches += 1
     return stat, matP
 

@@ -43,6 +43,9 @@ The rounds solver's round kernel `rounds_gn` against its plain version on
 the card (tests/rounds_scenes.py's edge lanes at K 6, 8 and 16, one lane at
 the localization step's caps, a batch): flags, iterations and n_corr
 equal, pose and matP within 1e-5, a degenerate lane's pose within 1e-3;
+the same at every cluster size (1 to 16 CTAs a lane) on the edge lanes and
+the step's lane, two launches at cluster 8 bitwise, the cluster rule's
+sizes on the card (1 at B = 256, more at B = 1), cluster 32 refused;
 `register_rounds_core` on the step's tables with no host sync under the
 CUDA sync debug mode "error"; K=7 refused on the card.  The pose-graph LM
 kernel `csrc/pose_graph_lm.cu` against its plain version on the card
@@ -307,7 +310,8 @@ def _rounds_check(args, kw):
     sk, mk = trounds.rounds_gn(*args, **kw)
     torch.cuda.synchronize()
     assert trounds.rounds_gn.launches == before + 1
-    sr, mr = trounds.rounds_gn_reference(*args, **kw)
+    sr, mr = trounds.rounds_gn_reference(
+        *args, **{k: v for k, v in kw.items() if k != "cluster"})
     assert torch.equal(sk[:, 6:11], sr[:, 6:11])
     deg = sr[:, 8] > 0
     dpose = (sk[:, :6] - sr[:, :6]).abs().max(1).values
@@ -390,6 +394,100 @@ def test_rounds_gn_rejects_unsupported_k_on_cuda(cuda):
         trounds.rounds_gn(*args, K=7, iters=2)
     # the plain version takes any K >= 5
     trounds.rounds_gn(*(a.cpu() for a in args), K=7, iters=2)
+
+
+_STEP_LANE = []
+
+
+def _step_lane(dev):
+    """One lane at the localization step's caps (Pc 2048, Ps 8192, K 16),
+    made once."""
+    if not _STEP_LANE:
+        _STEP_LANE.append(rs.plain_lanes(1, 16, 2048, 8192))
+    return rs.packed(_STEP_LANE[0], 16, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("K,spread", [(8, 0.0), (16, 0.05)])
+def test_rounds_gn_kernel_cluster_edge_lanes(cuda, cluster, K, spread):
+    """The edge lanes with each lane spread over a cluster of every size:
+    shares of a few live points, empty shares, a gated-off lane."""
+    args = rs.packed(rs.edge_lanes(K), K, cuda)
+    sk, mk = _rounds_check(args, dict(K=K, iters=10, min_plane_spread=spread,
+                                      cluster=cluster))
+    assert torch.equal(sk[2], args[0][2]) and torch.equal(mk[2], args[1][2])
+    assert sk[3, 10] < 50 and torch.equal(sk[3, :6], args[0][3, :6])
+    assert sk[4, 8] > 0 and (sk[[0, 1, 5], 10] >= 50).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_rounds_gn_kernel_cluster_step_shape(cuda, cluster):
+    """One lane at the step's caps on every cluster size, with the
+    convergence test on and with every iteration's budget spent."""
+    args = _step_lane(cuda)
+    _rounds_check(args, dict(K=16, iters=10, cluster=cluster))
+    sk, _ = _rounds_check(args, dict(K=16, iters=6, conv_rot_deg=0.0,
+                                     conv_trans_cm=0.0, cluster=cluster))
+    assert (sk[:, 6] == 6).all()
+
+
+@pytest.mark.cuda
+def test_rounds_gn_cluster_launches_bitwise(cuda):
+    """Two launches at cluster 8 agree bitwise (the rank-order sum: no
+    atomics), and the rule's size on the card is what it launches."""
+    args = _step_lane(cuda)
+    kw = dict(K=16, iters=6, conv_rot_deg=0.0, conv_trans_cm=0.0)
+    a = trounds.rounds_gn(*args, **kw, cluster=8)
+    b = trounds.rounds_gn(*args, **kw, cluster=8)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    C = kernels.rounds_gn_cluster_on(cuda.index or 0, 1, 2048 + 8192, 16)
+    assert C > 1
+    got = trounds.rounds_gn(*args, **kw)
+    want = trounds.rounds_gn(*args, **kw, cluster=C)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_rounds_gn_cluster_rule_on_the_card(cuda):
+    """The rule on this card: one CTA a lane at the batched solve's B =
+    256, more at the step's B = 1; each size it can pick is resident."""
+    index = cuda.index or 0
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for K in (8, 16):
+        resident = {C: kernels.rounds_gn_max_clusters(index, K, C)
+                    for C in (1, 2, 4, 8, 16)}
+        print(f"K={K}: resident clusters {resident}")
+        assert all(n >= 1 for n in resident.values())
+        assert kernels.rounds_gn_cluster(256, 2048 + 8192, n_sm, K,
+                                         resident.get) == 1
+        assert kernels.rounds_gn_cluster(1, 2048 + 8192, n_sm, K,
+                                         resident.get) > 1
+
+
+@pytest.mark.cuda
+def test_rounds_gn_refuses_cluster_32(cuda):
+    """A cluster of 32 CTAs raises in the wrapper, in the launch helper
+    and in the C entry point itself (which returns an error code)."""
+    import ctypes
+    K = 8
+    args = rs.packed(rs.edge_lanes(K), K, cuda)
+    kw = dict(K=K, iters=2, min_corr=50, eig_thresh=100.0, conv_rot_deg=0.05,
+              conv_trans_cm=0.05, min_plane_spread=0.0)
+    with pytest.raises(ValueError):
+        trounds.rounds_gn(*args, K=K, iters=2, cluster=32)
+    with pytest.raises(ValueError):
+        kernels.launch_rounds_gn(*args, **kw, cluster=32)
+    stat = args[0].clone()
+    B, _, Pc = args[2].shape
+    rc = kernels.library().fbpr_rounds_gn(
+        stat.data_ptr(), args[1].clone().data_ptr(),
+        *(a.data_ptr() for a in args[2:]), B, Pc, args[3].shape[2], K, 2,
+        50, 100.0, 0.05, 0.05, 0.0, 32,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    assert rc != 0 and torch.equal(stat, args[0])
 
 
 def _lines_planes(r, n_corner, n_surf):

@@ -20,6 +20,12 @@ Then `register_rounds_core` with three rounds through the wrapper is held
 bitwise to the host-driven loop it replaced (kept below), and the wrapper's
 argument checks.  The CUDA kernel against this plain version is
 tests/test_torch_kernels_cuda.py.
+
+Last, the kernel's launch shape, which is host arithmetic: the cluster
+size rule `kernels.rounds_gn_cluster` (CTAs a lane from B, Pc + Ps, the
+SM count and K alone) at B 1, 3 and 256, K 8 and 16, at the wave's edge,
+at tiny point counts and under an occupancy limit; and the refusal of a
+cluster size that is not a power of two up to 16, on the CPU too.
 """
 
 import numpy as np
@@ -33,6 +39,7 @@ from feature_base_pointcloud_registration_tpu.ops.register import (
     register_rounds_core as jrounds)
 from feature_base_pointcloud_registration_tpu.pipeline.cloud_info import (
     ScanFeatures as JScanFeatures)
+from feature_base_pointcloud_registration_tpu_torch import kernels
 from feature_base_pointcloud_registration_tpu_torch.ops import (
     register as treg)
 from feature_base_pointcloud_registration_tpu_torch.ops.rounds_gn import (
@@ -234,3 +241,90 @@ def test_wrapper_rejects_bad_arguments():
         call(swap(7, torch.empty_like(args[7], device="meta")))
     with pytest.raises(ValueError):
         call([torch.empty_like(a, device="meta") for a in args])
+
+
+H100_SMS = 132
+STEP_P = 2048 + 8192            # the localization step's feature caps
+SHARE = kernels.ROUNDS_MIN_SHARE
+
+
+def _pow2_floor(n):
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+@pytest.mark.parametrize("B,P,K,want", [
+    # one lane (the step paths): as many CTAs as the points allow
+    (1, STEP_P, 16, min(16, _pow2_floor(STEP_P // SHARE))),
+    (1, STEP_P, 8, min(16, _pow2_floor(STEP_P // SHARE))),
+    (3, STEP_P, 16, min(16, _pow2_floor(STEP_P // SHARE))),
+    (3, STEP_P, 8, min(16, _pow2_floor(STEP_P // SHARE))),
+    # the batched solve: a full wave of lanes already, one CTA a lane
+    (256, STEP_P, 16, 1),
+    (256, STEP_P, 8, 1),
+    # the wave's edge: 132 SMs, one CTA an SM at K 16, two at K <= 8
+    (9, 16 * SHARE, 16, 8),
+    (8, 16 * SHARE, 16, 16),
+    (66, 16 * SHARE, 8, 4),
+    (67, 16 * SHARE, 8, 2),
+    (133, 16 * SHARE, 16, 1),
+    # tiny lanes: each CTA keeps at least SHARE points
+    (1, 2 * SHARE - 1, 16, 1),
+    (1, 2 * SHARE, 16, 2),
+    (1, 5 * SHARE, 8, 4),
+    (1, 64 * SHARE, 16, 16),
+    (1, 1, 16, 1),
+])
+def test_cluster_rule(B, P, K, want):
+    C = kernels.rounds_gn_cluster(B, P, H100_SMS, K)
+    assert C == want
+    kernels.check_cluster(C)
+    assert B * C <= H100_SMS * (1 if K > 8 else 2) or C == 1
+
+
+def test_cluster_rule_at_the_step_and_the_batch():
+    """More than one CTA a lane on the step paths (B = 1 at the step's
+    caps), one at the batched solve's B = 256."""
+    assert kernels.rounds_gn_cluster(1, STEP_P, H100_SMS, 16) > 1
+    assert kernels.rounds_gn_cluster(256, STEP_P, H100_SMS, 8) == 1
+
+
+def test_cluster_rule_under_an_occupancy_limit():
+    """Where fewer clusters of a size can be resident than there are
+    lanes, the rule halves the size until B clusters fit."""
+    resident = {16: 2, 8: 5, 4: 40}
+    C = kernels.rounds_gn_cluster(3, 64 * SHARE, H100_SMS, 16,
+                                  lambda c: resident.get(c, 1000))
+    assert C == 8
+    C = kernels.rounds_gn_cluster(6, 64 * SHARE, H100_SMS, 16,
+                                  lambda c: resident.get(c, 1000))
+    assert C == 4
+    C = kernels.rounds_gn_cluster(2, 64 * SHARE, H100_SMS, 16,
+                                  lambda c: resident.get(c, 1000))
+    assert C == 16
+    assert kernels.rounds_gn_cluster(1, 64 * SHARE, H100_SMS, 16,
+                                     lambda c: 0) == 1
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 6, 12, 32, -2, 2.0, True, None])
+def test_cluster_size_refused(cluster):
+    with pytest.raises(ValueError):
+        kernels.check_cluster(cluster)
+
+
+@pytest.mark.parametrize("cluster", [3, 32])
+def test_wrapper_refuses_cluster_size_on_cpu(cluster):
+    K = 8
+    args = rs.packed(rs.edge_lanes(K)[:2], K)
+    with pytest.raises(ValueError):
+        rounds_gn(*args, K=K, iters=2, cluster=cluster)
+
+
+def test_wrapper_takes_cluster_size_on_cpu():
+    """On CPU tensors a valid cluster size changes nothing: the plain
+    version runs, bitwise the call without it."""
+    K = 8
+    args = rs.packed(rs.edge_lanes(K)[:2], K)
+    want = rounds_gn(*args, K=K, iters=2)
+    for cluster in (1, 2, 4, 8, 16):
+        got = rounds_gn(*args, K=K, iters=2, cluster=cluster)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

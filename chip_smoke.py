@@ -93,10 +93,14 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            a profiled step's device-busy share, with rounds_gn at the
            rule's cluster size and at one CTA a lane, in turns; the
            ring-pick kernel bitwise against its plain version, timed
-           beside it and its bound, at (a) this phase's scan (B=1,
-           strict), (b) phase 3's batch (B=256, fast), (c) the HDL-64
-           scans of tests/data/kitti_mini and a 64-ring synthetic scan
-           (strict), (d) tests/pick_windows.py's windows (both modes);
+           beside it and its bound (and through a replayed CUDA graph of
+           its calls), at (a) this phase's scan (B=1, strict), (b) phase
+           3's batch (B=256, fast), (c) the HDL-64 scans of
+           tests/data/kitti_mini and a 64-ring synthetic scan (strict),
+           (d) tests/pick_windows.py's windows (both modes), with the
+           clock64 split of a window (load, sorts, corner walks, surf
+           walks, tail) from ring_pick.cu's diagnostic build
+           (-DFBPR_RING_PICK_PROFILE) at (a)-(c);
            each table's kind and bytes, the
            fetch beside its bound, ptxas of the K=16 fetch instances;
            each table on grid_register_step's row space (lower_pad: a
@@ -501,7 +505,7 @@ def print_ptxas(src, log, only=None):
     with open(log) as f:
         for line in f:
             m = re.search(r"entry function '\w*?([a-z_]+_kernel)"
-                          r"(?:I((?:Li\d+E)+))?", line)
+                          r"(?:I((?:L[ib]\d+E)+))?", line)
             if m and m.group(2):
                 args = ",".join(re.findall(r"\d+", m.group(2)))
                 fn = f"{m.group(1)}<{args}>"
@@ -2479,13 +2483,172 @@ def ring_pick_bound(win):
     return bound(nbytes, ops)
 
 
-def ring_pick_probes(shapes):
+def ring_pick_profile_build():
+    """ring_pick.cu's diagnostic build: -DFBPR_RING_PICK_PROFILE adds
+    clock64 stamps and fbpr_ring_pick_profile; loaded."""
+    return variant_build("ring_pick", ["-DFBPR_RING_PICK_PROFILE"],
+                         "ring_pick (diagnostic build)")
+
+
+def launch_pick(lib, win, edge, surf, strict):
+    """One fbpr_ring_pick launch of the build `lib` on windows `win` (as
+    ring_pick validates them): the labels."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    curv = win["curv"]
+    W = curv.shape[-1]
+    label = torch.empty(curv.shape, dtype=torch.int8, device=curv.device)
+    kernels._check_rc("fbpr_ring_pick", lib.fbpr_ring_pick(
+        *(win[k].data_ptr() for k in ("curv", "col", "picked", "sp", "ep",
+                                      "sector_ok")),
+        curv.numel() // W, W, edge, surf, int(strict), label.data_ptr(),
+        kernels._stream(curv)))
+    return label
+
+
+def ring_pick_split(name, shape, lib, reps=5):
+    """One `probe ring_pick ... split` line: reps launches of a diagnostic
+    build (ring_pick_profile_build) on the shape's windows, their labels
+    checked against the plain version, and a window's parts from the
+    clock64 sums on thread 0 of each CTA, in us a window (cycles over the
+    clock that the kernel's own clock64 and globaltimer give), summed over
+    the window's sectors: the load, the sorts (with the lists' compaction),
+    the corner walks, the surf walks (0 in fast mode) and the tail (the
+    label write, and the wait for the other warps).  Thread 0 sees the
+    parts it runs or waits for: in fast mode its warp sorts and walks
+    sector 0 while the other warps do theirs; in strict mode "sorts" is
+    its own sector's and its waits for the others'.  A build that stamps
+    each warp's lists also gives a sector's compaction and sort.  Returns
+    the record."""
+    import ctypes
+
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.ops.features import (
+        ring_pick_reference)
+    win, edge, surf, strict = shape
+    out = (ctypes.c_uint64 * 11)()
+    torch.cuda.synchronize()
+    kernels._check_rc("fbpr_ring_pick_profile", lib.fbpr_ring_pick_profile(
+        ctypes.addressof(out), 1))
+    for _ in range(reps):
+        got = launch_pick(lib, win, edge, surf, strict)
+    torch.cuda.synchronize()
+    kernels._check_rc("fbpr_ring_pick_profile", lib.fbpr_ring_pick_profile(
+        ctypes.addressof(out), 1))
+    if not torch.equal(got, ring_pick_reference(win, edge, surf, strict)):
+        raise AssertionError(f"ring_pick diagnostic build at {name} != its "
+                             "plain version")
+    (ctas, load, sort, corner, surf_, tail, cycles, ns, sectors, compact,
+     sorts) = (int(v) for v in out)
+    ghz = cycles / max(ns, 1)
+    parts = {k: v / max(ctas, 1) / ghz / 1e3 for k, v in (
+        ("load_us", load), ("sort_us", sort), ("corner_us", corner),
+        ("surf_us", surf_), ("tail_us", tail))}
+    total = sum(parts.values())
+    rec = dict(parts, window_us=total, kernel_us=ns / max(ctas, 1) / 1e3,
+               ghz=ghz, windows=ctas // reps)
+    if sectors:      # a sector's lists on their warp (the redesign's build)
+        rec.update(sector_compaction_us=compact / sectors / ghz / 1e3,
+                   sector_sort_us=sorts / sectors / ghz / 1e3)
+    print(f"probe ring_pick {name} split (diagnostic build, clock64 on "
+          f"thread 0 of each CTA, {rec['windows']} windows, clock "
+          f"{ghz:.3f} GHz): a window {total:.2f} us = load "
+          f"{parts['load_us']:.2f} ({parts['load_us'] / total:.1%}), sorts "
+          f"{parts['sort_us']:.2f} ({parts['sort_us'] / total:.1%}), corner "
+          f"walks {parts['corner_us']:.2f} "
+          f"({parts['corner_us'] / total:.1%}), surf walks "
+          f"{parts['surf_us']:.2f} ({parts['surf_us'] / total:.1%}), tail "
+          f"{parts['tail_us']:.2f} ({parts['tail_us'] / total:.1%}); "
+          f"the kernel {rec['kernel_us']:.2f} us a CTA" + (
+              f"; a sector's lists on its warp: compaction "
+              f"{rec['sector_compaction_us']:.2f} us, sort "
+              f"{rec['sector_sort_us']:.2f} us" if sectors else ""),
+          flush=True)
+    return rec
+
+
+def ring_pick_shapes(dev, params, raw, loc_scan, loc_dsk):
+    """The ring-pick probe shapes {name: (windows, edge, surf, strict)}:
+    (a) phase 7's VLP-16 scan (B=1, strict; `loc_scan` with its deskew
+    table `loc_dsk`, or None), (b) the bench batch (`raw`, B=256, fast), (c)
+    kitti_mini's HDL-64 scans (B=3) and a 64-ring scan of the synthetic
+    world (strict), (d) tests/pick_windows.py's windows (ties, flat runs,
+    ramps, pre-suppressed points, uneven sectors, the first-20 cap, signed
+    zeros, the walk's step edges, lists past 512) in both modes, each a
+    batch of windows."""
+    import pick_windows
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.io import kitti
+    from feature_base_pointcloud_registration_tpu_torch.ops.features import (
+        _ring_windows)
+    from feature_base_pointcloud_registration_tpu_torch.ops.projection import (
+        project_scan)
+    from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
+        DeskewInfo, RawScan)
+
+    def windows_of(p, raw_b, dsk=None):
+        return _ring_windows(project_scan(p, raw_b, dsk), p.n_scan,
+                             p.horizon_scan)
+
+    def stacked(ws):
+        return {k: torch.from_numpy(np.stack([np.asarray(w[k]) for w in ws]))
+                [None].to(dev) for k in ws[0]}
+
+    p7, hdl64 = Params(), Params(n_scan=64, horizon_scan=1800)
+    vdir = os.path.join(REPO, "tests", "data", "kitti_mini",
+                        "velodyne_points", "data")
+    kitti_raw = RawScan(*(torch.stack(a) for a in zip(*(
+        kitti.load_scan(f, 1 << 17, device=dev)
+        for f in kitti.scan_files(vdir)))))
+    stride = stacked([pick_windows.stride_window(t)
+                      for t in range(pick_windows.N_STRIDE)])
+    shapes = {
+        "(a) phase 7 VLP-16 B=1 strict": (windows_of(
+            p7, raw_of(loc_scan, dev, batch=True),
+            None if loc_dsk is None else DeskewInfo(*(a.to(dev)
+                                                      for a in loc_dsk))),
+            p7.edge_threshold, p7.surf_threshold, True),
+        "(b) bench B=256 fast": (windows_of(params, raw),
+                                 params.edge_threshold,
+                                 params.surf_threshold, False),
+        "(c) kitti_mini HDL-64 B=3 strict": (windows_of(
+            hdl64, kitti_raw), hdl64.edge_threshold, hdl64.surf_threshold,
+            True),
+        "(c) synthetic HDL-64 B=1 strict": (windows_of(
+            hdl64, raw_of(pick_windows.hdl64_scan(0), dev, batch=True)),
+            hdl64.edge_threshold, hdl64.surf_threshold, True)}
+    for strict in (True, False):
+        mode = "strict" if strict else "fast"
+        shapes.update({
+            f"(d) stream windows {mode}": (stacked(
+                pick_windows.stream_windows()), 1.0, 0.1, strict),
+            f"(d) stride windows {mode}": (stride, 0.05, 0.1, strict),
+            f"(d) stride windows, every slot a corner candidate {mode}": (
+                stride, -1.0, 0.1, strict),
+            f"(d) gap windows {mode}": (stacked(
+                [pick_windows.gap_window(t)
+                 for t in range(pick_windows.N_GAP)]), 1.0, 0.1, strict),
+            f"(d) edge windows {mode}": (stacked(
+                [pick_windows.edge_window(t)
+                 for t in range(pick_windows.N_EDGE)]), 1.0, 0.1, strict)})
+    return shapes
+
+
+def ring_pick_probes(shapes, prof=None):
     """Probe lines of the ring-pick kernel: at each named shape {name:
     (windows, edge, surf, strict)} its labels against its plain version on
-    the same windows (bitwise), both timed by CUDA events, with the bound.
-    Returns {name: {windows, W, strict, equal, max_abs_err, ms, plain_ms,
-    bound_ms, bound_by}}; raises if the kernel and its plain version differ
-    anywhere."""
+    the same windows (bitwise), both timed by CUDA events (the kernel also
+    through a replayed CUDA graph of its calls, `graph_ms`, since a call
+    at B=1 is not much longer than its host launch), with the bound; with
+    the diagnostic build `prof`, the split at (a)-(c).  Returns {name:
+    {windows, W, strict, equal, max_abs_err, ms, graph_ms, plain_ms,
+    bound_ms, bound_by[, split]}}; raises if the kernel and its plain
+    version differ anywhere."""
     import torch
 
     from feature_base_pointcloud_registration_tpu_torch.ops.features import (
@@ -2497,17 +2660,22 @@ def ring_pick_probes(shapes):
         want = ring_pick_reference(win, edge, surf, strict)
         err = int((got.int() - want.int()).abs().max())
         ms = cuda_ms(lambda: ring_pick(win, edge, surf, strict), 20)
+        graph_ms = cuda_ms(lambda: ring_pick(win, edge, surf, strict), 20,
+                           graph=True)
         plain_ms = cuda_ms(lambda: ring_pick_reference(win, edge, surf,
                                                        strict), 2)
         b_ms, b_by = ring_pick_bound(win)
         W = win["curv"].shape[-1]
         out[name] = dict(windows=win["curv"].numel() // W, W=W,
                          strict=strict, equal=torch.equal(got, want),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=err, ms=ms, graph_ms=graph_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          corners=int((want == 1).sum()),
                          surfs=int((want == -1).sum()))
         print(f"probe ring_pick {name}: {out[name]}", flush=True)
+        if prof is not None and name[:3] in ("(a)", "(b)", "(c)"):
+            out[name]["split"] = ring_pick_split(
+                name, (win, edge, surf, strict), prof)
     bad = [n for n, r in out.items() if not r["equal"]]
     if bad:
         raise AssertionError(f"ring_pick kernel != its plain version: {bad}")
@@ -5232,7 +5400,7 @@ def main():
     from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
         SyntheticWorld, build_feature_map, simulate_scan)
     from feature_base_pointcloud_registration_tpu_torch.ops.features import (
-        _ring_windows, extract_features, ring_pick)
+        extract_features, ring_pick)
     from feature_base_pointcloud_registration_tpu_torch.ops.fetch import (
         PlanarTable, block_fetch, block_fetch_reference, resident_fetch,
         resident_fetch_reference)
@@ -5249,7 +5417,7 @@ def main():
         build_map_block_tables, build_map_planar_tables, feature_planes,
         fetch_queries, initial_state, presort_by_row)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.cloud_info import (  # noqa: E501
-        DeskewInfo, FeatureMap, RawScan)
+        FeatureMap, RawScan)
     from feature_base_pointcloud_registration_tpu_torch.pipeline.frontend import (  # noqa: E501
         downsample_features)
 
@@ -5651,59 +5819,11 @@ def main():
 
     loc_launches, loc_fetch, loc_err, loc_steps = localization_phase(dev)
 
-    # ---- the ring-pick kernel against its plain version, bitwise: (a)
-    # phase 7's VLP-16 scan (B=1, strict), (b) the bench batch (B=256,
-    # fast), (c) phase 10 (a)'s HDL-64 scans (B=3) and a dense 64-ring scan
-    # of the synthetic world (strict), (d) tests/pick_windows.py's windows
-    # (ties, flat runs, ramps, pre-suppressed points, uneven sectors, the
-    # first-20 cap, signed zeros), each a batch of windows ----
-    import pick_windows
-
-    from feature_base_pointcloud_registration_tpu_torch.io import kitti
-
-    def windows_of(p, raw_b, dsk=None):
-        return _ring_windows(project_scan(p, raw_b, dsk), p.n_scan,
-                             p.horizon_scan)
-
-    def stacked(ws):
-        return {k: torch.from_numpy(np.stack([np.asarray(w[k]) for w in ws]))
-                [None].to(dev) for k in ws[0]}
-
-    p7, hdl64 = Params(), Params(n_scan=64, horizon_scan=1800)
+    # ---- the ring-pick kernel against its plain version, bitwise, at
+    # ring_pick_shapes' (a)-(d), with the diagnostic build's split ----
     loc_scan, _, _, loc_dsk, _ = loc_steps[0]
-    vdir = os.path.join(REPO, "tests", "data", "kitti_mini",
-                        "velodyne_points", "data")
-    kitti_raw = RawScan(*(torch.stack(a) for a in zip(*(
-        kitti.load_scan(f, 1 << 17, device=dev)
-        for f in kitti.scan_files(vdir)))))
-    stride = stacked([pick_windows.stride_window(t)
-                      for t in range(pick_windows.N_STRIDE)])
-    shapes = {
-        "(a) phase 7 VLP-16 B=1 strict": (windows_of(
-            p7, raw_of(loc_scan, dev, batch=True),
-            DeskewInfo(*(a.to(dev) for a in loc_dsk))),
-            p7.edge_threshold, p7.surf_threshold, True),
-        "(b) bench B=256 fast": (windows_of(params, raw),
-                                 params.edge_threshold,
-                                 params.surf_threshold, False),
-        "(c) kitti_mini HDL-64 B=3 strict": (windows_of(
-            hdl64, kitti_raw), hdl64.edge_threshold, hdl64.surf_threshold,
-            True),
-        "(c) synthetic HDL-64 B=1 strict": (windows_of(
-            hdl64, raw_of(pick_windows.hdl64_scan(0), dev, batch=True)),
-            hdl64.edge_threshold, hdl64.surf_threshold, True)}
-    for strict in (True, False):
-        mode = "strict" if strict else "fast"
-        shapes.update({
-            f"(d) stream windows {mode}": (stacked(
-                pick_windows.stream_windows()), 1.0, 0.1, strict),
-            f"(d) stride windows {mode}": (stride, 0.05, 0.1, strict),
-            f"(d) stride windows, every slot a corner candidate {mode}": (
-                stride, -1.0, 0.1, strict),
-            f"(d) gap windows {mode}": (stacked(
-                [pick_windows.gap_window(t)
-                 for t in range(pick_windows.N_GAP)]), 1.0, 0.1, strict)})
-    rp = ring_pick_probes(shapes)
+    shapes = ring_pick_shapes(dev, params, raw, loc_scan, loc_dsk)
+    rp = ring_pick_probes(shapes, ring_pick_profile_build())
     main_shape = rp["(b) bench B=256 fast"]
     kt["ring_pick"] = (main_shape["ms"], main_shape["plain_ms"])
     bounds["ring_pick"] = (main_shape["bound_ms"], main_shape["bound_by"])
@@ -5794,9 +5914,13 @@ def main():
               max(r["max_abs_err"] for r in rp.values()), "ring_pick",
               launches_phase5=launches5["ring_pick"],
               launches_phase6=launches6["ring_pick"],
+              redesigned="the six sectors' candidate lists sorted at once, "
+                         "a warp each; each list walked on a warp, 32 "
+                         "candidates a step",
               probes={n: {k: r[k] for k in ("windows", "W", "strict", "ms",
-                                            "plain_ms", "bound_ms",
-                                            "bound_by")}
+                                            "graph_ms", "plain_ms",
+                                            "bound_ms", "bound_by")}
+                      | ({"split": r["split"]} if "split" in r else {})
                       for n, r in rp.items()},
               **localization("ring_pick")),
         entry("rounds_gn", "rounds_gn.cu",

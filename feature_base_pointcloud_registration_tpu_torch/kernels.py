@@ -46,8 +46,9 @@ BLOCK_FETCH_MAX_W = 16000  # csrc/fetch_tile.cuh kMaxW: one row of 12*W bytes
                            # and a tile's results fit 227 KB of shared memory
 FETCH_TILE = 128          # queries per block of both fetch kernels
                           # (csrc/fetch_tile.cuh kTile)
-RING_PICK_MAX_W = 8192    # csrc/ring_pick.cu: a window's slots and sort
-                          # words (15 B a slot) fit 227 KB of shared memory
+RING_PICK_MAX_W = 8192    # csrc/ring_pick.cu: a window's sort words,
+                          # marks and labels (18 B a slot in strict mode)
+                          # fit 227 KB of shared memory
 POSE_GRAPH_LM_MAX_LIVE = 38  # csrc/pose_graph_lm.cu kMaxLive: route A's H
                              # (6n x (6n + 1) floats) and buffers fit 227 KB
 KNN_MAX_K = 16            # csrc/knn_stream.cu: template instances K 1..16
@@ -111,6 +112,9 @@ _SIGNATURES = {
     # curv, col, picked, sp, ep, sector_ok, n_windows, W, edge_threshold,
     # surf_threshold, strict, label, stream
     "fbpr_ring_pick": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _P, _P],
+    # out (uint64 [8]), reset: ring_pick.cu's clock64 sums, defined only by
+    # its diagnostic build (-DFBPR_RING_PICK_PROFILE)
+    "fbpr_ring_pick_profile": [_P, _I],
     # poses, pose_mask, live_idx, rowmap, *_FACTORS, K, n, iterations,
     # out_poses, out_cost, accepts, stream
     "fbpr_pose_graph_lm": [_P, _P, _P, _P, *_FACTORS, _I, _I, _I, _P, _P, _P,
@@ -147,7 +151,7 @@ _SIGNATURES = {
 }
 
 # entry points that only a diagnostic build of a source defines
-_DIAGNOSTIC = {"fbpr_rounds_gn_profile"}
+_DIAGNOSTIC = {"fbpr_rounds_gn_profile", "fbpr_ring_pick_profile"}
 
 
 def _nvcc() -> str:

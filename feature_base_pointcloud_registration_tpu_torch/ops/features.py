@@ -26,10 +26,14 @@ pickable range (the JAX package's module docstring has the argument).
 Where the JAX package vmaps `_ring_pick` over 16 ring lanes per scan and
 compiles its rounds into one device loop, the port's `ring_pick` launches
 the CUDA kernel `csrc/ring_pick.cu` on CUDA tensors: one block a ring window
-runs the reference's serial greedy in shared memory, so one launch picks
-every ring of a batch with no host sync.  On CPU tensors it runs its plain
-version, `ring_pick_reference`: the MIS rounds above on every ring of the
-batch as one [B, n_scan, W] tensor, one host sync (`any()`) a round.
+runs the reference's greedy, so one launch picks every ring of a batch with
+no host sync.  The block sorts its six sectors' candidate lists at once, a
+warp each, and walks each list on a warp 32 candidates a step (a ballot
+orders the step's live candidates; each pick drops the later ones it would
+suppress); strict mode walks the sectors in order on one warp, fast mode
+walks all six side by side.  On CPU tensors it runs its plain version,
+`ring_pick_reference`: the MIS rounds above on every ring of the batch as
+one [B, n_scan, W] tensor, one host sync (`any()`) a round.
 """
 
 from __future__ import annotations
@@ -334,7 +338,8 @@ def ring_pick(win, edge_threshold, surf_threshold, strict, stride=True):
     i32 and sector_ok bool [..., 6].  CPU tensors run the plain version
     (`ring_pick_reference`; stride is its surf pass's fast-forward, which
     changes no pick); CUDA tensors launch the kernel `csrc/ring_pick.cu`,
-    one block a window, W up to kernels.RING_PICK_MAX_W."""
+    one block a window, a warp a sector's sort and walk, W up to
+    kernels.RING_PICK_MAX_W."""
     _check_windows(win)
     curv = win["curv"]
     if curv.device.type == "cpu":

@@ -1391,6 +1391,54 @@ def test_ring_pick_kernel_on_test_windows(cuda, strict):
         _assert_kernel_picks_as_plain(win, edge, surf, strict)
 
 
+EDGE_CASES = {"cap_and_step_edges": 0, "sectors_600_2000": 1,
+              "equal_keys": 2, "all_corners_gaps": 3, "all_corners": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False], ids=["strict", "fast"])
+@pytest.mark.parametrize("name", list(EDGE_CASES))
+def test_ring_pick_kernel_on_walk_edges(cuda, name, strict):
+    """tests/pick_windows.py's edge windows, where a walk 32 candidates a
+    step meets its edges: exactly 20 corners in a sector and 21 with the
+    21st first or last in its step, a corner and a surf pick whose
+    suppression reaches the next step's first candidate, sectors of equal
+    keys, sectors of 600 and 2000 slots (lists past the register sort),
+    all six sectors full of corners."""
+    import pick_windows
+    window = pick_windows.edge_window(EDGE_CASES[name])
+    win = {k: torch.from_numpy(np.asarray(v))[None, None].to(cuda)
+           for k, v in window.items()}
+    want = _assert_kernel_picks_as_plain(win, 1.0, 0.1, strict)
+    want = want[0, 0].numpy()
+    per_sector = [int((want[a:b + 1] == 1).sum())
+                  for a, b in zip(window["sp"], window["ep"])]
+    if name == "cap_and_step_edges":
+        assert per_sector[:4] == [20, 20, 20, 12]
+    if name.startswith("all_corners"):
+        assert per_sector == [20] * 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False], ids=["strict", "fast"])
+def test_ring_pick_kernel_on_overlapping_sectors(cuda, strict):
+    """Sectors whose ranges overlap (no ring window has them) run one after
+    another on one warp: the labels of the reference's serial greedy
+    (pick_windows.serial_pick), as the kernel gave them before."""
+    import pick_windows
+    for t in range(pick_windows.N_STREAM):
+        window = dict(pick_windows.stream_windows()[t])
+        sp, ep = window["sp"].copy(), window["ep"].copy()
+        sp[1:] -= 20 + 7 * t                    # each reaches into the last
+        ep[2] = ep[4]                           # and one spans three
+        window.update(sp=sp, ep=ep, sector_ok=sp < ep)
+        win = {k: torch.from_numpy(np.asarray(v))[None, None].to(cuda)
+               for k, v in window.items()}
+        got = tfeat.ring_pick(win, 1.0, 0.1, strict)
+        want = pick_windows.serial_pick(window, 1.0, 0.1, strict)
+        np.testing.assert_array_equal(got[0, 0].cpu().numpy(), want)
+
+
 def _scan_windows(dev, which):
     """(params, ring windows on dev) of a VLP-16 scan (B=1), the bench's
     batch (B=256 scans of chip_smoke.py's setup) or a 64-ring scan."""

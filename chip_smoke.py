@@ -260,11 +260,19 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            loop closure, 512 slots), (c) route B at 200 live poses in 512
            slots and at the cap + 1 (tests/pose_graph_scenes.py), (d) the
            edge graphs: gimbal lock and a rotation error near pi about an
-           axis (H not finite: the poses bitwise unchanged), route B with
-           its factorization reported failed (rejected); each with kernel
-           ms (CUDA events), the solve's host wall, plain ms, launches,
-           route, bound, pose |diff| (<= 1e-4), cost rel diff (<= 1e-4),
-           agreeing accepts and two launches bitwise; `probe
+           axis (H not finite: the poses bitwise unchanged), a window
+           chain with GPS factors, 38 live poses with a between from pose
+           0 to each (the envelope's widest), route B with its
+           factorization reported failed (rejected); each with kernel ms
+           (CUDA events), the solve's host wall, plain ms, launches,
+           route, route A's block columns on warp 0 and on the CTA,
+           bound, pose |diff| (<= 1e-4), cost rel diff (<= 1e-4),
+           agreeing accepts and two launches bitwise; at (a), (b) and the
+           star a `... split` line: the clock64 stages of an iteration
+           (the Jacobian columns, the rest of the assembly, scale and
+           damp, Cholesky with the forward solve, backward solve, new
+           cost) from the diagnostic build
+           (-DFBPR_LM_PROFILE, lm_builds); `probe
            pose_graph_blocks` lines: the factor blocks at random rotations,
            identity, near pi and near pi about an axis, NaN in the plain
            version's places and the rest within 1e-5;
@@ -281,7 +289,10 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            plain ms, bound, states |diff| (<= 1e-4, NaN in the same
            places), the cost's relative difference (<= 1e-3; the plain
            cost at the kernel's states within 1e-4), accepts and two
-           launches bitwise; `probe imu_chain_blocks` (non-finite entries
+           launches bitwise; at (a) and (c) a `... split` line (eval_column,
+           assemble, scale and damp, block Cholesky with the forward
+           solve, backward solve, chain cost); `probe imu_chain_blocks`
+           (non-finite entries
            in the same places, the rest within 1e-4 of the block's
            largest, both beside the float64 blocks); `probe preintegrate`
            and `probe propagate_states` at phase 9's interval and stream,
@@ -346,6 +357,18 @@ through the shipped wrapper, and prints its ptxas lines, its pose
 difference from the plain version and the same GN timing and probe lines
 beside the shipped kernel's, in this one call (cards of one model differ by
 up to 13% between calls).
+
+    python3 chip_smoke.py --lm-ab DIR
+
+also builds DIR's pose_graph_lm.cu and imu_chain_lm.cu (another version of
+the two LM kernels with the same C entry points, and the headers they
+include; a copy of a parent commit's, say), plain and with
+-DFBPR_LM_PROFILE, and prints beside every route-A `probe pose_graph_lm`
+line and every `probe imu_chain_lm` line a `... in turns` line (the
+shipped kernel and DIR's in turns, shipped, other, other, shipped, by CUDA
+events, and whether their outputs are bit for bit equal) and, at the split
+probes, DIR's split too; phases 8 and 9 replay their LM solves on DIR's
+kernel as well (`... LM in turns` lines, `other kernel` ms a step).
 
 Any failure raises (exit code 1).  Prints the card's name and power limit
 early, a JSON line of per-kernel results second to last, and as the last
@@ -1026,26 +1049,37 @@ def lm_in_turns(calls, lm):
     """Every recorded call ((args, kw, out)) of the LM kernel lm's entry
     point solved again on the kernel and on the parent's loop (its plain
     version on the card, the route before the kernel), in turns (the
-    kernel first on even calls): [(kernel ms, plain ms, K, plain |diff| of
-    the first output from the recorded solve)], host wall with the device
-    synchronized."""
+    kernel first on even calls), and, given --lm-ab, on the other
+    version's kernel between them: [(kernel ms, plain ms, K, plain |diff|
+    of the first output from the recorded solve, other kernel ms or
+    None)], host wall with the device synchronized.  The other version's
+    solves add to the entry point's launch count."""
     import torch
 
     kernel, plain, size = lm_routes(lm)
+    other = LM_AB.get("plain", {}).get(lm)
+    routes = ("kernel", "other", "plain") if other else ("kernel", "plain")
+    launcher = f"launch_{lm}"
+    if other and calls:  # the other build's first launch loads its module
+        with launching_with(launcher, other):
+            kernel(*calls[0][0], **calls[0][1])
+        torch.cuda.synchronize()
     out = []
     for i, (a, kw, res) in enumerate(calls):
         ms, d = {}, 0.0
-        for route in (("kernel", "plain") if i % 2 == 0
-                      else ("plain", "kernel")):
-            fn = kernel if route == "kernel" else plain
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
+        for route in (routes if i % 2 == 0 else routes[::-1]):
+            fn = plain if route == "plain" else kernel
+            with (launching_with(launcher, other) if route == "other"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*a, **kw)
+                torch.cuda.synchronize()
             ms[route] = (time.perf_counter() - t0) * 1e3
             if route == "plain":
                 d = float((r[0] - res[0]).abs().max())
-        out.append((ms["kernel"], ms["plain"], size(a[0]), d))
+        out.append((ms["kernel"], ms["plain"], size(a[0]), d,
+                    ms.get("other")))
     return out
 
 
@@ -1057,29 +1091,217 @@ def print_lm_in_turns(phase, calls, steps, step_ms, lm="pose_graph_lm"):
     ms a step, parent's loop ms a step)."""
     turns = lm_in_turns(calls, lm)
     by_k = {}
-    for k_ms, p_ms, K_, _ in turns:
-        by_k.setdefault(K_, []).append((k_ms, p_ms))
+    for k_ms, p_ms, K_, _, o_ms in turns:
+        by_k.setdefault(K_, []).append((k_ms, p_ms, o_ms))
     ker = sum(t[0] for t in turns) / steps
     pla = sum(t[1] for t in turns) / steps
+    oth = (sum(t[4] for t in turns) / steps
+           if turns and turns[0][4] is not None else None)
     what = "graph" if lm == "pose_graph_lm" else "chain"
     print(f"time {phase} {what} LM in turns (every solve of the run again, "
-          f"on the {lm} kernel and on the parent's loop, "
+          f"on the {lm} kernel" + (", on the other version's kernel "
+                                   "(--lm-ab)" if oth is not None else "")
+          + f" and on the parent's loop, "
           f"{lm_routes(lm)[1].__name__}, in turns): " + "; ".join(
               f"K {K_}: {len(v)} solves, kernel "
-              f"{np.mean([x for x, _ in v]):.3f} ms, parent's loop "
-              f"{np.mean([y for _, y in v]):.2f} ms"
+              f"{np.mean([x[0] for x in v]):.3f} ms, " + (
+                  f"other kernel {np.mean([x[2] for x in v]):.3f} ms, "
+                  if oth is not None else "") + f"parent's loop "
+              f"{np.mean([x[1] for x in v]):.2f} ms"
               for K_, v in sorted(by_k.items())) + f"; per step kernel "
-          f"{ker:.3f} ms, parent's loop {pla:.2f} ms (the step "
+          f"{ker:.3f} ms, " + (f"other kernel {oth:.3f} ms, "
+                               if oth is not None else "")
+          + f"parent's loop {pla:.2f} ms (the step "
           f"{step_ms:.2f} ms on the kernel, {step_ms - ker + pla:.2f} ms "
           f"with the parent's loop in its place); the parent's loop |diff| "
           f"from the run's solves max "
           f"{max((t[3] for t in turns), default=0.0):.3e}", flush=True)
+    if oth is not None:
+        LM_AB.setdefault("steps", {})[f"{phase} {lm}"] = dict(
+            kernel_ms_step=ker, other_ms_step=oth, step_ms=step_ms)
     return ker, pla
 
 
 # the inputs of phase 8's graph solves kept for the pose_graph_lm probes
 # ({name: (graph, iterations)})
 LM_INPUTS = {}
+
+# --lm-ab DIR: another version of pose_graph_lm.cu and imu_chain_lm.cu (DIR
+# holds them and the headers they include; the parent's, say), built by
+# lm_builds: {"plain": {stem: lib}, "profile": {stem: lib}}; the LM probes
+# time it in turns against the shipped kernels and print its clock64 split
+# beside theirs, phases 8 and 9 replay their solves on it too
+LM_AB = {}
+# the shipped kernels' diagnostic builds ({stem: lib}), built at first use
+LM_PROFILE = {}
+
+# the clock64 stages of the two LM kernels' diagnostic builds (dense_lm.cuh's
+# LmProf): the prologue and epilogue once a solve, the rest an iteration
+LM_STAGES = {
+    "pose_graph_lm": ("prologue", "assembly", "scale and damp", "Cholesky",
+                      "solves", "new cost", "epilogue", "Jacobian columns"),
+    "imu_chain_lm": ("prologue", "eval_column", "assemble", "scale and damp",
+                     "block Cholesky", "solves", "chain cost", "epilogue")}
+
+
+def lm_builds(src_dir=None, profile=True):
+    """{stem: lib}: pose_graph_lm.cu and imu_chain_lm.cu of csrc/ (or of
+    src_dir, another version's) built together, one nvcc each, with
+    -DFBPR_LM_PROFILE (their diagnostic builds: clock64 stage stamps and
+    the fbpr_*_profile entry points) if profile; loaded, their ptxas lines
+    printed."""
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    stems = tuple(LM_STAGES)
+    base = Path(src_dir) if src_dir else kernels.CSRC
+    shipped = dict(kernels.SOURCE_FLAGS)
+    if profile:
+        for stem in stems:
+            kernels.SOURCE_FLAGS[stem] = [*shipped[stem], "-DFBPR_LM_PROFILE"]
+    try:
+        sos = kernels._build([base / f"{stem}.cu" for stem in stems])
+    finally:
+        kernels.SOURCE_FLAGS.clear()
+        kernels.SOURCE_FLAGS.update(shipped)
+    what = ("other version's " if src_dir else "") + (
+        "diagnostic build" if profile else "build")
+    for stem, so in zip(stems, sos):
+        print_ptxas(f"{stem} ({what})", kernels.BUILD_DIR / (so.stem + ".log"))
+    return {stem: kernels.load(so) for stem, so in zip(stems, sos)}
+
+
+def lm_launcher(lm, x, iterations):
+    """launch(lib) -> (poses or states, cost, accepts): one solve of x (a
+    pose graph on route A, or an IMU chain) by the build lib of lm's kernel
+    (None: the shipped one), into the same output tensors each call."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    if lm == "pose_graph_lm":
+        from feature_base_pointcloud_registration_tpu_torch.graph import (
+            pose_graph as tpg)
+        x = tpg._contiguous(x)
+        ls = tpg.live_set(x)
+        first = x.poses
+    else:
+        from feature_base_pointcloud_registration_tpu_torch.graph import (
+            imu_graph as tig)
+        x = tig._contiguous(x)
+        first = x.states
+        scratch = torch.empty(kernels.imu_chain_floats(first.shape[0]),
+                              device=first.device)
+    out = torch.empty_like(first)
+    cost = torch.empty((), device=first.device)
+    acc = torch.zeros(iterations, dtype=torch.int32, device=first.device)
+
+    def launch(lib):
+        if lm == "pose_graph_lm":
+            kernels.launch_pose_graph_lm(x, ls, iterations, out, cost, acc,
+                                         lib=lib)
+        else:
+            kernels.launch_imu_chain_lm(x, iterations, out, cost, acc,
+                                        scratch, lib=lib)
+        return out, cost, acc
+    return launch
+
+
+def lm_split(lm, name, launch, lib, which, reps=5):
+    """One `probe <lm> <name> split` line: reps solves by the diagnostic
+    build lib (lm_builds) through launch (lm_launcher), and the stages of
+    a solve from its clock64 sums, stamped on thread 0 after a CTA barrier
+    (dense_lm.cuh's LmProf), in us an iteration (the cycles over the clock
+    that the kernel's own clock64 and globaltimer give): the pose graph's
+    assembly (the Jacobian columns apart; a build without that stamp
+    counts them in the assembly), scale and damp, Cholesky, solves and new
+    cost, the chain's
+    eval_column, assemble, scale and damp, block Cholesky, solves and chain
+    cost; the prologue and epilogue in us a solve.  Returns the record."""
+    import ctypes
+
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    entry = getattr(lib, f"fbpr_{lm}_profile")
+    out = (ctypes.c_uint64 * 12)()
+    torch.cuda.synchronize()
+    kernels._check_rc(f"fbpr_{lm}_profile", entry(ctypes.addressof(out), 1))
+    for _ in range(reps):
+        launch(lib)
+    torch.cuda.synchronize()
+    kernels._check_rc(f"fbpr_{lm}_profile", entry(ctypes.addressof(out), 1))
+    solves, its, *stage, cycles, ns = (int(v) for v in out)
+    ghz = cycles / max(ns, 1)
+    names = LM_STAGES[lm]
+    us = {n: stage[i] / ghz / 1e3 for i, n in enumerate(names)}
+    per_it = {n: us[n] / max(its, 1) for n in names
+              if n not in ("prologue", "epilogue")}
+    it_us = sum(per_it.values())
+    rec = dict(iteration_us=it_us, stages_us=per_it,
+               prologue_us=us["prologue"] / max(solves, 1),
+               epilogue_us=us["epilogue"] / max(solves, 1),
+               solve_us=ns / max(solves, 1) / 1e3, ghz=ghz,
+               iterations=its / max(solves, 1))
+    print(f"probe {lm} {name} split ({which}, clock64 on thread 0 after a "
+          f"CTA barrier, {rec['iterations']:.0f} iterations a solve, clock "
+          f"{ghz:.3f} GHz): an iteration {it_us:.2f} us = " + ", ".join(
+              f"{n} {v:.2f} ({v / max(it_us, 1e-9):.1%})"
+              for n, v in per_it.items()) + f"; a solve "
+          f"{rec['solve_us']:.2f} us (prologue {rec['prologue_us']:.2f}, "
+          f"epilogue {rec['epilogue_us']:.2f})", flush=True)
+    return rec
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN in the same places counting as equal."""
+    import torch
+    if a.dtype.is_floating_point:
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    if a.dtype == torch.float32 else torch.equal(a, b))
+    return bool(torch.equal(a, b))
+
+
+def lm_turns(lm, name, launch, other, reps=20):
+    """One `probe <lm> <name> in turns` line: the shipped kernel and
+    another build (other, --lm-ab's) on the same inputs, in turns
+    (shipped, other, other, shipped; reps launches each by CUDA events),
+    and whether their outputs (poses or states, cost, accepts) are bit
+    for bit equal.  Returns the record."""
+    import torch
+    mine = [t.clone() for t in launch(None)]
+    theirs = [t.clone() for t in launch(other)]
+    torch.cuda.synchronize()
+    same = all(_same_bits(a, b) for a, b in zip(mine, theirs))
+    ms = {"shipped": [], "other": []}
+    for route in ("shipped", "other", "other", "shipped"):
+        lib = other if route == "other" else None
+        ms[route].append(cuda_ms(lambda: launch(lib), reps))
+    k, o = float(np.mean(ms["shipped"])), float(np.mean(ms["other"]))
+    print(f"probe {lm} {name} in turns (the shipped kernel and the other "
+          f"version's, --lm-ab, in turns): kernel {ms['shipped'][0]:.4f} / "
+          f"{ms['shipped'][1]:.4f} ms, other {ms['other'][0]:.4f} / "
+          f"{ms['other'][1]:.4f} ms: {o / k:.2f}x; outputs bit for bit "
+          f"equal {same}", flush=True)
+    return dict(ms=ms["shipped"], other_ms=ms["other"], speedup=o / k,
+                bitwise_other=same)
+
+
+def lm_extras(lm, name, launch, split):
+    """The LM probes' additions, through launch (lm_launcher): the shipped
+    kernel's clock64 split (if split) and, given --lm-ab, the other
+    version's in turns and its split.  Returns {"split": ..., "in_turns":
+    ..., "other_split": ...}."""
+    rec = {}
+    if split:
+        if not LM_PROFILE:
+            LM_PROFILE.update(lm_builds())
+        rec["split"] = lm_split(lm, name, launch, LM_PROFILE[lm],
+                                "diagnostic build")
+    if LM_AB:
+        rec["in_turns"] = lm_turns(lm, name, launch, LM_AB["plain"][lm])
+        if split:
+            rec["other_split"] = lm_split(
+                lm, name, launch, LM_AB["profile"][lm],
+                "the other version's diagnostic build")
+    return rec
 
 
 # the inputs of the first rounds_gn calls of a phase ({phase: [(args,
@@ -1476,27 +1698,60 @@ def rounds_probes(dev):
     return out
 
 
+# csrc/pose_graph_lm.cu's kWarpBlocks: a block column that updates more
+# later blocks than this is factored on the CTA, the others on warp 0
+LM_WARP_BLOCKS = 4
+
+
+def envelope_later(g):
+    """(envelope starts, later blocks) of route A's envelope on g's live
+    poses: graph/pose_graph.py::envelope_starts (what the kernel's
+    prologue computes) and, for each block column q, the number of blocks
+    p > q whose envelope starts at or before q (the blocks it updates)."""
+    from feature_base_pointcloud_registration_tpu_torch.graph import (
+        pose_graph as tpg)
+    ls = tpg.live_set(g)
+    fb = np.asarray(tpg.envelope_starts(g, ls).tolist(), np.int64)
+    return fb, np.array([int((fb[q + 1:] <= q).sum()) for q in range(ls.n)],
+                        np.int64)
+
+
+def envelope_paths(g):
+    """(block columns on warp 0, block columns on the CTA) of route A's
+    envelope Cholesky on g: a column takes the CTA's path past
+    LM_WARP_BLOCKS later blocks."""
+    later = envelope_later(g)[1]
+    wide = int((later > LM_WARP_BLOCKS).sum())
+    return len(later) - wide, wide
+
+
 def lm_bound(g, iterations):
     """(bound_ms, bound_by) of an LM solve of g on its live poses: the
     inputs read once and the outputs written once over the memory rate, or
-    the operations a step over the fp32 rate (the Cholesky D^3 / 3, the
-    two solves 2 D^2, the Jacobian blocks and their products: 12 x 12 x 6
-    a between factor, 6 x 6 x 6 a prior and 6 x 6 x 3 a GPS factor), the
-    larger."""
-    from feature_base_pointcloud_registration_tpu_torch.graph import (
-        pose_graph as tpg)
-    D = 6 * tpg.live_set(g).n
-    fp, fb, fg = (int(m.sum()) for m in (g.prior_mask, g.btw_mask,
-                                         g.gps_mask))
-    ops = iterations * (D ** 3 / 3 + 2 * D ** 2 + fb * 12 * 12 * 6
-                        + fp * 6 * 6 * 6 + fg * 6 * 6 * 3)
+    the operations a step over the fp32 rate, the larger.  A step's
+    operations are what H's envelope needs (graph/pose_graph.py::
+    envelope_starts, which route A's kernel computes on the card): the
+    Cholesky a multiply and a subtract for each entry (u, w), w <= u, of
+    each column's m rows below the diagonal, the two solves a multiply and
+    a subtract for each envelope entry below the diagonal, the Jacobian
+    blocks and their products: 12 x 12 x 6 a between factor, 6 x 6 x 6 a
+    prior and 6 x 6 x 3 a GPS factor."""
+    fb, later = envelope_later(g)
+    n = len(fb)
+    m = (5 - np.arange(6 * n) % 6) + 6 * later[np.arange(6 * n) // 6]
+    below = int((36 * (np.arange(n) - fb) + 15).sum())
+    fp, fb_, fg = (int(mk.sum()) for mk in (g.prior_mask, g.btw_mask,
+                                            g.gps_mask))
+    ops = iterations * (int((m * (m + 1)).sum()) + 4 * below
+                        + fb_ * 12 * 12 * 6 + fp * 6 * 6 * 6
+                        + fg * 6 * 6 * 3)
     K = g.poses.shape[0]
     nbytes = (K * 25 + g.prior_mask.shape[0] * 53 + g.btw_mask.shape[0] * 57
               + g.gps_mask.shape[0] * 29 + K * 24 + 4 + iterations * 4)
     return bound(nbytes, ops)
 
 
-def lm_probe(name, g, iterations, unchanged=False):
+def lm_probe(name, g, iterations, unchanged=False, split=False):
     """One `probe pose_graph_lm` line: optimize_pose_graph on the card (the
     kernel, its route by the live count) against its plain version
     (optimize_pose_graph_reference, run on the card) on the same graph:
@@ -1508,7 +1763,6 @@ def lm_probe(name, g, iterations, unchanged=False):
     probe's record; raises where it fails."""
     import torch
 
-    from feature_base_pointcloud_registration_tpu_torch import kernels
     from feature_base_pointcloud_registration_tpu_torch.graph import (
         pose_graph as tpg)
     opg = tpg.optimize_pose_graph
@@ -1527,12 +1781,8 @@ def lm_probe(name, g, iterations, unchanged=False):
     gc = tpg._contiguous(g)
     ls = tpg.live_set(gc)
     if route == "A":
-        out = torch.empty_like(gc.poses)
-        cost = torch.empty((), device=gc.poses.device)
-        acc = torch.zeros(iterations, dtype=torch.int32,
-                          device=gc.poses.device)
-        ms = cuda_ms(lambda: kernels.launch_pose_graph_lm(
-            gc, ls, iterations, out, cost, acc), 20)
+        launch = lm_launcher("pose_graph_lm", gc, iterations)
+        ms = cuda_ms(lambda: launch(None), 20)
     else:
         acc = torch.zeros(iterations, dtype=torch.int32,
                           device=gc.poses.device)
@@ -1547,14 +1797,17 @@ def lm_probe(name, g, iterations, unchanged=False):
     plain_ms = cuda_ms(lambda: tpg.optimize_pose_graph_reference(
         g, iterations), 2)
     b_ms, b_by = lm_bound(g, iterations)
+    paths = envelope_paths(gc) if route == "A" else None
     rec = dict(K=g.poses.shape[0], live=ls.n, iterations=iterations,
-               route=route, launches=launches, ms=ms,
+               route=route, launches=launches, ms=ms, paths=paths,
                solve_ms=float(np.median(walls)), plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                cost_rel_err=cost_rel, accepts_equal=agree,
                accepts=int(sum(bool(x) for x in acc_k)), bitwise=bitwise)
     print(f"probe pose_graph_lm {name}: K {rec['K']}, {ls.n} live, "
-          f"{iterations} iterations, route {route} (launches {launches}): "
+          f"{iterations} iterations, route {route} (launches {launches}"
+          + (f"; block columns {paths[0]} on warp 0, {paths[1]} on the CTA"
+             if paths else "") + f"): "
           f"kernel {ms:.4f} ms, solve {rec['solve_ms']:.3f} ms (host wall, "
           f"the entry point), plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms "
           f"({b_by}, {b_ms / ms:.3%} of it); pose |diff| max {err:.3e}, "
@@ -1567,6 +1820,8 @@ def lm_probe(name, g, iterations, unchanged=False):
                              f"{cost_rel}, bitwise {bitwise}")
     if unchanged and not (torch.equal(pk, g.poses) and rec["accepts"] == 0):
         raise AssertionError(f"pose_graph_lm {name}: the poses moved")
+    if route == "A":
+        rec.update(lm_extras("pose_graph_lm", name, launch, split))
     return rec
 
 
@@ -1606,7 +1861,9 @@ def pose_graph_probes(dev):
     tests/pose_graph_scenes.py: the factor blocks at random rotations, at
     identity, near pi and near pi about an axis (NaN entries); gimbal lock
     and a rotation error near pi about an axis in the LM (H not finite:
-    every step rejected, the poses bitwise); route B with its
+    every step rejected, the poses bitwise); a window chain with GPS
+    factors; 38 live poses with a between from pose 0 to each (the
+    envelope's widest: block columns on the CTA), split; route B with its
     factorization reported failed (every step rejected).  Returns {name:
     record}."""
     import torch
@@ -1616,7 +1873,7 @@ def pose_graph_probes(dev):
     out = {}
     for name in ("(a) phase 8 window", "(b) phase 8 full graph"):
         g, its = LM_INPUTS[name]
-        out[name] = lm_probe(name, g, its)
+        out[name] = lm_probe(name, g, its, split=True)
     name = "(c) route B, 200 live of 512"
     out[name] = lm_probe(name, pgs.big_chain(200, device=dev)[0], 12)
     name = f"(c) route B, {kernels.POSE_GRAPH_LM_MAX_LIVE + 1} live"
@@ -1629,6 +1886,12 @@ def pose_graph_probes(dev):
     out["(d) near pi about an axis"] = lm_probe(
         "(d) near pi about an axis", pgs.blocks_graph("near_pi_axis", dev),
         8, unchanged=True)
+    name = "(d) gps 20"
+    out[name] = lm_probe(name, pgs.chain("window", gps=True, noise=0.0,
+                                         device=dev)[0], 12)
+    name = f"(d) {kernels.POSE_GRAPH_LM_MAX_LIVE} live, a star"
+    out[name] = lm_probe(name, pgs.star(kernels.POSE_GRAPH_LM_MAX_LIVE,
+                                        device=dev)[0], 12, split=True)
     real = torch.linalg.cholesky_ex
 
     def failed(A):
@@ -1785,7 +2048,7 @@ def sample_bound(n, live, per_sample_ops, out_bytes):
     return bound(29 * n + out_bytes, live * per_sample_ops)
 
 
-def chain_probe(name, d, iterations=4, unchanged=False):
+def chain_probe(name, d, iterations=4, unchanged=False, split=False):
     """One `probe imu_chain_lm` line: optimize_imu_chain on the card (the
     kernel) against its plain version (optimize_imu_chain_reference, run
     on the card) on the same chain: states within 1e-4 with NaN in the
@@ -1797,7 +2060,6 @@ def chain_probe(name, d, iterations=4, unchanged=False):
     fails."""
     import torch
 
-    from feature_base_pointcloud_registration_tpu_torch import kernels
     from feature_base_pointcloud_registration_tpu_torch.graph import (
         imu_graph as tig)
     oic = tig.optimize_imu_chain
@@ -1821,15 +2083,9 @@ def chain_probe(name, d, iterations=4, unchanged=False):
         (cost_rel <= 1e-3 or abs(ck_ - cp_) <= 1e-4)
         and (self_rel <= 1e-4 or abs(ck_ - at) <= 1e-4))
     agree = sum(bool(x) == bool(y) for x, y in zip(acc_k, acc_p))
-    dc = tig._contiguous(d)
     K = d.states.shape[0]
-    out = torch.empty_like(dc.states)
-    cost = torch.empty((), device=dc.states.device)
-    acc = torch.zeros(iterations, dtype=torch.int32, device=dc.states.device)
-    scratch = torch.empty(kernels.imu_chain_floats(K),
-                          device=dc.states.device)
-    ms = cuda_ms(lambda: kernels.launch_imu_chain_lm(
-        dc, iterations, out, cost, acc, scratch), 20)
+    launch = lm_launcher("imu_chain_lm", d, iterations)
+    ms = cuda_ms(lambda: launch(None), 20)
     plain_ms = cuda_ms(lambda: tig.optimize_imu_chain_reference(
         d, iterations), 2)
     b_ms, b_by = chain_lm_bound(d, iterations)
@@ -1855,6 +2111,7 @@ def chain_probe(name, d, iterations=4, unchanged=False):
                              f"{launches}")
     if unchanged and not (torch.equal(sk, d.states) and rec["accepts"] == 0):
         raise AssertionError(f"imu_chain_lm {name}: the states moved")
+    rec.update(lm_extras("imu_chain_lm", name, launch, split))
     return rec
 
 
@@ -2047,8 +2304,10 @@ def imu_probes(dev):
     chain = {}
     for name in ("(a) phase 9 last full window",
                  "(b) phase 9 first correction after a reset"):
-        chain[name] = chain_probe(name, IMU_INPUTS[name])
-    chain["(c) K 100"] = chain_probe("(c) K 100", ics.scene("k100", dev))
+        chain[name] = chain_probe(name, IMU_INPUTS[name],
+                                  split=name.startswith("(a)"))
+    chain["(c) K 100"] = chain_probe("(c) K 100", ics.scene("k100", dev),
+                                     split=True)
     for sc in ics.CPU_SCENES:
         chain[f"(d) {sc}"] = chain_probe(
             f"(d) {sc}", ics.scene(sc, dev),
@@ -5425,6 +5684,11 @@ def main():
     ap.add_argument("--gn-ab", action="append", default=[],
                     metavar="NAME=PATH", type=lambda v: v.split("=", 1),
                     help="another gn_round.cu to time beside the shipped one")
+    ap.add_argument("--lm-ab", metavar="DIR",
+                    help="a directory holding another version of "
+                         "pose_graph_lm.cu and imu_chain_lm.cu (and the "
+                         "headers they include) to time in turns with the "
+                         "shipped ones at the LM probes and phases 8-9")
     args = ap.parse_args()
     dev = require_cuda()
     sys.path.insert(0, os.path.join(REPO, "tests"))    # oracle.py
@@ -5444,6 +5708,9 @@ def main():
         print_ptxas(os.path.basename(log).split("-")[0][len("libfbpr_"):],
                     log)
     variants = gn_variants(args.gn_ab)
+    if args.lm_ab:
+        LM_AB.update(plain=lm_builds(args.lm_ab, profile=False),
+                     profile=lm_builds(args.lm_ab))
 
     # ---- setup: bench.py's scans, guesses and map, from seeds ----
     params = Params(map_corner_cap=16384, map_surf_cap=65536,
@@ -5961,12 +6228,19 @@ def main():
                                     ("10b", kitti_launches),
                                     ("10d", ms_launches))},
               max_abs_err_blocks=rp_lm["blocks_max_abs_err"],
+              redesigned="route A on H's envelope: the factors' columns in "
+                         "one pass, each entry summed by one owner thread; "
+                         "the envelope Cholesky (forward solve inside) on "
+                         "warp 0 for narrow columns, the CTA for wide ones",
               probes={n: {k: r[k] for k in (
                   "K", "live", "iterations", "route", "launches", "ms",
                   "solve_ms", "plain_ms", "bound_ms", "bound_by",
                   "max_abs_err", "cost_rel_err", "accepts_equal",
-                  "bitwise")}
-                      for n, r in rp_lm.items() if isinstance(r, dict)}),
+                  "bitwise", "paths")} | {k: r[k] for k in (
+                      "split", "in_turns", "other_split") if k in r}
+                      for n, r in rp_lm.items() if isinstance(r, dict)},
+              steps_in_turns={k: v for k, v in LM_AB.get("steps", {}).items()
+                              if k.endswith("pose_graph_lm")}),
         entry("imu_chain_lm", "imu_chain_lm.cu",
               xla_loop_line("imu_graph.py", "lax.scan(", sub="graph"),
               lio_launches["imu_chain_lm"],
@@ -5975,11 +6249,19 @@ def main():
               launches_blocks=lio_launches["imu_chain_blocks"],
               max_rel_err_blocks=rp_imu["blocks_max_rel_err"],
               phase9_in_turns=IMU_INPUTS["in_turns"],
+              redesigned="a block step on the CTA: warp 0 factors the "
+                         "panel [A_kk; A_k+1,k] a lane a row (the forward "
+                         "solve inside), 120 threads the Schur update, the "
+                         "other warps stage the next blocks in shared "
+                         "memory; the backward solve on warp 0",
               probes={n: {k: r[k] for k in (
                   "K", "live", "iterations", "ms", "plain_ms", "bound_ms",
                   "bound_by", "max_abs_err", "cost_rel_err",
-                  "accepts_equal", "bitwise")}
-                      for n, r in rp_imu["chain"].items()}),
+                  "accepts_equal", "bitwise")} | {k: r[k] for k in (
+                      "split", "in_turns", "other_split") if k in r}
+                      for n, r in rp_imu["chain"].items()},
+              steps_in_turns={k: v for k, v in LM_AB.get("steps", {}).items()
+                              if k.endswith("imu_chain_lm")}),
         entry("preintegration", "preintegration.cu",
               xla_loop_line("preintegration.py", "lax.scan(body, init",
                             sub="imu"),

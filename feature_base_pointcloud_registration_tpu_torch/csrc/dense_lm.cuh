@@ -1,26 +1,87 @@
-// The dense core of a Levenberg-Marquardt step, as CTA-cooperative device
-// functions on a D x D float32 matrix in shared or global memory (row-major,
-// leading dimension ld): the step of graph/pose_graph.py::_lm_solve_step
-// and of the JAX package's LM loops (graph/pose_graph.py, and the IMU
-// chain's graph/imu_graph.py, whose loop body is the same).
+// The pieces of a Levenberg-Marquardt step that the card's LM kernels
+// share (csrc/pose_graph_lm.cu's route A and csrc/imu_chain_lm.cu: the
+// steps of graph/pose_graph.py::_lm_solve_step and of the JAX package's LM
+// loops, graph/pose_graph.py and graph/imu_graph.py, whose loop bodies are
+// the same):
 //
-//   lm_scale_damp     d = sqrt(max(diag H, 1e-12)) + pin;
-//                     A = H / (d d^T) + diag(lam + pin) on the lower
-//                     triangle; b = -grad / d
-//   cholesky_lower    A = L L^T in place (right-looking, one column a step,
-//                     two barriers a column); failed if a pivot is not > 0,
-//                     which NaN trips too (the JAX solve's NaN, cholesky_ex's
-//                     info != 0)
-//   chol_solve_warp   L y = b, then L^T x = y, on one warp
-//   block_sum         a sum over the CTA in a fixed order (warp shuffles,
-//                     then the warps' sums in warp order): the same inputs
-//                     give the same bits, launch after launch
+//   block_sum       a sum over the CTA in a fixed order (warp shuffles,
+//                   then the warps' sums in warp order): the same inputs
+//                   give the same bits, launch after launch
+//   divide          x / y with no slow path for a zero x
+//   clamp_min_nan   torch.clamp(min=) with NaN kept (the Jacobi scaling's
+//                   d = sqrt(max(diag H, 1e-12)) + pin)
+//   lm_next_lambda  the damping after a step
+//   LmProf          the diagnostic builds' clock64 stage stamps
 //
-// Every thread of the CTA calls each function (chol_solve_warp: every lane
-// of one warp).  float32 throughout; the operations round one by one
-// (kernels.SOURCE_FLAGS builds without FMA contraction).
+// Every thread of the CTA calls block_sum.  float32 throughout; the
+// operations round one by one (kernels.SOURCE_FLAGS builds without FMA
+// contraction).
 //
 // Include once per translation unit, inside an anonymous namespace.
+//
+// Built with -DFBPR_LM_PROFILE (chip_smoke.py's diagnostic builds of
+// pose_graph_lm.cu and imu_chain_lm.cu, never the shipped ones), LmProf
+// stamps clock64() on thread 0 at the end of each stage of an LM solve,
+// after a CTA barrier so that the stamp is the slowest thread's, and adds
+// the sums into g_lm_prof, which the source's *_profile entry point reads:
+// [0] solves, [1] iterations, [2 + s] the cycles of stage s (kLmStages),
+// [10] the kernel's cycles and [11] its globaltimer ns on thread 0.  The
+// shipped build compiles every stamp away.
+
+constexpr int kLmStages = 8;
+
+#ifdef FBPR_LM_PROFILE
+__device__ unsigned long long g_lm_prof[12];
+
+struct LmProf {
+  long long c0, t, s[kLmStages];
+  unsigned long long n0;
+  __device__ void start() {
+    if (threadIdx.x != 0) return;
+    unsigned long long n;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(n));
+    n0 = n;
+    c0 = t = clock64();
+    for (int i = 0; i < kLmStages; ++i) s[i] = 0;
+  }
+  __device__ void stamp(int stage) {
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    const long long now = clock64();
+    s[stage] += now - t;
+    t = now;
+  }
+  __device__ void finish(int iterations) {
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    unsigned long long n;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(n));
+    atomicAdd(&g_lm_prof[0], 1ull);
+    atomicAdd(&g_lm_prof[1], (unsigned long long)iterations);
+    for (int i = 0; i < kLmStages; ++i)
+      atomicAdd(&g_lm_prof[2 + i], (unsigned long long)s[i]);
+    atomicAdd(&g_lm_prof[10], (unsigned long long)(clock64() - c0));
+    atomicAdd(&g_lm_prof[11], n - n0);
+  }
+};
+
+// The sums into out (12 values); reset != 0 zeroes them after.
+// Synchronous.
+inline int lm_profile_read(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_lm_prof, 12 * sizeof(*out));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[12] = {};
+    e = cudaMemcpyToSymbol(g_lm_prof, zero, sizeof(zero));
+  }
+  return static_cast<int>(e);
+}
+#else
+struct LmProf {
+  __device__ void start() {}
+  __device__ void stamp(int) {}
+  __device__ void finish(int) {}
+};
+#endif
 
 template <int NT>
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -36,75 +97,21 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
+// x / y, bit for bit, with no zero dividend: a zero x over a positive
+// finite y comes back as it is (0 / y keeps x's sign) and the lane divides
+// 1 instead.  A zero dividend sends the IEEE division to its slow path,
+// ~225 cycles more on an H100 (scripts/warp_latency.py), and the LM
+// kernels' matrices hold many exact zeros; every lane divides, so a warp
+// does not diverge on it.
+__device__ __forceinline__ float divide(float x, float y) {
+  const bool keep = x == 0.0f && y > 0.0f && y < INFINITY;
+  const float q = (keep ? 1.0f : x) / y;
+  return keep ? x : q;
+}
+
 // torch.clamp(min=): NaN stays NaN
 __device__ __forceinline__ float clamp_min_nan(float v, float lo) {
   return isnan(v) ? v : fmaxf(v, lo);
-}
-
-template <int NT>
-__device__ void lm_scale_damp(float* A, int ld, int D, const float* grad,
-                              const float* pin, float lam, float* d,
-                              float* b) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < D; i += NT)
-    d[i] = sqrtf(clamp_min_nan(A[i * ld + i], 1e-12f)) + pin[i];
-  __syncthreads();
-  for (int i = tid; i < D; i += NT) b[i] = -grad[i] / d[i];
-  for (int i = warp; i < D; i += NT / 32) {
-    const float di = d[i];
-    for (int j = lane; j <= i; j += 32) {
-      float v = A[i * ld + j] / (di * d[j]);
-      if (j == i) v = v + (lam + pin[i]);
-      A[i * ld + j] = v;
-    }
-  }
-  __syncthreads();
-}
-
-// col: D floats of scratch.  Returns whether the factorization failed (the
-// same answer in every thread).
-template <int NT>
-__device__ bool cholesky_lower(float* A, int ld, int D, float* col) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int k = 0; k < D; ++k) {
-    const float p = A[k * ld + k];
-    if (!(p > 0.0f)) return true;
-    const float l = sqrtf(p);
-    for (int i = k + 1 + tid; i < D; i += NT) {
-      const float v = A[i * ld + k] / l;
-      A[i * ld + k] = v;
-      col[i] = v;
-    }
-    __syncthreads();
-    if (tid == 0) A[k * ld + k] = l;
-    for (int i = k + 1 + warp; i < D; i += NT / 32) {
-      const float li = col[i];
-      for (int j = k + 1 + lane; j <= i; j += 32)
-        A[i * ld + j] = A[i * ld + j] - li * col[j];
-    }
-    __syncthreads();
-  }
-  return false;
-}
-
-// b <- (L L^T)^-1 b, L the lower triangle (diagonal included) of A
-__device__ void chol_solve_warp(const float* A, int ld, int D, float* b) {
-  const int lane = threadIdx.x & 31;
-  for (int k = 0; k < D; ++k) {
-    const float y = b[k] / A[k * ld + k];
-    __syncwarp();
-    if (lane == 0) b[k] = y;
-    for (int i = k + 1 + lane; i < D; i += 32)
-      b[i] = b[i] - A[i * ld + k] * y;
-    __syncwarp();
-  }
-  for (int k = D - 1; k >= 0; --k) {
-    const float x = b[k] / A[k * ld + k];
-    __syncwarp();
-    if (lane == 0) b[k] = x;
-    for (int i = lane; i < k; i += 32) b[i] = b[i] - A[k * ld + i] * x;
-    __syncwarp();
-  }
 }
 
 // The LM damping after a step: lam * 0.3 (floor 1e-6) if it was accepted,

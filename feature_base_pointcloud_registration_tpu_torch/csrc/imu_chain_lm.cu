@@ -19,11 +19,12 @@
 //                          the threads of the state-j columns), H's blocks
 //                          and grad summed entry by entry in the plain
 //                          version's order of additions (no float atomics),
-//                          the Jacobi scaling and damping of
-//                          csrc/dense_lm.cuh, the block-tridiagonal
-//                          Cholesky and its two solves (below), the step (0
-//                          on inactive states), the new cost, accept (the
-//                          factorization held and the cost fell) and lam.
+//                          the Jacobi scaling and damping (as
+//                          graph/pose_graph.py::_lm_solve_step), the
+//                          block-tridiagonal Cholesky and its two solves
+//                          (below), the step (0 on inactive states), the
+//                          new cost, accept (the factorization held and
+//                          the cost fell) and lam.
 //                          Writes states [K, 15], the cost and each
 //                          iteration's accept flag.
 //   fbpr_imu_chain_blocks  chain_factor_blocks: the whitened residuals and
@@ -33,18 +34,34 @@
 //
 // The solve uses H's structure.  Factor k joins states max(k - 1, 0) and k,
 // so H is block tridiagonal in 15 x 15 blocks, and so is its Cholesky
-// factor: the dense factor has exact zeros outside the band.  One warp
-// factors it block by block in place, L_kk = chol(A_kk - L_k,k-1
-// L_k,k-1^T) and L_k+1,k = A_k+1,k L_kk^-T, each entry's subtractions in
-// the order of the dense right-looking factorization (csrc/dense_lm.cuh's
-// cholesky_lower), and solves L y = b, L^T x = y the same way.  A pivot
+// factor: the dense factor has exact zeros outside the band.  The CTA
+// factors it a block step at a time, L_kk = chol(A_kk - L_k,k-1
+// L_k,k-1^T) and L_k+1,k = A_k+1,k L_kk^-T, with the forward solve L y = b
+// inside (chain_factor): warp 0 takes the 30 x 15 panel [A_kk; A_k+1,k] a
+// lane a row (a column step is a few shuffles, a square root and a
+// division on the dependent path, the row updates on 30 lanes at once),
+// 120 threads the Schur update of the next diagonal block, an entry each,
+// and the other warps stage the block after next in shared memory
+// (ChainSmem).  Warp 0 then solves L^T x = y (chain_backward_warp).  The
+// blocks hold many exact zeros, and a zero dividend sends the IEEE
+// division to its slow path: every division skips it (dense_lm.cuh's
+// divide).  Each entry's subtractions run in the order of the dense
+// right-looking factorization (csrc/pose_graph_lm.cu's route A), so the
+// factor and the step are that factorization's, bit for bit.  A pivot
 // that is not > 0 (NaN too) fails the factorization: a rejected step, as
 // cholesky_ex's info != 0 is in the plain version.  The blocks, states,
 // whitening factors and factor blocks take 1182 K + 240 floats of global
 // scratch the caller allocates (kernels.imu_chain_floats), for every window
-// size.  A shared-memory copy of the same code (up to K 48) ran 4% faster
-// at K 16 on an H100 (1.5059 against 1.5682 ms a solve), 0.06 ms of a
-// ~72 ms LIO step: one route is kept (PERF.md).
+// size; only the blocks of the current and the next two steps are staged in
+// shared memory.  The CTA has 512 threads, so the iteration's 30 K
+// Jacobian columns are one pass at K 16.
+//
+// Built with -DFBPR_LM_PROFILE (chip_smoke.py's diagnostic build), the
+// kernel stamps its stages (dense_lm.cuh's LmProf): 0 the prologue (the
+// whitening factors, the first cost), then an iteration's 1 eval_column, 2
+// assemble, 3 scale and damp, 4 block Cholesky with the forward solve, 5
+// backward solve and step, 6 chain cost and accept, and 7 the epilogue;
+// fbpr_imu_chain_lm_profile reads them.
 //
 // Bound.  Operations (chip_smoke.py's OPS_* and CHAIN_OPS_*, derived
 // there): a step is each live factor's residuals once (0.70 kFLOP) and a
@@ -53,8 +70,8 @@
 // the blocks of H and grad, 8.1 for a block of the Cholesky, 1.35 for the
 // solves, and the new cost: at K = 16 some 1.0 MFLOP a step, ~0.015 us at
 // the fp32 rate.  One CTA is latency-bound on the factorization's K
-// dependent block steps (~45 warp barriers each) and the solves' 2 x 15 K
-// dependent steps, not on either rate.
+// dependent block steps (the panel's 15 column steps and the Schur update
+// each) and the backward solve's K dependent blocks, not on either rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,7 +82,7 @@ namespace {
 #include "dense_lm.cuh"
 #include "imu_chain.cuh"
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kFactorFloats = 9 + 135 + 135 + 6 + 90 + 90 + 6 + 90;
 
 // floats of a solve: P, Pn, pin, d, b, grad; the whitening factors; the
@@ -197,7 +214,8 @@ __device__ void assemble(const Blocks& B, int K, float* Hd, float* Hl,
 }
 
 // d = sqrt(max(diag H, 1e-12)) + pin; A = H / (d d^T) + diag(lam + pin) on
-// the blocks; b = -grad / d (csrc/dense_lm.cuh's lm_scale_damp, blockwise)
+// the blocks; b = -grad / d (graph/pose_graph.py::_lm_solve_step's
+// scaling, entry by entry as there, blockwise)
 template <int NT>
 __device__ void scale_damp(float* Hd, float* Hl, int K, const float* grad,
                            const float* pin, float lam, float* d, float* b) {
@@ -206,119 +224,192 @@ __device__ void scale_damp(float* Hd, float* Hl, int K, const float* grad,
     d[e] = sqrtf(clamp_min_nan(Hd[(e / kS) * 225 + (e % kS) * (kS + 1)],
                                1e-12f)) + pin[e];
   __syncthreads();
-  for (int e = tid; e < D; e += NT) b[e] = -grad[e] / d[e];
+  for (int e = tid; e < D; e += NT) b[e] = divide(-grad[e], d[e]);
   for (int e = tid; e < 225 * K; e += NT) {
     const int k = e / 225, i = e % 225 / kS, j = e % kS;
     const int r = kS * k + i, c = kS * k + j;
-    float v = Hd[e] / (d[r] * d[c]);
+    float v = divide(Hd[e], d[r] * d[c]);
     if (i == j) v = v + (lam + pin[r]);
     Hd[e] = v;
   }
   for (int e = 225 + tid; e < 225 * K; e += NT) {
     const int k = e / 225, i = e % 225 / kS, j = e % kS;
-    Hl[e] = Hl[e] / (d[kS * k + i] * d[kS * (k - 1) + j]);
+    Hl[e] = divide(Hl[e], d[kS * k + i] * d[kS * (k - 1) + j]);
   }
   __syncthreads();
 }
 
-// The block-tridiagonal Cholesky of the scaled, damped H in place (Hd's
-// lower triangles become L_kk, Hl's blocks L_k,k-1), on one warp (every
-// lane calls it).  Returns whether it failed (the same answer in every
-// lane).
-__device__ bool block_cholesky_warp(float* Hd, float* Hl, int K) {
-  const int lane = threadIdx.x & 31;
-  for (int k = 0; k < K; ++k) {
-    float* A = Hd + 225 * k;
-    if (k > 0) {
-      const float* Lk = Hl + 225 * k;
-      // A_kk - L_k,k-1 L_k,k-1^T on the lower triangle, column by column
-      for (int e = lane; e < 120; e += 32) {
-        int i = 0;
-        while ((i + 1) * (i + 2) / 2 <= e) ++i;
-        const int j = e - i * (i + 1) / 2;
-        float s = A[i * kS + j];
-        for (int m = 0; m < kS; ++m) s = s - Lk[i * kS + m] * Lk[j * kS + m];
-        A[i * kS + j] = s;
-      }
-      __syncwarp();
-    }
-    for (int j = 0; j < kS; ++j) {
-      const float p = A[j * kS + j];
-      if (!(p > 0.0f)) return true;
-      const float l = sqrtf(p);
-      if (lane > j && lane < kS) A[lane * kS + j] = A[lane * kS + j] / l;
-      __syncwarp();
-      if (lane == 0) A[j * kS + j] = l;
-      if (lane > j && lane < kS) {
-        const float li = A[lane * kS + j];
-        for (int c = j + 1; c <= lane; ++c)
-          A[lane * kS + c] = A[lane * kS + c] - li * A[c * kS + j];
-      }
-      __syncwarp();
-    }
-    if (k + 1 < K) {
-      // L_k+1,k = A_k+1,k L_kk^-T: row by row (a lane each), its
-      // subtractions column by column
-      float* X = Hl + 225 * (k + 1);
-      if (lane < kS) {
-        for (int c = 0; c < kS; ++c) {
-          float v = X[lane * kS + c];
-          for (int m = 0; m < c; ++m) v = v - X[lane * kS + m] * A[c * kS + m];
-          X[lane * kS + c] = v / A[c * kS + c];
-        }
-      }
-      __syncwarp();
-    }
+// The shared memory of the block factorization: the current step's blocks
+// (A, X) and the next ones' as scale_damp left them (An, Xn, bn: block m
+// at m & 1, staged a step ahead), and the backward solve's two L_kk (Ls)
+struct ChainSmem {
+  float A[225];       // A_kk less L_k,k-1 L_k,k-1^T (its lower triangle)
+  float X[225];       // L_k+1,k
+  float An[2][225];   // A_mm
+  float Xn[2][225];   // A_m,m-1
+  float bn[2][kS];    // b_m
+  float bs[2][kS];    // b_m less L_m,m-1 y_m-1
+  float Ls[450];
+};
+
+// block m's A_mm, A_m,m-1 and b_m into An, Xn and bn at m & 1, on the
+// threads t0, t0 + nt, ...
+__device__ void stage_block(const float* Hd, const float* Hl, const float* b,
+                            int m, ChainSmem& s, int t0, int nt) {
+  for (int e = t0; e < 450 + kS; e += nt) {
+    if (e < 225)
+      s.An[m & 1][e] = Hd[225 * m + e];
+    else if (e < 450)
+      s.Xn[m & 1][e - 225] = Hl[225 * m + e - 225];
+    else
+      s.bn[m & 1][e - 450] = b[kS * m + e - 450];
   }
-  return false;
 }
 
-// b <- (L L^T)^-1 b with the block factor, on one warp
-__device__ void block_solve_warp(const float* Hd, const float* Hl, int K,
-                                 float* b) {
-  const int lane = threadIdx.x & 31;
-  for (int k = 0; k < K; ++k) {
-    const float* A = Hd + 225 * k;
-    float* bk = b + kS * k;
-    if (k > 0) {
-      const float* Lk = Hl + 225 * k;
-      const float* y = bk - kS;
-      if (lane < kS) {
-        float v = bk[lane];
-        for (int m = 0; m < kS; ++m) v = v - Lk[lane * kS + m] * y[m];
-        bk[lane] = v;
-      }
-      __syncwarp();
-    }
-    for (int j = 0; j < kS; ++j) {
-      const float y = bk[j] / A[j * kS + j];
-      __syncwarp();
-      if (lane == 0) bk[j] = y;
-      if (lane > j && lane < kS) bk[lane] = bk[lane] - A[lane * kS + j] * y;
-      __syncwarp();
-    }
+// The block-tridiagonal Cholesky of the scaled, damped H (Hd's lower
+// triangles become L_kk, Hl's blocks L_k,k-1) with the forward solve L y = b
+// (b <- y), on the CTA, a step a block.  Step k:
+//  - warp 0 factors the 30 x 15 panel [A_kk; A_k+1,k] column by column, a
+//    lane a row (lanes 0-14 the rows of A_kk, lanes 15-29 those of A_k+1,k;
+//    lanes 30-31 run on a copy and write nothing): column j's pivot and
+//    L_cj shuffled from their lanes, each row updated by its own lane, y_j
+//    shuffled to every lane.  So L_k+1,k = A_k+1,k L_kk^-T and b_k+1 less
+//    L_k+1,k y_k ride on L_kk's column steps, with no shuffle of their own;
+//  - meanwhile the other warps stage block k + 2 in shared memory;
+//  - after a barrier, 120 threads take the Schur update A_k+1,k+1 less
+//    L_k+1,k L_k+1,k^T, an entry each, its 15 subtractions in column order;
+//    a barrier.
+// Every entry's subtractions run in the order of the dense right-looking
+// factorization (csrc/pose_graph_lm.cu's route A), so the factor and the
+// step are that factorization's, bit for bit.  Every thread calls it;
+// returns whether it failed (in every thread).  Ends with a barrier.
+template <int NT>
+__device__ bool chain_factor(float* Hd, float* Hl, int K, float* b,
+                             ChainSmem& s, int* flag) {
+  const unsigned kAll = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int e = tid; e < 225 + kS; e += NT) {
+    if (e < 225)
+      s.A[e] = Hd[e];
+    else
+      s.bs[0][e - 225] = b[e - 225];
   }
-  for (int k = K - 1; k >= 0; --k) {
-    const float* A = Hd + 225 * k;
-    float* bk = b + kS * k;
-    for (int j = kS - 1; j >= 0; --j) {
-      const float x = bk[j] / A[j * kS + j];
-      __syncwarp();
-      if (lane == 0) bk[j] = x;
-      if (lane < j) bk[lane] = bk[lane] - A[j * kS + lane] * x;
-      __syncwarp();
-    }
-    if (k > 0) {
-      // L_k,k-1^T x_k from block k - 1, columns from the last
-      const float* Lk = Hl + 225 * k;
-      float* bp = bk - kS;
-      if (lane < kS) {
-        float v = bp[lane];
-        for (int m = kS - 1; m >= 0; --m) v = v - Lk[m * kS + lane] * bk[m];
-        bp[lane] = v;
+  if (K > 1 && tid >= 32) stage_block(Hd, Hl, b, 1, s, tid - 32, NT - 32);
+  if (tid == 0) *flag = 0;
+  __syncthreads();
+  const bool diag = lane < kS;
+  const int r = diag ? lane : lane < 2 * kS ? lane - kS : 0;
+  bool failed = false;
+  for (int k = 0; k < K; ++k) {
+    const bool next = k + 1 < K;
+    if (tid < 32) {
+      const bool low = !diag && next;  // a row of A_k+1,k
+      const float* row = low ? s.Xn[(k + 1) & 1] + r * kS : s.A + r * kS;
+      float a[kS], bi = low ? s.bn[(k + 1) & 1][r] : s.bs[k & 1][r];
+#pragma unroll
+      for (int c = 0; c < kS; ++c) a[c] = row[c];
+      bool ok = true;  // no exit inside the loop: it stays unrolled
+#pragma unroll
+      for (int j = 0; j < kS; ++j) {
+        const float p = __shfl_sync(kAll, a[j], j);
+        ok = ok && p > 0.0f;
+        const float l = sqrtf(p);
+        // one division a lane: lane j's y_j = b_j / l, the others' L_ij
+        const float v = divide(lane == j ? bi : a[j], l);
+        const float y = __shfl_sync(kAll, v, j);
+        a[j] = lane == j ? l : v;  // lanes < j: above the diagonal, unread
+        bi = lane == j ? y : lane > j ? bi - a[j] * y : bi;
+#pragma unroll
+        for (int c = j + 1; c < kS; ++c) {
+          const float lc = __shfl_sync(kAll, a[j], c);
+          a[c] = a[c] - a[j] * lc;  // lanes < c: unread
+        }
       }
-      __syncwarp();
+      if (!ok) {
+        if (lane == 0) *flag = 1;
+      } else if (diag) {
+        float* Lk = Hd + 225 * k + lane * kS;
+#pragma unroll
+        for (int c = 0; c < kS; ++c)
+          if (c <= lane) Lk[c] = a[c];
+        b[kS * k + lane] = bi;
+      } else if (low && lane < 2 * kS) {
+        float* Xo = Hl + 225 * (k + 1) + r * kS;
+#pragma unroll
+        for (int c = 0; c < kS; ++c) {
+          s.X[r * kS + c] = a[c];
+          Xo[c] = a[c];
+        }
+        s.bs[(k + 1) & 1][r] = bi;
+      }
+    } else if (k + 2 < K) {
+      stage_block(Hd, Hl, b, k + 2, s, tid - 32, NT - 32);
     }
+    __syncthreads();
+    failed = *flag != 0;
+    if (failed || !next) break;
+    if (tid < 225) {
+      const int i = tid / kS, j = tid % kS;
+      if (j <= i) {
+        const float* xi = s.X + i * kS;
+        const float* xj = s.X + j * kS;
+        float v = s.An[(k + 1) & 1][tid];
+#pragma unroll
+        for (int c = 0; c < kS; ++c) v = v - xi[c] * xj[c];
+        s.A[tid] = v;
+      }
+    }
+    __syncthreads();
+  }
+  return failed;
+}
+
+// L^T x = y (b <- x) with the block factor, on warp 0: every lane keeps
+// the current block's x (all 15 entries) and runs its in-block solve with
+// L_kk from Ls (two buffers of 225 floats); lane i < 15 takes L_k,k-1^T
+// x_k's entry i from its column of L_k,k-1, and the lanes exchange them.
+// The next block's L_kk is loaded while block k is solved.
+__device__ void chain_backward_warp(const float* Hd, const float* Hl, int K,
+                                    float* b, float* Ls) {
+  const int lane = threadIdx.x & 31;
+  const int i = lane < kS ? lane : 0;
+  float xb[kS], pre[8];
+#pragma unroll
+  for (int c = 0; c < kS; ++c) xb[c] = b[kS * (K - 1) + c];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    if (lane + 32 * r < 225) pre[r] = Hd[225 * (K - 1) + lane + 32 * r];
+  for (int k = K - 1; k >= 0; --k) {
+    float* S = Ls + 225 * (k & 1);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (lane + 32 * r < 225) S[lane + 32 * r] = pre[r];
+    float lc[kS], bp = 0.0f;  // column i of L_k,k-1; b_k-1's entry i
+    if (k > 0) {
+      const float* Lk = Hl + 225 * k;
+#pragma unroll
+      for (int m = 0; m < kS; ++m) lc[m] = Lk[m * kS + i];
+      bp = b[kS * (k - 1) + i];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (lane + 32 * r < 225) pre[r] = Hd[225 * (k - 1) + lane + 32 * r];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = kS - 1; j >= 0; --j) {
+      xb[j] = divide(xb[j], S[j * kS + j]);
+#pragma unroll
+      for (int c = 0; c < j; ++c) xb[c] = xb[c] - S[j * kS + c] * xb[j];
+    }
+#pragma unroll
+    for (int c = 0; c < kS; ++c)
+      if (c == lane) b[kS * k + c] = xb[c];
+    if (k == 0) break;
+#pragma unroll
+    for (int m = kS - 1; m >= 0; --m) bp = bp - lc[m] * xb[m];
+#pragma unroll
+    for (int c = 0; c < kS; ++c)
+      xb[c] = __shfl_sync(0xffffffffu, bp, c);
   }
 }
 
@@ -356,10 +447,13 @@ struct LmArgs {
 __global__ void __launch_bounds__(kThreads, 1) imu_chain_lm_kernel(
     LmArgs a) {
   __shared__ float red[32];
+  __shared__ ChainSmem sm;
   __shared__ int failed_flag;
   const ChainData& c = a.c;
   const int K = c.K, D = kS * K, tid = threadIdx.x;
   const Layout l = layout(a.scratch, K);
+  LmProf prof;
+  prof.start();
 
   for (int e = tid; e < D; e += kThreads) {
     l.P[e] = c.states[e];
@@ -370,26 +464,32 @@ __global__ void __launch_bounds__(kThreads, 1) imu_chain_lm_kernel(
   __syncthreads();
   float cost = chain_cost<kThreads>(c, l.P, l.Lw, red);
   float lam = 1e-4f;
+  prof.stamp(0);
   for (int it = 0; it < a.iterations; ++it) {
     for (int item = tid; item < 30 * K; item += kThreads) {
       const int k = item / 30;
       eval_column(c, l.P, l.Lw + 81 * k, k, item % 30, l.blk);
     }
     __syncthreads();
+    prof.stamp(1);
     assemble<kThreads>(l.blk, K, l.Hd, l.Hl, l.grad);
+    prof.stamp(2);
     scale_damp<kThreads>(l.Hd, l.Hl, K, l.grad, l.pin, lam, l.d, l.b);
-    if (tid < 32) {
-      const bool failed = block_cholesky_warp(l.Hd, l.Hl, K);
-      if (!failed) block_solve_warp(l.Hd, l.Hl, K, l.b);
-      if (tid == 0) failed_flag = failed;
-    }
+    prof.stamp(3);
+    const bool failed =
+        chain_factor<kThreads>(l.Hd, l.Hl, K, l.b, sm, &failed_flag);
+    prof.stamp(4);
+    if (tid < 32 && !failed) chain_backward_warp(l.Hd, l.Hl, K, l.b, sm.Ls);
     __syncthreads();
-    const bool failed = failed_flag != 0;
     bool accept = false;
     float new_cost = 0.0f;
     if (!failed) {
       for (int e = tid; e < D; e += kThreads)
-        l.Pn[e] = l.P[e] + (l.pin[e] == 0.0f ? l.b[e] / l.d[e] : 0.0f);
+        l.Pn[e] = l.P[e]
+                  + (l.pin[e] == 0.0f ? divide(l.b[e], l.d[e]) : 0.0f);
+    }
+    prof.stamp(5);
+    if (!failed) {
       __syncthreads();
       new_cost = chain_cost<kThreads>(c, l.Pn, l.Lw, red);
       accept = new_cost < cost;
@@ -401,9 +501,12 @@ __global__ void __launch_bounds__(kThreads, 1) imu_chain_lm_kernel(
     lam = lm_next_lambda(lam, accept);
     if (tid == 0) a.accepts[it] = accept;
     __syncthreads();
+    prof.stamp(6);
   }
   for (int e = tid; e < D; e += kThreads) a.out_states[e] = l.P[e];
   if (tid == 0) *a.out_cost = cost;
+  prof.stamp(7);
+  prof.finish(a.iterations);
 }
 
 __global__ void __launch_bounds__(32) imu_chain_blocks_kernel(
@@ -448,6 +551,15 @@ extern "C" int fbpr_imu_chain_lm(FBPR_CHAIN_PARAMS, int iterations,
       a);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef FBPR_LM_PROFILE
+// The diagnostic build's stage sums (dense_lm.cuh's g_lm_prof, 12
+// values) into out; reset != 0 zeroes them after.  Synchronous.
+extern "C" int fbpr_imu_chain_lm_profile(unsigned long long* out,
+                                         int reset) {
+  return lm_profile_read(out, reset);
+}
+#endif
 
 extern "C" int fbpr_imu_chain_blocks(FBPR_CHAIN_PARAMS, const float* at,
                                      float* r_imu, float* Ji, float* Jj,

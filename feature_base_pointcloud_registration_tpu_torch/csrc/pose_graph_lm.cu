@@ -13,21 +13,29 @@
 // so the solve over the n live poses is the solve over all K.  D = 6 n.
 //
 //   fbpr_pose_graph_lm        route A: the whole LM in one launch of one CTA
-//                             (kThreads threads), n up to kMaxLive.  H (D x
-//                             (D+1) float32, factored in place), grad, the
-//                             scaling, the poses and their trial step live in
-//                             shared memory.  An iteration: the factors in
-//                             chunks (each Jacobian column one thread's
-//                             dual-number evaluation, csrc/pose_graph.cuh),
-//                             their blocks summed into H and grad factor by
-//                             factor in slot order (priors, betweens, GPS;
-//                             no float atomics), then csrc/dense_lm.cuh's
-//                             scaling, damping, Cholesky and solves, the
-//                             step (0 on inactive rows), the new cost from
-//                             the residuals, accept (the factorization held
-//                             and the cost fell) and lam.  Writes poses [K,
-//                             6] (non-live rows copied through), the cost
-//                             and each iteration's accept flag.
+//                             (kThreads threads), n up to kMaxLive.  H (a
+//                             D x (D+1) float32 array, of which only the
+//                             envelope below is written, factored in
+//                             place), grad, the scaling, the poses and their
+//                             trial step live in shared memory.  Once a
+//                             solve: the envelope.  An iteration: the
+//                             unmasked factors' Jacobian columns in one
+//                             pass (each column one thread's dual-number
+//                             evaluation, csrc/pose_graph.cuh; more passes
+//                             only past kMaxCols columns), then every
+//                             envelope entry of H and every entry of grad
+//                             summed by its one owner thread from the
+//                             factors that touch it, in slot order
+//                             (priors, betweens, GPS; no float atomics, no
+//                             barrier a factor); the scaling and damping on
+//                             the envelope; the envelope Cholesky with the
+//                             forward solve in it and the backward solve
+//                             (below); the step (0 on inactive rows), the
+//                             new cost from the residuals, accept (the
+//                             factorization held and the cost fell) and
+//                             lam.  Writes poses [K, 6] (non-live rows
+//                             copied through), the cost and each
+//                             iteration's accept flag.
 //   fbpr_pose_graph_assemble  route B, n above kMaxLive: one CTA a live pose
 //                             writes its 6 rows of H [D, D] and grad into
 //                             global memory from the factors that touch it,
@@ -47,11 +55,46 @@
 // mask, never by the index.  Every sum runs in a fixed order, so two
 // launches on the same inputs give the same bits.
 //
-// Bound.  Operations: a step is ~D^3 / 3 for the Cholesky, 2 D^2 for the
-// solves and ~F x 12 x 12 x 6 for the blocks; at D = 192 (the SLAM window)
-// some 2.5 MFLOP a step, ~0.3 us at the fp32 rate.  One CTA is latency-
-// bound on the Cholesky's D dependent column steps (two CTA barriers each)
-// and the solves' 2 D dependent steps, not on either rate.
+// Route A's envelope.  H's block (x, y) of live poses is nonzero only where
+// x == y or an unmasked between factor joins x and y; the masks and
+// endpoints do not change in a solve.  fb[x], the envelope's first block of
+// block row x, is the lowest live pose any unmasked between factor couples
+// x to (x itself if none).  In the dense right-looking Cholesky every entry
+// of a row left of its envelope stays 0.0, so L lies in the envelope: the
+// window graph of pipeline/slam.py (a prior, the odometry chain, unary GPS
+// factors) is block tridiagonal, a column touching at most 11 rows below
+// its diagonal; a loop closure widens the rows of its later pose.  Column k
+// (in block q) updates only the rows below it in block q and the rows of
+// the blocks p > q with fb[p] <= q (colmask[q]), each entry's subtractions
+// in the dense factorization's order, so the envelope holds the dense
+// factor's bits.  A block column that updates at most kWarpBlocks later
+// blocks runs on warp 0 alone, a lane a row, the block's six columns
+// through shuffles and registers and the later rows' entries after them,
+// with no CTA barrier; a wider one runs on the whole CTA, a thread a row
+// of the block column, then its rank-6 update a row a warp.
+// The forward solve L y = b runs inside the factorization (b as one more
+// column: y_k once L_kk is known, then b's rows of column k), the backward
+// solve L^T x = y on warp 0 block row by block row, each over the
+// envelope.  Non-finite H: the
+// dense update would carry NaN (0 x inf) outside the envelope, but the
+// verdict is the same, since a non-finite entry inside the envelope makes a
+// later pivot of its own row NaN or -inf (L_ik^2 subtracted from it) and
+// fails the factorization there or earlier in both.
+//
+// Built with -DFBPR_LM_PROFILE (chip_smoke.py's diagnostic build), route A
+// stamps its stages (dense_lm.cuh's LmProf): 0 the prologue (the envelope,
+// the first cost), then an iteration's 7 Jacobian columns and 1 the rest
+// of the assembly (the compaction, the owners' sums), 2 scaling and damping,
+// 3 Cholesky with the forward solve, 4 backward solve and step, 5 new cost
+// and accept, and 6 the epilogue; fbpr_pose_graph_lm_profile reads them.
+//
+// Bound.  Operations: a step is, over the envelope of E entries and D rows,
+// sum_k m_k (m_k + 1) / 2 for the Cholesky (m_k the rows column k updates),
+// 2 E for the solves and ~F x 12 x 12 x 6 for the blocks; at D = 180 (the
+// SLAM window's 30 live poses) some 0.1 MFLOP a step.  One CTA is latency-
+// bound on the Cholesky's D dependent column steps (a warp's __syncwarp
+// each on the window's chain) and the backward solve's D, not on either
+// rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -250,12 +293,42 @@ struct LmArgs {
   int* accepts;      // [iterations]
 };
 
+constexpr int kMaxCols = 448;     // Jacobian columns of one evaluation pass
+constexpr int kMaxPass = kMaxCols / 6;  // factors of one pass, at most
+constexpr int kWarpBlocks = 4;    // later blocks a block column may update
+                                  // on one warp (6 + 6 x 4 rows, a lane each)
+constexpr int kBlocks = 40;       // envelope arrays' room, in live poses
+constexpr int kTriPairs = 3 * kWarpBlocks * (6 * kWarpBlocks + 1);
+constexpr int kSegs = (6 * kBlocks + 31) / 32;  // a wide column's rows / 32
+constexpr int kPanRows = 8 * 6 * kBlocks;  // a wide column's L, 8 a row
+constexpr int kPanel = kPanRows + 48;      // and the diagonal block's L, y
+
+// Route A's shared scratch besides H and its vectors, in 4-byte words: the
+// envelope (colmask[q]: the blocks p > q with fb[p] <= q, 64-bit; fb; erow,
+// the envelope's entries before each block row), the failure flag, the
+// compaction's warp counts, the cost's block sums, a window's unmasked
+// factors, a pass's factors (endpoints and kind; J and residual offsets),
+// its Jacobian columns and residuals, each live pose's factors in the
+// pass (inc from inc[ioff[x]] to inc[ioff[x + 1]]), and the warp block
+// step's triangle of (u, w) pairs (16 bits each).  The Cholesky's column
+// and row list reuse the Jacobian columns' room.
+struct Scratch {
+  static constexpr int kMask = 0, kFb = 2 * kBlocks, kErow = kFb + kBlocks;
+  static constexpr int kFlag = kErow + kBlocks + 1, kWcnt = kFlag + 1;
+  static constexpr int kRed = kWcnt + 3 * (kThreads / 32);
+  static constexpr int kList = kRed + 32, kEnds = kList + kThreads;
+  static constexpr int kOffs = kEnds + kMaxPass, kJ = kOffs + kMaxPass;
+  static constexpr int kR = kJ + 6 * kMaxCols, kIoff = kR + kMaxCols;
+  static constexpr int kInc = kIoff + kBlocks + 1;
+  static constexpr int kTri = kInc + 2 * kMaxPass;
+  static constexpr int kWords = kTri + kTriPairs / 2;
+};
+
 // Route A's dynamic shared memory, in floats: A (D x (D+1)), grad, d, b,
-// pin, P, P + step, the Cholesky's column, the assembly's scratch, the
-// block sums' scratch
+// pin, P, P + step, the scratch
 __host__ __device__ constexpr long lm_smem_floats(int n) {
-  return static_cast<long>(6 * n) * (6 * n + 1) + 7L * (6 * n)
-         + AsmScratch<kThreads>::kFloats + 32;
+  return static_cast<long>(6 * n) * (6 * n + 1) + 6L * (6 * n)
+         + Scratch::kWords;
 }
 constexpr int lm_max_live() {
   int n = 1;
@@ -264,11 +337,501 @@ constexpr int lm_max_live() {
 }
 constexpr int kMaxLive = lm_max_live();
 static_assert(kMaxLive == 38, "kernels.POSE_GRAPH_LM_MAX_LIVE");
+static_assert(kMaxLive <= kBlocks && kBlocks <= 64, "colmask's bits");
+static_assert(6 * kMaxLive <= 32 * kSegs,
+              "a wide column's rows, kSegs a lane");
+static_assert(kPanel + 6 * kMaxLive <= 6 * kMaxCols,
+              "the Cholesky's panel and row list in the columns' room");
+
+// A concatenated factor index c (priors, then betweens, then GPS factors,
+// each in slot order): its kind and slot
+__device__ __forceinline__ int kind_of(const Factors& f, int c) {
+  return c < f.Fp ? 0 : c < f.Fp + f.Fb ? 1 : 2;
+}
+__device__ __forceinline__ int slot_of(const Factors& f, int c) {
+  return c < f.Fp ? c : c < f.Fp + f.Fb ? c - f.Fp : c - f.Fp - f.Fb;
+}
+
+// A window's compacted factors: np priors, then nb betweens, then GPS
+// factors.  Their Jacobian columns, Jacobian floats and residuals before
+// list position i, in that order.
+struct Window {
+  int total, np, nb;
+  __device__ int cols(int i) const {
+    return 6 * min(i, np) + 12 * min(max(i - np, 0), nb)
+           + 6 * max(i - np - nb, 0);
+  }
+  __device__ int jfloats(int i) const {
+    return 36 * min(i, np) + 72 * min(max(i - np, 0), nb)
+           + 18 * max(i - np - nb, 0);
+  }
+  __device__ int rfloats(int i) const {
+    return 6 * min(i, np + nb) + 3 * max(i - np - nb, 0);
+  }
+};
+
+// The unmasked factors among the concatenated indices [base, base + NT),
+// into list in order; ends with a barrier
+template <int NT>
+__device__ Window compact_window(const Factors& f, int base, int* list,
+                                 int* wcnt) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = base + tid, kind = kind_of(f, c);
+  const bool use = c < f.Fp + f.Fb + f.Fg && unmasked(f, kind, slot_of(f, c));
+  const unsigned b = __ballot_sync(0xffffffffu, use);
+  const unsigned bp = __ballot_sync(0xffffffffu, use && kind == 0);
+  const unsigned bb = __ballot_sync(0xffffffffu, use && kind == 1);
+  __syncthreads();  // wcnt is free
+  if (lane == 0) {
+    wcnt[warp] = __popc(b);
+    wcnt[NT / 32 + warp] = __popc(bp);
+    wcnt[2 * (NT / 32) + warp] = __popc(bb);
+  }
+  __syncthreads();
+  Window w{0, 0, 0};
+  int off = 0;
+#pragma unroll
+  for (int i = 0; i < NT / 32; ++i) {
+    if (i < warp) off += wcnt[i];
+    w.total += wcnt[i];
+    w.np += wcnt[NT / 32 + i];
+    w.nb += wcnt[2 * (NT / 32) + i];
+  }
+  if (use) list[off + __popc(b & ((1u << lane) - 1u))] = c;
+  __syncthreads();
+  return w;
+}
+
+// Envelope entry e (of erow[n], block rows in order, each row's entries
+// left to right) -> (row, column)
+__device__ __forceinline__ void envelope_entry(const int* erow,
+                                               const int* fb, int n, int e,
+                                               int& i, int& j) {
+  int lo = 0, hi = n - 1;  // the block row x: erow[x] <= e < erow[x + 1]
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (erow[mid] <= e) lo = mid; else hi = mid - 1;
+  }
+  const int x = lo, w6 = 6 * (x - fb[x]);
+  int rest = e - erow[x], a = 0;
+  while (rest >= w6 + a + 1) {  // row a holds w6 + a + 1 entries
+    rest -= w6 + a + 1;
+    ++a;
+  }
+  i = 6 * x + a;
+  j = 6 * fb[x] + rest;
+}
+
+// H's envelope entries and grad from the factors of one pass (ends, offs,
+// J, r: m factors), each entry summed by one thread from the factors that
+// touch its block row (ioff, inc: built here), in the pass's order, each
+// factor's blocks (x, y) in the plain version's order (i, i), (j, j),
+// (i, j), (j, i); first: the entries start from 0.  Ends with a barrier.
+template <int NT>
+__device__ void sum_pass(float* A, int ld, float* grad, int n,
+                         const int* fb, const int* erow, const int* ends,
+                         const int* offs, const float* J, const float* r,
+                         int m, bool first, int* ioff, int* inc) {
+  const int n_env = erow[n], D = 6 * n, tid = threadIdx.x;
+  for (int x = tid; x < n; x += NT) {
+    int cnt = 0;
+    for (int fi = 0; fi < m; ++fi) {
+      const int ep = ends[fi];
+      cnt += (ep & 255) == x || ((ep >> 8) & 255) == x;
+    }
+    ioff[x + 1] = cnt;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    ioff[0] = 0;
+    for (int x = 0; x < n; ++x) ioff[x + 1] += ioff[x];
+  }
+  __syncthreads();
+  for (int x = tid; x < n; x += NT) {
+    int at = ioff[x];
+    for (int fi = 0; fi < m; ++fi) {
+      const int ep = ends[fi];
+      if ((ep & 255) == x || ((ep >> 8) & 255) == x) inc[at++] = fi;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < n_env + D; e += NT) {
+    if (e < n_env) {
+      int i, j;
+      envelope_entry(erow, fb, n, e, i, j);
+      const int x = i / 6, a = i % 6, y = j / 6, c = j % 6;
+      float h = first ? 0.0f : A[i * ld + j];
+      for (int t = ioff[x]; t < ioff[x + 1]; ++t) {
+        const int fi = inc[t], ep = ends[fi], kind = ep >> 16;
+        const int ri = ep & 255, rj = (ep >> 8) & 255;
+        if (ri != y && rj != y) continue;
+        const float* Jf = J + (offs[fi] & 0xffff);
+        const int no = n_out(kind), nc = n_col(kind);
+        for (int k = 0; k < (kind == 1 ? 4 : 1); ++k) {
+          const int ca = (k == 1 || k == 3) ? 6 : 0;  // x's columns
+          const int cb = (k == 1 || k == 2) ? 6 : 0;  // y's columns
+          if ((ca ? rj : ri) != x || (cb ? rj : ri) != y) continue;
+          float hh = 0.0f;
+          for (int o = 0; o < no; ++o)
+            hh += Jf[o * nc + ca + a] * Jf[o * nc + cb + c];
+          h = h + hh;
+        }
+      }
+      A[i * ld + j] = h;
+    } else {
+      const int g = e - n_env, x = g / 6, a = g % 6;
+      float v = first ? 0.0f : grad[g];
+      for (int t = ioff[x]; t < ioff[x + 1]; ++t) {
+        const int fi = inc[t], ep = ends[fi], kind = ep >> 16;
+        const int ri = ep & 255, rj = (ep >> 8) & 255;
+        const float* Jf = J + (offs[fi] & 0xffff);
+        const float* rf = r + (offs[fi] >> 16);
+        const int no = n_out(kind), nc = n_col(kind);
+        for (int k = 0; k < (kind == 1 ? 2 : 1); ++k) {
+          if ((k ? rj : ri) != x) continue;
+          float gg = 0.0f;
+          for (int o = 0; o < no; ++o) gg += Jf[o * nc + 6 * k + a] * rf[o];
+          v = v + gg;
+        }
+      }
+      grad[g] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// H's envelope and grad at poses P, from 0: the unmasked factors window by
+// window (NT concatenated indices), each window's in passes of at most
+// kMaxCols Jacobian columns (one thread a column), each pass summed into
+// the entries by sum_pass.  Ends with a barrier.
+template <int NT>
+__device__ void assemble_envelope(const Factors& f, const float* P, float* A,
+                                  int ld, float* grad, int n, const int* fb,
+                                  const int* erow, int* sw, LmProf& prof) {
+  int* list = sw + Scratch::kList;
+  int* ends = sw + Scratch::kEnds;
+  int* offs = sw + Scratch::kOffs;
+  float* J = reinterpret_cast<float*>(sw + Scratch::kJ);
+  float* r = reinterpret_cast<float*>(sw + Scratch::kR);
+  const int tid = threadIdx.x;
+  bool first = true;
+  for (int base = 0; base < f.Fp + f.Fb + f.Fg; base += NT) {
+    const Window w = compact_window<NT>(f, base, list, sw + Scratch::kWcnt);
+    for (int i0 = 0; i0 < w.total;) {
+      int i1 = i0 + 1;
+      while (i1 < w.total && w.cols(i1 + 1) - w.cols(i0) <= kMaxCols) ++i1;
+      const int c = w.cols(i0) + tid;
+      if (c < w.cols(i1)) {
+        // the list position i of column c, and the column within its factor
+        int i, col;
+        if (c < 6 * w.np) {
+          i = c / 6;
+          col = c % 6;
+        } else if (c < 6 * w.np + 12 * w.nb) {
+          i = w.np + (c - 6 * w.np) / 12;
+          col = (c - 6 * w.np) % 12;
+        } else {
+          i = w.np + w.nb + (c - 6 * w.np - 12 * w.nb) / 6;
+          col = (c - 6 * w.np - 12 * w.nb) % 6;
+        }
+        const int kind = kind_of(f, list[i]), s = slot_of(f, list[i]);
+        const int no = n_out(kind), nc = n_col(kind);
+        const int jo = w.jfloats(i) - w.jfloats(i0);
+        const int ro = w.rfloats(i) - w.rfloats(i0);
+        Dual res[6];
+        factor_res<Dual>(f, kind, s, P, col, res);
+        for (int o = 0; o < no; ++o) J[jo + o * nc + col] = res[o].t;
+        if (col == 0) {
+          for (int o = 0; o < no; ++o) r[ro + o] = res[o].v;
+          ends[i - i0] = end_i(f, kind, s) | end_j(f, kind, s) << 8
+                         | kind << 16;
+          offs[i - i0] = jo | ro << 16;
+        }
+      }
+      __syncthreads();
+      prof.stamp(7);
+      sum_pass<NT>(A, ld, grad, n, fb, erow, ends, offs, J, r, i1 - i0,
+                   first, sw + Scratch::kIoff, sw + Scratch::kInc);
+      first = false;
+      i0 = i1;
+    }
+  }
+  if (first)  // no unmasked factor: H and grad are 0
+    sum_pass<NT>(A, ld, grad, n, fb, erow, ends, offs, J, r, 0, true,
+                 sw + Scratch::kIoff, sw + Scratch::kInc);
+}
+
+// d = sqrt(max(diag H, 1e-12)) + pin; A = H / (d d^T) + diag(lam + pin) on
+// the envelope; b = -grad / d (graph/pose_graph.py::_lm_solve_step's
+// scaling, entry by entry as there); clears the failure flag.  Ends with a
+// barrier.
+template <int NT>
+__device__ void scale_damp_envelope(float* A, int ld, int n, const int* fb,
+                                    const int* erow, const float* grad,
+                                    const float* pin, float lam, float* d,
+                                    float* b, int* flag) {
+  const int D = 6 * n, tid = threadIdx.x;
+  for (int i = tid; i < D; i += NT)
+    d[i] = sqrtf(clamp_min_nan(A[i * ld + i], 1e-12f)) + pin[i];
+  if (tid == 0) *flag = 0;
+  __syncthreads();
+  for (int i = tid; i < D; i += NT) b[i] = divide(-grad[i], d[i]);
+  for (int e = tid; e < erow[n]; e += NT) {
+    int i, j;
+    envelope_entry(erow, fb, n, e, i, j);
+    float v = divide(A[i * ld + j], d[i] * d[j]);
+    if (j == i) v = v + (lam + pin[i]);
+    A[i * ld + j] = v;
+  }
+  __syncthreads();
+}
+
+// idx -> (u, w), w <= u: the idx-th entry of a lower triangle, row by row
+__device__ __forceinline__ void tri_entry(int idx, int& u, int& w) {
+  u = static_cast<int>((sqrtf(8.0f * idx + 1.0f) - 1.0f) * 0.5f);
+  while (u * (u + 1) / 2 > idx) --u;
+  while ((u + 1) * (u + 2) / 2 <= idx) ++u;
+  w = idx - u * (u + 1) / 2;
+}
+
+// The rows of the blocks in mask, ascending, into rl (threads t0, t0 +
+// stride, ...)
+__device__ __forceinline__ void block_rows(unsigned long long mask, int* rl,
+                                           int t0, int stride) {
+  for (int p = t0; p < 64; p += stride)
+    if ((mask >> p) & 1ull) {
+      const int at = 6 * __popcll(mask & ((1ull << p) - 1ull));
+      for (int i = 0; i < 6; ++i) rl[at + i] = 6 * p + i;
+    }
+}
+
+// Block column q of the envelope Cholesky, with b's forward solve, on the
+// whole CTA (a wide one: more than kWarpBlocks later blocks, rl's cnt):
+// warp 0 factors the diagonal block, lanes 0-5 a row (as block_step_warp);
+// then a thread a row of rl's blocks takes the row's six entries of the
+// block column (L_rj, j in order: the earlier columns' subtractions, then
+// the division) and its entry of b; then the block column's rank-6 update
+// of rl's rows, a row a warp, the lanes over its entries, each entry's six
+// subtractions in column order.  So every entry's subtractions run in the
+// dense column steps' order.  pan: 8 floats a row of rl (its L_r0..5),
+// then the diagonal block's L (kPanRows + 0..35) and y (+ 36..41).  Every
+// thread calls it; false (in every thread) if a pivot is not > 0.
+template <int NT>
+__device__ bool block_step_cta(float* A, int ld, float* b, float* pan,
+                               const int* rl, int q, int cnt, int* flag) {
+  const unsigned kAll = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31, c0 = 6 * q, m = 6 * cnt;
+  float* Ld = pan + kPanRows;
+  float* Yd = Ld + 36;
+  if (tid < 32) {
+    const int i = lane < 6 ? lane : 0;  // lanes 6-31 on a copy of row 0
+    float a[6], bi = b[c0 + i];
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      a[c] = c <= i ? A[(c0 + i) * ld + c0 + c] : 0.0f;
+    bool ok = true;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const float p = __shfl_sync(kAll, a[j], j);
+      ok = ok && p > 0.0f;
+      const float l = sqrtf(p);
+      const float v = divide(lane == j ? bi : a[j], l);
+      const float y = __shfl_sync(kAll, v, j);
+      a[j] = lane == j ? l : v;  // lanes < j: above the diagonal, unread
+      bi = lane == j ? y : lane > j ? bi - a[j] * y : bi;
+#pragma unroll
+      for (int c = j + 1; c < 6; ++c) {
+        const float lc = __shfl_sync(kAll, a[j], c);
+        a[c] = a[c] - a[j] * lc;  // lanes < c: unread
+      }
+    }
+    if (!ok) {
+      if (lane == 0) *flag = 1;
+    } else if (lane < 6) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        if (c <= lane) A[(c0 + lane) * ld + c0 + c] = a[c];
+        Ld[lane * 6 + c] = a[c];
+      }
+      b[c0 + lane] = bi;
+      Yd[lane] = bi;
+    }
+  }
+  __syncthreads();
+  if (*flag) return false;
+  for (int t = tid; t < m; t += NT) {
+    const int r = rl[t];
+    float a[6], bi = b[r];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) a[c] = A[r * ld + c0 + c];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      a[j] = divide(a[j], Ld[j * 6 + j]);
+      bi = bi - a[j] * Yd[j];
+#pragma unroll
+      for (int c = j + 1; c < 6; ++c) a[c] = a[c] - a[j] * Ld[c * 6 + j];
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      A[r * ld + c0 + c] = a[c];
+      pan[8 * t + c] = a[c];
+    }
+    b[r] = bi;
+  }
+  __syncthreads();
+  // the rank-6 update: lane takes the entries (u, w = lane + 32 i), their
+  // rows in registers once a block; a row's loads issue before its stores
+  int rw[kSegs];
+#pragma unroll
+  for (int i = 0; i < kSegs; ++i) {
+    const int w = lane + 32 * i;
+    rw[i] = w < m ? rl[w] : 0;
+  }
+  for (int u = tid >> 5; u < m; u += NT / 32) {
+    float lu[6];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) lu[j] = pan[8 * u + j];
+    float* Ar = A + rl[u] * ld;
+    float v[kSegs];
+#pragma unroll
+    for (int i = 0; i < kSegs; ++i)
+      if (lane + 32 * i <= u) v[i] = Ar[rw[i]];
+#pragma unroll
+    for (int i = 0; i < kSegs; ++i)
+      if (lane + 32 * i <= u) {
+        const float* lw = pan + 8 * (lane + 32 * i);
+        float s = v[i];
+#pragma unroll
+        for (int j = 0; j < 6; ++j) s = s - lu[j] * lw[j];
+        Ar[rw[i]] = s;
+      }
+  }
+  __syncthreads();
+  return true;
+}
+
+// Block column q of the envelope Cholesky, with b's forward solve, on warp
+// 0 (a narrow one: cnt <= kWarpBlocks): lane t < 6 + 6 cnt keeps row R[t]
+// (block q's 6 rows, then rl's) of the block column and its entry of b in
+// registers.  Column j's pivot and L_cj are shuffled from their lanes and
+// each row is updated by its own lane; then each entry (R[u], R[w]) of
+// rl's rows, u >= w, takes its 6 subtractions on one lane.  Every lane
+// calls it; false if a pivot is not > 0.  tri: the (u, w) of each entry of
+// a lower triangle of up to 6 kWarpBlocks rows, row by row (u | w << 8).
+__device__ bool block_step_warp(float* A, int ld, float* b, const int* rl,
+                                const unsigned short* tri, int q, int cnt) {
+  const unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31, m = 6 + 6 * cnt, c0 = 6 * q;
+  const bool own = lane < m;
+  const int r = lane < 6 ? c0 + lane : own ? rl[lane - 6] : c0;
+  float a[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+    a[c] = own && (lane >= 6 || c <= lane) ? A[r * ld + c0 + c] : 0.0f;
+  float bi = own ? b[r] : 0.0f;
+  bool ok = true;  // no exit inside the loop: it stays unrolled
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const float p = __shfl_sync(kAll, a[j], j);
+    ok = ok && p > 0.0f;
+    const float l = sqrtf(p);
+    // one division a lane: lane j's y_j = b_j / l, the others' L_ij
+    const float v = divide(lane == j ? bi : a[j], l);
+    const float y = __shfl_sync(kAll, v, j);
+    a[j] = lane == j ? l : v;  // lanes < j: above the diagonal, unread
+    bi = lane == j ? y : lane > j ? bi - a[j] * y : bi;
+#pragma unroll
+    for (int c = j + 1; c < 6; ++c) {
+      const float lc = __shfl_sync(kAll, a[j], c);
+      a[c] = a[c] - a[j] * lc;  // lanes < c: unread
+    }
+  }
+  if (!ok) return false;
+  if (own) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      if (lane >= 6 || c <= lane) A[r * ld + c0 + c] = a[c];
+    b[r] = bi;
+  }
+  const int pairs = 3 * cnt * (6 * cnt + 1);  // (6 cnt)(6 cnt + 1) / 2
+  for (int e0 = 0; e0 < pairs; e0 += 32) {
+    const int uw = e0 + lane < pairs ? tri[e0 + lane] : 0;
+    const int u = uw & 255, w = uw >> 8;
+    const int ru = __shfl_sync(kAll, r, 6 + u);
+    const int rw = __shfl_sync(kAll, r, 6 + w);
+    float s = e0 + lane < pairs ? A[ru * ld + rw] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      s = s - __shfl_sync(kAll, a[k], 6 + u) * __shfl_sync(kAll, a[k], 6 + w);
+    if (e0 + lane < pairs) A[ru * ld + rw] = s;
+  }
+  __syncwarp();
+  return true;
+}
+
+// The envelope Cholesky A = L L^T in place with L y = b (b <- y): block
+// column by block column, a narrow one on warp 0, a wide one on the CTA.
+// Every thread calls it; returns whether it failed (in every thread).
+// Ends with a barrier.
+template <int NT>
+__device__ bool envelope_cholesky(float* A, int ld, int n,
+                                  const unsigned long long* colmask,
+                                  const unsigned short* tri, float* b,
+                                  float* pan, int* rl, int* flag) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  bool failed = false;
+  for (int q = 0; q < n; ++q) {
+    const unsigned long long mask = colmask[q];
+    const int cnt = __popcll(mask);
+    if (cnt > kWarpBlocks) {
+      __syncthreads();  // warp 0's columns are in place; rl is free
+      if (*flag) continue;
+      block_rows(mask, rl, tid, NT);
+      __syncthreads();
+      failed = !block_step_cta<NT>(A, ld, b, pan, rl, q, cnt, flag);
+    } else if (warp == 0 && !failed) {
+      block_rows(mask, rl, lane, 32);
+      __syncwarp();
+      failed = !block_step_warp(A, ld, b, rl, tri, q, cnt);
+      if (failed && lane == 0) *flag = 1;
+    }
+  }
+  __syncthreads();
+  return *flag != 0;
+}
+
+// L^T x = y (b <- x) over the envelope, on warp 0 (every lane calls it),
+// block row by block row from the last: lanes 0-5 solve the block's
+// diagonal block (x_j shuffled from its lane), then the lanes subtract L_qj
+// x_j from the envelope's earlier entries of b, j from the last.
+__device__ void backward_solve_warp(const float* A, int ld, int n,
+                                    const int* fb, float* b) {
+  const int lane = threadIdx.x & 31;
+  for (int q = n - 1; q >= 0; --q) {
+    const int c0 = 6 * q;
+    float bv = lane < 6 ? b[c0 + lane] : 0.0f, x[6], mine = 0.0f;
+#pragma unroll
+    for (int j = 5; j >= 0; --j) {
+      x[j] = divide(__shfl_sync(0xffffffffu, bv, j),
+                    A[(c0 + j) * ld + c0 + j]);
+      if (lane == j) mine = x[j];
+      if (lane < j) bv = bv - A[(c0 + j) * ld + c0 + lane] * x[j];
+    }
+    if (lane < 6) b[c0 + lane] = mine;
+    for (int i = 6 * fb[q] + lane; i < c0; i += 32) {
+      float v = b[i];
+#pragma unroll
+      for (int j = 5; j >= 0; --j) v = v - A[(c0 + j) * ld + i] * x[j];
+      b[i] = v;
+    }
+    __syncwarp();
+  }
+}
 
 __global__ void __launch_bounds__(kThreads, 1) pose_graph_lm_kernel(
     LmArgs a) {
-  extern __shared__ float smem[];
-  const int D = 6 * a.n, ld = D + 1, tid = threadIdx.x;
+  extern __shared__ __align__(16) float smem[];
+  const int n = a.n, D = 6 * n, ld = D + 1, tid = threadIdx.x;
   float* A = smem;
   float* grad = A + D * ld;
   float* d = grad + D;
@@ -276,33 +839,72 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_lm_kernel(
   float* pin = b + D;
   float* P = pin + D;
   float* Pn = P + D;
-  float* col = Pn + D;
-  float* scratch = col + D;
-  float* red = scratch + AsmScratch<kThreads>::kFloats;
+  int* sw = reinterpret_cast<int*>(Pn + D);  // 8-byte aligned: D(D+1) even
+  auto* colmask = reinterpret_cast<unsigned long long*>(sw + Scratch::kMask);
+  int* fb = sw + Scratch::kFb;
+  int* erow = sw + Scratch::kErow;
+  int* flag = sw + Scratch::kFlag;
+  float* red = reinterpret_cast<float*>(sw + Scratch::kRed);
+  float* pan = reinterpret_cast<float*>(sw + Scratch::kJ);
+  int* rl = sw + Scratch::kJ + kPanel;
+  auto* tri = reinterpret_cast<unsigned short*>(sw + Scratch::kTri);
+  LmProf prof;
+  prof.start();
 
   for (int e = tid; e < D; e += kThreads) {
     const int64_t k = a.live_idx[e / 6];
     P[e] = a.poses[k * 6 + e % 6];
     pin[e] = a.pose_mask[k] ? 0.0f : 1.0f;
   }
+  // the envelope: every unmasked between factor lowers its later pose's
+  // first block to its earlier pose
+  for (int x = tid; x < n; x += kThreads) fb[x] = x;
+  for (int e = tid; e < kTriPairs; e += kThreads) {
+    int u, w;
+    tri_entry(e, u, w);
+    tri[e] = static_cast<unsigned short>(u | w << 8);
+  }
+  __syncthreads();
+  for (int s = tid; s < a.f.Fb; s += kThreads)
+    if (unmasked(a.f, 1, s)) {
+      const int i = end_i(a.f, 1, s), j = end_j(a.f, 1, s);
+      atomicMin(&fb[max(i, j)], min(i, j));
+    }
+  __syncthreads();
+  for (int q = tid; q < n; q += kThreads) {
+    unsigned long long mask = 0ull;
+    for (int p = q + 1; p < n; ++p)
+      if (fb[p] <= q) mask |= 1ull << p;
+    colmask[q] = mask;
+  }
+  if (tid == 0) {
+    erow[0] = 0;
+    for (int x = 0; x < n; ++x) erow[x + 1] = erow[x] + 36 * (x - fb[x]) + 21;
+  }
   __syncthreads();
   float cost = total_cost<kThreads>(a.f, P, red);
   float lam = 1e-4f;
+  prof.stamp(0);
   for (int it = 0; it < a.iterations; ++it) {
-    for (int e = tid; e < D * ld; e += kThreads) A[e] = 0.0f;
-    for (int e = tid; e < D; e += kThreads) grad[e] = 0.0f;
-    __syncthreads();
-    assemble<kThreads>(a.f, P, A, ld, grad, -1, scratch);
-    lm_scale_damp<kThreads>(A, ld, D, grad, pin, lam, d, b);
-    const bool failed = cholesky_lower<kThreads>(A, ld, D, col);
+    assemble_envelope<kThreads>(a.f, P, A, ld, grad, n, fb, erow, sw, prof);
+    prof.stamp(1);
+    scale_damp_envelope<kThreads>(A, ld, n, fb, erow, grad, pin, lam, d, b,
+                                  flag);
+    prof.stamp(2);
+    const bool failed = envelope_cholesky<kThreads>(A, ld, n, colmask, tri,
+                                                    b, pan, rl, flag);
+    prof.stamp(3);
     bool accept = false;
     float new_cost = 0.0f;
     if (!failed) {
-      if (tid < 32) chol_solve_warp(A, ld, D, b);
+      if (tid < 32) backward_solve_warp(A, ld, n, fb, b);
       __syncthreads();
       for (int e = tid; e < D; e += kThreads)
-        Pn[e] = P[e] + (pin[e] == 0.0f ? b[e] / d[e] : 0.0f);
+        Pn[e] = P[e] + (pin[e] == 0.0f ? divide(b[e], d[e]) : 0.0f);
       __syncthreads();
+    }
+    prof.stamp(4);
+    if (!failed) {
       new_cost = total_cost<kThreads>(a.f, Pn, red);
       accept = new_cost < cost;
     }
@@ -313,12 +915,15 @@ __global__ void __launch_bounds__(kThreads, 1) pose_graph_lm_kernel(
     lam = lm_next_lambda(lam, accept);
     if (tid == 0) a.accepts[it] = accept;
     __syncthreads();
+    prof.stamp(5);
   }
   for (int e = tid; e < a.K * 6; e += kThreads) {
     const int r = a.rowmap[e / 6];
     a.out_poses[e] = r >= 0 ? P[r * 6 + e % 6] : a.poses[e];
   }
   if (tid == 0) *a.out_cost = cost;
+  prof.stamp(6);
+  prof.finish(a.iterations);
 }
 
 struct AsmArgs {
@@ -457,6 +1062,15 @@ extern "C" int fbpr_pose_graph_lm(const float* poses,
                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef FBPR_LM_PROFILE
+// The diagnostic build's stage sums (dense_lm.cuh's g_lm_prof, 12
+// values) into out; reset != 0 zeroes them after.  Synchronous.
+extern "C" int fbpr_pose_graph_lm_profile(unsigned long long* out,
+                                          int reset) {
+  return lm_profile_read(out, reset);
+}
+#endif
 
 extern "C" int fbpr_pose_graph_assemble(const float* poses,
                                         FBPR_FACTOR_PARAMS, int n, float* H,

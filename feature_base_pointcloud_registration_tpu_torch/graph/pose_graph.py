@@ -327,6 +327,23 @@ def live_subgraph(g: PoseGraphData, ls: LiveSet) -> PoseGraphData:
                       prior_idx=r[0], btw_i=r[1], btw_j=r[2], gps_idx=r[3])
 
 
+def envelope_starts(g: PoseGraphData, ls: LiveSet) -> torch.Tensor:
+    """The plain version of route A's envelope (csrc/pose_graph_lm.cu's
+    prologue): i32 [n], for each live pose x the lowest live pose that an
+    unmasked between factor couples it to, x itself if none.  H's block
+    row x, and the Cholesky factor's, are 0.0 left of block column
+    envelope_starts[x]."""
+    Fp, Fb = g.prior_idx.shape[0], g.btw_i.shape[0]
+    ri = ls.rows[Fp:Fp + Fb].long()
+    rj = ls.rows[Fp + Fb:Fp + 2 * Fb].long()
+    hi = torch.where(g.btw_mask, torch.maximum(ri, rj), 0)
+    lo = torch.where(g.btw_mask, torch.minimum(ri, rj), 0)
+    fb = torch.arange(ls.n, dtype=torch.int64, device=g.poses.device)
+    if ls.n:
+        fb = fb.scatter_reduce(0, hi, lo, reduce="amin")
+    return fb.to(torch.int32)
+
+
 def _check_graph(g: PoseGraphData):
     K = g.pose_mask.shape[0]
     want = {"poses": ((K, 6), torch.float32),

@@ -126,9 +126,15 @@ _SIGNATURES = {
     # poses, K, *_FACTORS, r_p, J_p, r_b, J_bi, J_bj, r_g, J_g, stream
     "fbpr_pose_graph_blocks": [_P, _I, *_FACTORS, _P, _P, _P, _P, _P, _P, _P,
                                _P],
+    # out (uint64 [12]), reset: pose_graph_lm.cu's clock64 stage sums,
+    # defined only by its diagnostic build (-DFBPR_LM_PROFILE)
+    "fbpr_pose_graph_lm_profile": [_P, _I],
     # *_CHAIN, iterations, scratch, scratch floats, out_states, out_cost,
     # accepts, stream
     "fbpr_imu_chain_lm": [*_CHAIN, _I, _P, _L, _P, _P, _P, _P],
+    # out (uint64 [12]), reset: imu_chain_lm.cu's clock64 stage sums,
+    # defined only by its diagnostic build (-DFBPR_LM_PROFILE)
+    "fbpr_imu_chain_lm_profile": [_P, _I],
     # *_CHAIN, states, r_imu, Ji, Jj, r_b, Jbi, Jbj, r_pp, Jpp, r_0, J_0,
     # stream
     "fbpr_imu_chain_blocks": [*_CHAIN, _P, *[_P] * 10, _P],
@@ -151,7 +157,8 @@ _SIGNATURES = {
 }
 
 # entry points that only a diagnostic build of a source defines
-_DIAGNOSTIC = {"fbpr_rounds_gn_profile", "fbpr_ring_pick_profile"}
+_DIAGNOSTIC = {"fbpr_rounds_gn_profile", "fbpr_ring_pick_profile",
+               "fbpr_pose_graph_lm_profile", "fbpr_imu_chain_lm_profile"}
 
 
 def _nvcc() -> str:
@@ -166,9 +173,9 @@ def _nvcc() -> str:
 
 
 def _local_includes(src: Path) -> list:
-    """The `csrc/` headers a source includes with `#include "..."` (the
-    headers include none of their own)."""
-    return [CSRC / name for name in re.findall(
+    """The headers beside a source that it includes with `#include
+    "..."` (the headers include none of their own)."""
+    return [src.parent / name for name in re.findall(
         r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M)]
 
 
@@ -423,14 +430,17 @@ def _factor_args(g, ends):
             g.prior_idx.shape[0], g.btw_i.shape[0], g.gps_idx.shape[0])
 
 
-def launch_pose_graph_lm(g, ls, iterations, out_poses, out_cost, accepts):
+def launch_pose_graph_lm(g, ls, iterations, out_poses, out_cost, accepts,
+                         lib: SimpleNamespace | None = None):
     """csrc/pose_graph_lm.cu route A on a validated graph (see
     graph/pose_graph.py) and its live set: writes out_poses [K, 6],
-    out_cost [] and accepts [iterations] (int32)."""
+    out_cost [] and accepts [iterations] (int32).  lib: another build of
+    the same entry point (`load`), for comparisons of kernel versions; by
+    default the shipped one."""
     if not 0 < ls.n <= POSE_GRAPH_LM_MAX_LIVE:
         raise ValueError(f"{ls.n} live poses: route A takes 1 to "
                          f"{POSE_GRAPH_LM_MAX_LIVE}")
-    lib = library()
+    lib = lib or library()
     with torch.cuda.device(g.poses.device):
         rc = lib.fbpr_pose_graph_lm(
             g.poses.data_ptr(), g.pose_mask.data_ptr(), ls.idx.data_ptr(),
@@ -502,16 +512,18 @@ def _chain_args(d):
 
 
 def launch_imu_chain_lm(d, iterations, out_states, out_cost, accepts,
-                        scratch):
+                        scratch, lib: SimpleNamespace | None = None):
     """csrc/imu_chain_lm.cu on a validated chain (see graph/imu_graph.py):
     writes out_states [K, 15], out_cost [] and accepts [iterations]
     (int32).  scratch: imu_chain_floats(K) float32 of global memory, the
-    solve's working set."""
+    solve's working set.  lib: another build of the same entry point
+    (`load`), for comparisons of kernel versions; by default the shipped
+    one."""
     K = d.states.shape[0]
     if scratch is None or scratch.numel() < imu_chain_floats(K):
         raise ValueError(f"K={K}: the chain LM needs {imu_chain_floats(K)} "
                          f"floats of scratch")
-    lib = library()
+    lib = lib or library()
     with torch.cuda.device(d.states.device):
         rc = lib.fbpr_imu_chain_lm(
             *_chain_args(d), iterations, scratch.data_ptr(), scratch.numel(),

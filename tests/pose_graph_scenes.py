@@ -21,6 +21,16 @@ slots) and "slots512" (its full graph: K 512, one prior, 576 between and
                     entries)
   gimbal(...)       the chain with pose 5 at pitch pi/2: the between
                     factors' Jacobians are not finite
+  loops(n, pairs)   the chain with more betweens (true relative poses)
+                    between the given poses, and the poses `inactive`
+                    masked: loop closures that widen the rows of the
+                    Cholesky's envelope, an inactive pose pinned
+  star(n)           the chain with a between from pose 0 to every pose:
+                    every row's envelope starts at pose 0
+  gimbal_loop(...)  the chain with its loop closure and pose 2 at pitch
+                    pi/2: H is not finite in the rows of poses 1-3, and
+                    the dense Cholesky would carry NaN (0 x inf) into the
+                    later rows left of their envelope
 """
 
 import numpy as np
@@ -185,6 +195,43 @@ def gimbal(shape="window", device="cpu"):
     poses[4, :2] = 0.0
     poses[5, :3] = torch.tensor([0.0, np.float32(np.pi / 2),
                                  float(poses[4, 2])])
+    return g._replace(poses=poses.to(device),
+                      **{k: v.to(device) for k, v in g._asdict().items()
+                         if k != "poses"})
+
+
+def loops(n, pairs, shape="window", inactive=(), seed=0, device="cpu"):
+    """(graph, ground truth): chain(shape, n) with a between factor at the
+    true relative pose for each (i, j) of pairs, and the poses in inactive
+    masked (still endpoints of their factors: live and pinned)."""
+    g, gt = chain(shape, n=n, seed=seed)
+    r = np.random.RandomState(seed + 1)
+    btw = [(k - 1, k, rel_pose(gt[k - 1], gt[k]), BTW_SIGMA)
+           for k in range(1, n)]
+    btw += [(i, j, rel_pose(gt[i], gt[j]), BTW_SIGMA) for i, j in pairs]
+    init = g.poses.numpy()[:n].copy()
+    init[1:] += r.normal(0, 0.01, (n - 1, 6)).astype(F32)
+    mask = np.ones(n, bool)
+    mask[list(inactive)] = False
+    return graph(shape, init, mask, (0, gt[0], np.full(6, 1e-2, F32)), btw,
+                 (), device), gt
+
+
+def star(n, seed=2, device="cpu"):
+    """(graph, ground truth): n poses in 512 slots, the chain and a
+    between from pose 0 to every pose from 2 on."""
+    return loops(n, [(0, k) for k in range(2, n)], "slots512", seed=seed,
+                 device=device)
+
+
+def gimbal_loop(device="cpu"):
+    """chain("window", loop=True) with pose 2 at pitch pi/2: asin's
+    derivative in the between factors (1, 2) and (2, 3) is infinite."""
+    g, _ = chain("window", loop=True, noise=0.05, device="cpu")
+    poses = g.poses.clone()
+    poses[1, :2] = 0.0
+    poses[2, :3] = torch.tensor([0.0, np.float32(np.pi / 2),
+                                 float(poses[1, 2])])
     return g._replace(poses=poses.to(device),
                       **{k: v.to(device) for k, v in g._asdict().items()
                          if k != "poses"})

@@ -281,3 +281,90 @@ def test_dispatch_rejects_what_it_cannot_run():
         tp._samples(*ics.buffer("cap64")[:2], ics.buffer("cap64")[2][:5])
     with pytest.raises(ValueError, match="mask"):
         tp._device_mask(np.ones(5, bool), 6, torch.device("cpu"))
+
+
+def _first_step(d, lam=1e-4):
+    """The scaled, damped matrix and right-hand side of the chain LM's
+    first step (`optimize_imu_chain_reference`'s), float32 numpy."""
+    L = tg._whitener(d)
+    H, grad = tg._assemble(d, d.states, L)
+    pin = torch.where(d.state_mask.repeat_interleave(tg.STATE_DIM), 0.0,
+                      1.0)
+    dg = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12)) + pin
+    A = H / (dg[:, None] * dg[None, :]) + torch.diag(lam + pin)
+    return A.numpy(), (-grad / dg).numpy()
+
+
+def _chain_factor(A, b, S=15):
+    """csrc/imu_chain_lm.cu's chain_factor (the forward solve inside) and
+    chain_backward_warp, transcribed: block k's step factors the panel
+    [A_kk; A_k+1,k] column by column (each row's entries, b's too, updated
+    in column order), then the Schur update of A_k+1,k+1, each entry's 15
+    subtractions in column order; the backward solve over the band.  (A
+    with L in its band, x, failed)."""
+    A, b = A.copy(), b.copy()
+    D = len(A)
+    for lo in range(0, D, S):
+        hi = lo + S
+        for c in range(lo, hi):
+            p = A[c, c]
+            if not p > 0:
+                return A, None, True
+            rows = np.arange(c + 1, min(hi + S, D))
+            l = np.sqrt(p)
+            y = b[c] / l
+            col = A[rows, c] / l
+            A[rows, c] = col
+            A[c, c] = l
+            b[c] = y
+            b[rows] = b[rows] - col * y
+            for u, r in enumerate(rows):
+                cols = np.arange(c + 1, min(r, hi - 1) + 1)
+                A[r, cols] = A[r, cols] - col[u] * A[cols, c]
+        for i in range(hi, min(hi + S, D)):
+            for j in range(hi, i + 1):
+                v = A[i, j]
+                for c in range(lo, hi):
+                    v = v - A[i, c] * A[j, c]
+                A[i, j] = v
+    for k in range(D - 1, -1, -1):
+        x = b[k] / A[k, k]
+        b[k] = x
+        lo = max(S * (k // S - 1), 0)
+        b[lo:k] = b[lo:k] - A[k, lo:k] * x
+    return A, b, False
+
+
+def _band(D, S=15):
+    i = np.arange(D)[:, None]
+    j = np.arange(D)[None, :]
+    return (j <= i) & (j >= S * np.maximum(i // S - 1, 0))
+
+
+@pytest.mark.parametrize("name", ["full", "reset", "interior_masked", "k1",
+                                  "pitch_half_pi"])
+def test_chain_block_factor_is_the_dense_one_bitwise(name):
+    """The chain kernel's block steps (a panel a block, then the Schur
+    update) give the dense right-looking Cholesky's bits: L in the band,
+    exact zeros outside it, and the step."""
+    from test_torch_pose_graph_lm import _dense_factor
+    A, b = _first_step(ics.scene(name))
+    Ad, xd, fd = _dense_factor(A, b)
+    Ac, xc, fc = _chain_factor(A, b)
+    assert not fd and not fc
+    band = _band(len(A))
+    np.testing.assert_array_equal(Ac[band], Ad[band])
+    assert np.all(Ad[np.tril(np.ones_like(band)) & ~band] == 0.0)
+    np.testing.assert_array_equal(xc, xd)
+    assert np.all(np.isfinite(xc))
+
+
+@pytest.mark.parametrize("name", ["nan_cov", "near_pi_axis"])
+def test_chain_block_factor_fails_as_the_dense_one(name):
+    """A non-finite H (every step rejected, in the GPU tests): the block
+    steps fail as the dense factorization does."""
+    from test_torch_pose_graph_lm import _dense_factor
+    A, b = _first_step(ics.scene(name))
+    assert not np.all(np.isfinite(A))
+    with np.errstate(all="ignore"):
+        assert _dense_factor(A, b)[2] and _chain_factor(A, b)[2]

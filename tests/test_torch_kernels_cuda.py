@@ -57,11 +57,18 @@ float32 Cholesky on the card against cuSOLVER's); route B at the cap + 1
 and at 200 live poses the same, with no host sync inside its iterations;
 the factor blocks (`graph_factor_blocks`) with NaN in the same places and
 every other entry within 1e-5; gimbal lock and a non-finite H rejected
-with the poses bitwise unchanged; route B rejecting a factorization
-reported failed; two launches bitwise equal.  The IMU odometry's kernels
+with the poses bitwise unchanged, also where the non-finite rows sit
+early in a chain with a loop closure (the dense update would carry NaN
+left of the later rows' envelope); route A's envelope on a loop spanning
+the window, several loops, 38 live poses with every row's envelope from
+pose 0 (the factorization's wide columns on the whole CTA) and a masked
+interior pose (left where it was), one launch and one host sync each;
+route B rejecting a factorization reported failed; two launches bitwise
+equal.  The IMU odometry's kernels
 (csrc/imu_chain_lm.cu, csrc/preintegration.cu) against their plain
 versions on the card (tests/imu_chain_scenes.py): the chain LM on every
-scene (K 16 windows, K 1, K 100), in one launch with no host sync, states
+scene (K 16 windows, K 1, K 100) and the full window at K 1, 48 and
+100, in one launch with no host sync, states
 within 1e-4 with NaN in the same places, the cost that of the states it
 comes with (1e-4 relative) and within 1e-3 relative of the plain
 version's (or NaN in both: states 1e-5 apart move a cost of residuals
@@ -1603,6 +1610,43 @@ def test_pose_graph_lm_kernel_matches_plain(cuda, kind, shape):
     assert torch.equal(again[0], pk)
 
 
+ENVELOPE_GRAPHS = {
+    # a loop closure spanning the whole window
+    "window_loop": lambda dev: pgs.loops(30, [(29, 0)], device=dev)[0],
+    "loops": lambda dev: pgs.loops(24, [(23, 0), (15, 3), (20, 8)],
+                                   device=dev)[0],
+    # every row's envelope from pose 0: the factorization on the whole CTA
+    "star_at_cap": lambda dev: pgs.star(kernels.POSE_GRAPH_LM_MAX_LIVE,
+                                        device=dev)[0],
+    "masked_interior": lambda dev: pgs.loops(20, [(19, 0)], inactive=(7,),
+                                             device=dev)[0],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ENVELOPE_GRAPHS))
+def test_pose_graph_lm_envelope_graphs_match_plain(cuda, kind):
+    """Route A's envelope factorization on graphs whose envelope is wider
+    than the window's chain: one launch, one host sync (the live count),
+    the plain version's poses and cost, two launches bitwise, an inactive
+    pose where it was."""
+    g = ENVELOPE_GRAPHS[kind](cuda)
+    a0, b0 = _lm_counts()
+    with pytest.warns(UserWarning, match="synchroniz") as caught:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tpg.optimize_pose_graph(g, 12)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert _host_syncs(caught) == 1
+    assert _lm_counts() == (a0 + 1, b0)
+    pk, ck = _assert_lm_as_plain(g, 12)
+    again = tpg.optimize_pose_graph(g, 12)
+    assert torch.equal(again[0], pk) and torch.equal(again[1], ck)
+    if kind == "masked_interior":
+        assert torch.equal(pk[7], g.poses[7])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [kernels.POSE_GRAPH_LM_MAX_LIVE,
                                kernels.POSE_GRAPH_LM_MAX_LIVE + 1, 200])
@@ -1643,13 +1687,17 @@ def test_pose_graph_blocks_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["gimbal", "near_pi_axis"])
+@pytest.mark.parametrize("which", ["gimbal", "near_pi_axis", "gimbal_loop"])
 def test_pose_graph_lm_rejects_a_non_finite_hessian(cuda, which):
     """Gimbal lock (asin's infinite derivative) and a rotation error near
     pi about an axis (sqrt(0)'s): H is not finite, every pivot test fails,
-    every step is rejected, the poses come back bitwise."""
-    g = (pgs.gimbal(device=cuda) if which == "gimbal"
-         else pgs.blocks_graph("near_pi_axis", device=cuda))
+    every step is rejected, the poses come back bitwise.  gimbal_loop: the
+    non-finite rows early in a chain with a loop closure, where the dense
+    update would carry NaN left of the later rows' envelope; the envelope
+    factorization fails all the same."""
+    g = {"gimbal": pgs.gimbal, "gimbal_loop": pgs.gimbal_loop,
+         "near_pi_axis": lambda device: pgs.blocks_graph(
+             "near_pi_axis", device)}[which](device=cuda)
     acc = []
     pk, ck = tpg.optimize_pose_graph(g, 8, acc)
     pp, cp = tpg.optimize_pose_graph_reference(g, 8)
@@ -1770,6 +1818,19 @@ def test_imu_chain_lm_kernel_matches_plain(cuda, name):
         assert torch.equal(sk, d.states) and not any(bool(a) for a in acc)
     if name == "interior_masked":               # the inactive state pinned
         assert torch.equal(sk[7], d.states[7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 48, 100])
+def test_imu_chain_lm_kernel_by_window_size(cuda, K):
+    """The full window's scene at K 1 (no block below the diagonal), 48
+    and 100 (the reference's reset interval): one launch, no host sync,
+    the plain version's states and cost, two launches bitwise."""
+    d = ics.scene("full", device=cuda, K=K)
+    sk, _, acc = _assert_chain_as_plain(d)
+    assert bool(torch.isfinite(sk).all())
+    # K 1: the state sits at its prior and measurement, the cost is 0
+    assert any(bool(a) for a in acc) == (K > 1)
 
 
 @pytest.mark.cuda

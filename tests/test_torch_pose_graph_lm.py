@@ -24,7 +24,19 @@ file):
     here);
   * the dispatch: CPU tensors run the plain versions, another device
     raises, as do route A's launch past its cap and a graph of the wrong
-    dtype.
+    dtype;
+  * route A's envelope (csrc/pose_graph_lm.cu) on tests/pose_graph_scenes.py's
+    graphs: `envelope_starts` equals a brute-force walk over the factors;
+    the live subgraph's dense H (`_assemble`) and the float32 Cholesky
+    factor of its scaled, damped matrix are exactly 0.0 outside the
+    envelope and the envelope is no wider than H; the kernel's envelope
+    factorization with the forward solve inside and its backward solve,
+    transcribed in numpy column by column (each entry's operations in the
+    order that both the kernel's warp block steps and its CTA column
+    steps keep), are bit for bit the dense right-looking factorization and
+    the column-oriented solves of the kernel they replaced; where H is not
+    finite, the dense update carries NaN outside the envelope and both
+    fail.
 """
 
 import numpy as np
@@ -40,6 +52,8 @@ from feature_base_pointcloud_registration_tpu_torch.graph import (
 from test_graph import _rel_pose
 from test_torch_batch import one_torch_thread  # noqa: F401
 from test_torch_slam import FULL_ITERATIONS, _chain, _port_graph
+
+import pose_graph_scenes as pgs
 
 
 def _graph(kind):
@@ -229,3 +243,165 @@ def test_dispatch_rejects_what_it_cannot_run():
     with pytest.raises(ValueError, match="route A"):
         kernels.launch_pose_graph_lm(tg, ls._replace(n=cap + 1), 2, None,
                                      None, None)
+
+
+# ------------------------------------------------- route A's envelope
+
+ENVELOPE_GRAPHS = {
+    "chain": lambda: pgs.chain("window")[0],
+    "gps": lambda: pgs.chain("window", gps=True, noise=0.0)[0],
+    "loop": lambda: pgs.chain("window", loop=True, noise=0.05)[0],
+    "big_chain": lambda: pgs.big_chain(81)[0],
+    "loops": lambda: pgs.loops(24, [(23, 0), (15, 3), (20, 8)],
+                               inactive=(7,))[0],
+    "star": lambda: pgs.star(kernels.POSE_GRAPH_LM_MAX_LIVE)[0],
+}
+
+
+def _brute_envelope(g, ls):
+    """Each live pose's lowest coupled live pose, factor by factor."""
+    rowmap = ls.rowmap.tolist()
+    fb = list(range(ls.n))
+    for s in range(g.btw_i.shape[0]):
+        if bool(g.btw_mask[s]):
+            i, j = rowmap[int(g.btw_i[s])], rowmap[int(g.btw_j[s])]
+            fb[max(i, j)] = min(fb[max(i, j)], i, j)
+    return fb
+
+
+def _inside(fb):
+    """[D, D] bool: the lower triangle's entries inside the envelope."""
+    D = 6 * len(fb)
+    i = np.arange(D)[:, None]
+    j = np.arange(D)[None, :]
+    return (j <= i) & (j >= 6 * np.asarray(fb)[i // 6])
+
+
+def _scaled(g, lam=1e-4):
+    """The live subgraph's scaled, damped matrix and right-hand side of the
+    first LM step (`_lm_solve_step`'s), float32 numpy, and its envelope."""
+    ls = tpg.live_set(g)
+    sub = tpg.live_subgraph(g, ls)
+    H, grad, _ = tpg._assemble(sub, sub.poses, ls.n)
+    pin = torch.where(sub.pose_mask.repeat_interleave(6), 0.0, 1.0)
+    d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12)) + pin
+    A = H / (d[:, None] * d[None, :]) + torch.diag(lam + pin)
+    return (H.numpy(), A.numpy(), (-grad / d).numpy(),
+            tpg.envelope_starts(g, ls).tolist())
+
+
+@pytest.mark.parametrize("kind", [*ENVELOPE_GRAPHS, "random0", "random1",
+                                  "random2"])
+def test_envelope_starts_match_brute_force(kind):
+    g = (_random_graph(int(kind[-1])) if kind.startswith("random")
+         else ENVELOPE_GRAPHS[kind]())
+    ls = tpg.live_set(g)
+    got = tpg.envelope_starts(g, ls)
+    assert got.dtype == torch.int32 and got.shape == (ls.n,)
+    assert got.tolist() == _brute_envelope(g, ls)
+
+
+@pytest.mark.parametrize("kind", list(ENVELOPE_GRAPHS))
+def test_envelope_holds_h_and_its_factor(kind):
+    H, A, _, fb = _scaled(ENVELOPE_GRAPHS[kind]())
+    inside = _inside(fb)
+    lower = np.tril(np.ones_like(inside))
+    assert np.all(np.isfinite(H))
+    assert np.all(H[lower & ~inside] == 0.0)
+    L = torch.linalg.cholesky(torch.from_numpy(A)).numpy()
+    assert np.all(L[lower & ~inside] == 0.0)
+    # no wider than H: each block row's first block holds a nonzero
+    for x, y in enumerate(fb):
+        assert np.any(H[6 * x:6 * x + 6, 6 * y:6 * y + 6] != 0.0)
+
+
+def _dense_factor(A, b):
+    """The dense right-looking float32 Cholesky (one column a step) and the
+    column-oriented solves that route A ran before its envelope, entry by
+    entry: (A with L in its lower triangle, x, failed)."""
+    A, b = A.copy(), b.copy()
+    D = len(A)
+    for k in range(D):
+        p = A[k, k]
+        if not p > 0:
+            return A, None, True
+        l = np.sqrt(p)
+        A[k + 1:, k] = A[k + 1:, k] / l
+        A[k, k] = l
+        c = A[k + 1:, k].copy()
+        for i in range(k + 1, D):
+            A[i, k + 1:i + 1] = A[i, k + 1:i + 1] - c[i - k - 1] * c[:i - k]
+    for k in range(D):
+        y = b[k] / A[k, k]
+        b[k] = y
+        b[k + 1:] = b[k + 1:] - A[k + 1:, k] * y
+    for k in range(D - 1, -1, -1):
+        x = b[k] / A[k, k]
+        b[k] = x
+        b[:k] = b[:k] - A[k, :k] * x
+    return A, b, False
+
+
+def _envelope_factor(A, b, fb):
+    """csrc/pose_graph_lm.cu's envelope_cholesky (the forward solve inside)
+    and backward_solve_warp, transcribed: column k of block q updates the
+    rows below it in block q and the rows of the blocks p > q with fb[p]
+    <= q.  (A, x, failed)."""
+    A, b = A.copy(), b.copy()
+    n = len(fb)
+    for q in range(n):
+        rl = [6 * p + i for p in range(q + 1, n) if fb[p] <= q
+              for i in range(6)]
+        for a6 in range(6):
+            k = 6 * q + a6
+            rows = np.array(list(range(k + 1, 6 * q + 6)) + rl, dtype=int)
+            p = A[k, k]
+            if not p > 0:
+                return A, None, True
+            l = np.sqrt(p)
+            y = b[k] / l
+            col = A[rows, k] / l
+            A[rows, k] = col
+            A[k, k] = l
+            b[k] = y
+            b[rows] = b[rows] - col * y
+            for u in range(len(rows)):
+                A[rows[u], rows[:u + 1]] = (A[rows[u], rows[:u + 1]]
+                                            - col[u] * col[:u + 1])
+    for k in range(6 * n - 1, -1, -1):
+        x = b[k] / A[k, k]
+        b[k] = x
+        lo = 6 * fb[k // 6]
+        b[lo:k] = b[lo:k] - A[k, lo:k] * x
+    return A, b, False
+
+
+@pytest.mark.parametrize("kind", ["chain", "gps", "loop", "loops", "star"])
+def test_envelope_factor_is_the_dense_one_bitwise(kind):
+    _, A, b, fb = _scaled(ENVELOPE_GRAPHS[kind]())
+    Ad, xd, fd = _dense_factor(A, b)
+    Ae, xe, fe = _envelope_factor(A, b, fb)
+    assert not fd and not fe
+    inside = _inside(fb)
+    lower = np.tril(np.ones_like(inside))
+    np.testing.assert_array_equal(Ae[inside], Ad[inside])
+    assert np.all(Ad[lower & ~inside] == 0.0)
+    np.testing.assert_array_equal(xe, xd)
+    assert np.all(np.isfinite(xe))
+
+
+@pytest.mark.parametrize("which", ["gimbal", "gimbal_loop"])
+def test_envelope_factor_fails_as_the_dense_one(which):
+    """H not finite: the dense update carries NaN (0 x inf) left of the
+    later rows' envelope; the envelope factorization fails as the dense
+    one does (every step of the LM rejected, in the GPU tests)."""
+    g = pgs.gimbal() if which == "gimbal" else pgs.gimbal_loop()
+    H, A, b, fb = _scaled(g)
+    assert not np.all(np.isfinite(H))
+    with np.errstate(all="ignore"):
+        Ad, _, fd = _dense_factor(A, b)
+        _, _, fe = _envelope_factor(A, b, fb)
+    assert fd and fe
+    outside = np.tril(np.ones_like(_inside(fb))) & ~_inside(fb)
+    assert np.any(np.isnan(Ad[outside]))
+

@@ -321,7 +321,9 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            version's own card-vs-CPU spread), converged and the fitness
            gate equal, fitness within tests/icp_scenes.fitness_tol, two
            launches bitwise, iterations of each, ms beside the bound, the
-           FMA build beside;
+           FMA build beside, the clock64 split of a trip (icp.cu's
+           diagnostic build: the 1-NN, C, M, H, S, the grid barriers,
+           grid_sums) and the bound of the keys the cell search computed;
   phase 11 the sharded solvers and the XLA solver variants at the bench's
            width: (a) shard_register_tables(make_mesh("cuda"),
            solver="fused") on a one-rank NCCL group (a FileStore), on the
@@ -369,6 +371,17 @@ shipped kernel and DIR's in turns, shipped, other, other, shipped, by CUDA
 events, and whether their outputs are bit for bit equal) and, at the split
 probes, DIR's split too; phases 8 and 9 replay their LM solves on DIR's
 kernel as well (`... LM in turns` lines, `other kernel` ms a step).
+
+    python3 chip_smoke.py --knn-icp-ab DIR
+
+also builds DIR's knn_stream.cu and icp.cu (another version of the k-NN and
+ICP kernels with the same C entry points, and the headers they include),
+plain and with -DFBPR_ICP_PROFILE where its icp.cu has the stamps, and
+runs every `probe knn` and `probe icp` call, the GPU tests' k-NN and ICP
+scenes and phase 8's ICP runs on both versions in turns, bit for bit (a
+difference fails the run), with DIR's ICP split beside the shipped one's.
+The knn and ICP probes' inputs are kept in build/knn_icp_inputs.pt for
+scripts/knn_icp_turns.py.
 
 Any failure raises (exit code 1).  Prints the card's name and power limit
 early, a JSON line of per-kernel results second to last, and as the last
@@ -1144,19 +1157,18 @@ LM_STAGES = {
                      "block Cholesky", "solves", "chain cost", "epilogue")}
 
 
-def lm_builds(src_dir=None, profile=True):
-    """{stem: lib}: pose_graph_lm.cu and imu_chain_lm.cu of csrc/ (or of
-    src_dir, another version's) built together, one nvcc each, with
-    -DFBPR_LM_PROFILE (their diagnostic builds: clock64 stage stamps and
-    the fbpr_*_profile entry points) if profile; loaded, their ptxas lines
-    printed."""
+def ab_builds(stems, src_dir=None, profile=None):
+    """{stem: lib}: csrc/<stem>.cu for each of stems (or src_dir's, another
+    version's, with the headers they include) built together, one nvcc
+    each, with the shipped flags and, given profile (-DFBPR_LM_PROFILE,
+    -DFBPR_ICP_PROFILE), that diagnostic build's clock64 stamps and
+    fbpr_*_profile entry points; loaded, their ptxas lines printed."""
     from feature_base_pointcloud_registration_tpu_torch import kernels
-    stems = tuple(LM_STAGES)
     base = Path(src_dir) if src_dir else kernels.CSRC
     shipped = dict(kernels.SOURCE_FLAGS)
     if profile:
         for stem in stems:
-            kernels.SOURCE_FLAGS[stem] = [*shipped[stem], "-DFBPR_LM_PROFILE"]
+            kernels.SOURCE_FLAGS[stem] = [*shipped[stem], profile]
     try:
         sos = kernels._build([base / f"{stem}.cu" for stem in stems])
     finally:
@@ -1167,6 +1179,13 @@ def lm_builds(src_dir=None, profile=True):
     for stem, so in zip(stems, sos):
         print_ptxas(f"{stem} ({what})", kernels.BUILD_DIR / (so.stem + ".log"))
     return {stem: kernels.load(so) for stem, so in zip(stems, sos)}
+
+
+def lm_builds(src_dir=None, profile=True):
+    """pose_graph_lm.cu and imu_chain_lm.cu (ab_builds), with
+    -DFBPR_LM_PROFILE if profile."""
+    return ab_builds(tuple(LM_STAGES), src_dir,
+                     "-DFBPR_LM_PROFILE" if profile else None)
 
 
 def lm_launcher(lm, x, iterations):
@@ -1259,12 +1278,13 @@ def _same_bits(a, b):
     return bool(torch.equal(a, b))
 
 
-def lm_turns(lm, name, launch, other, reps=20):
+def lm_turns(lm, name, launch, other, reps=20, flag="--lm-ab",
+             graph=False):
     """One `probe <lm> <name> in turns` line: the shipped kernel and
-    another build (other, --lm-ab's) on the same inputs, in turns
-    (shipped, other, other, shipped; reps launches each by CUDA events),
-    and whether their outputs (poses or states, cost, accepts) are bit
-    for bit equal.  Returns the record."""
+    another build (other, flag's) on the same inputs, in turns (shipped,
+    other, other, shipped; reps launches each by CUDA events, in a CUDA
+    graph if graph), and whether their outputs (launch(lib)'s tensors) are
+    bit for bit equal.  Returns the record."""
     import torch
     mine = [t.clone() for t in launch(None)]
     theirs = [t.clone() for t in launch(other)]
@@ -1273,10 +1293,10 @@ def lm_turns(lm, name, launch, other, reps=20):
     ms = {"shipped": [], "other": []}
     for route in ("shipped", "other", "other", "shipped"):
         lib = other if route == "other" else None
-        ms[route].append(cuda_ms(lambda: launch(lib), reps))
+        ms[route].append(cuda_ms(lambda: launch(lib), reps, graph=graph))
     k, o = float(np.mean(ms["shipped"])), float(np.mean(ms["other"]))
     print(f"probe {lm} {name} in turns (the shipped kernel and the other "
-          f"version's, --lm-ab, in turns): kernel {ms['shipped'][0]:.4f} / "
+          f"version's, {flag}, in turns): kernel {ms['shipped'][0]:.4f} / "
           f"{ms['shipped'][1]:.4f} ms, other {ms['other'][0]:.4f} / "
           f"{ms['other'][1]:.4f} ms: {o / k:.2f}x; outputs bit for bit "
           f"equal {same}", flush=True)
@@ -2342,6 +2362,19 @@ ICP_INPUTS = {}
 KNN_INPUTS = {}
 # phase 8's ICP runs again on the kernel and on the parent's loop
 ICP_TURNS = {}
+# --knn-icp-ab DIR: another version of knn_stream.cu and icp.cu (DIR holds
+# them and the headers they include; the parent's, say), built by
+# ab_builds: {"plain": {stem: lib}, "profile": {"icp": lib}}; the knn and
+# ICP probes, the GPU tests' scenes and phase 8's ICP runs run it in turns
+# with the shipped kernels, bit for bit, and the ICP probes print its
+# clock64 split beside theirs
+KI_AB = {}
+# the shipped icp.cu's diagnostic build ({"icp": lib}), built at first use
+KI_PROFILE = {}
+# icp.cu's clock64 stages (-DFBPR_ICP_PROFILE): the prologue and the
+# epilogue once a run, the rest a trip
+ICP_STAGES = ("prologue", "1-NN", "C", "M", "H", "S", "grid barriers",
+              "grid_sums", "epilogue")
 
 
 def knn_icp_counters():
@@ -2371,33 +2404,201 @@ def icp_recorder(module, key):
 
 
 def icp_in_turns(calls):
-    """Every recorded icp_align call ((args, kw, out)) again on the kernel
-    and on the parent's loop (icp_align_reference on the card, the route
-    before the kernel), in turns (the kernel first on even calls): [(kernel
-    ms, plain ms, kernel iterations, plain iterations, transform |diff|)],
-    host wall with the device synchronized."""
+    """Every recorded icp_align call ((args, kw, out)) again on the kernel,
+    on the parent's loop (icp_align_reference on the card, the route
+    before the kernel) and, given --knn-icp-ab, on the other version's
+    kernel, in turns (the kernel first on even calls, last on odd ones):
+    [(kernel ms, plain ms, kernel iterations, plain iterations, transform
+    |diff|, other kernel ms or None, outputs bit for bit the other
+    kernel's or None)], host wall with the device synchronized."""
     import torch
 
     from feature_base_pointcloud_registration_tpu_torch.ops import (
         icp as ticp)
+    routes = ("kernel", "other", "plain") if KI_AB else ("kernel", "plain")
     out = []
     for i, (a, kw, _) in enumerate(calls):
         ms, res = {}, {}
-        for route in (("kernel", "plain") if i % 2 == 0
-                      else ("plain", "kernel")):
-            fn = (ticp.icp_align if route == "kernel"
-                  else ticp.icp_align_reference)
+        other = icp_launcher(a, kw) if KI_AB else None
+        for route in (routes if i % 2 == 0 else routes[::-1]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res[route] = fn(*a, **kw)
+            if route == "other":
+                res[route] = [t.clone() for t in
+                              other(KI_AB["plain"]["icp"])]
+            else:
+                fn = (ticp.icp_align if route == "kernel"
+                      else ticp.icp_align_reference)
+                res[route] = fn(*a, **kw)
             torch.cuda.synchronize()
             ms[route] = (time.perf_counter() - t0) * 1e3
         out.append((ms["kernel"], ms["plain"],
                     int(res["kernel"].iterations),
                     int(res["plain"].iterations),
                     float((res["kernel"].transform
-                           - res["plain"].transform).abs().max())))
+                           - res["plain"].transform).abs().max()),
+                    ms.get("other"),
+                    all(_same_bits(x, y) for x, y in zip(res["kernel"],
+                                                         res["other"]))
+                    if KI_AB else None))
     return out
+
+
+def icp_launcher(args, kw):
+    """launch(lib) -> the outputs (T, fitness, converged, iterations,
+    delta): one icp_align run of args, kw by the build lib of icp.cu
+    (None: the shipped one; its own plan and scratch), as icp_align
+    launches it, into the same output tensors each call."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    src, sm, dst, dm = (t.contiguous() for t in args[:4])
+    dev = src.device
+    out = (torch.empty(4, 4, device=dev), torch.empty((), device=dev),
+           torch.empty((), dtype=torch.bool, device=dev),
+           torch.empty((), dtype=torch.int32, device=dev),
+           torch.empty((), device=dev))
+    k = dict(chunk=kw.get("chunk", 2048),
+             max_d2=float(kw.get("max_corr_dist", 100.0)) ** 2,
+             max_iterations=int(kw.get("max_iterations", 100)),
+             eps=float(kw.get("transformation_epsilon", 1e-6)))
+
+    def launch(lib):
+        kernels.launch_icp(src, sm, dst, dm, out, lib=lib, **k)
+        return out
+    return launch
+
+
+def knn_launcher(q, ref, mask, k, chunk):
+    """launch(lib) -> (d2, idx): one knn call's launch by the build lib of
+    knn_stream.cu (None: the shipped one), with the call's centroid, into
+    the same output tensors each call."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    q3 = q.reshape(-1, q.shape[-2], 3).contiguous()
+    center = q3.mean(-2)
+    r3 = (ref.reshape(-1, *ref.shape[-2:]) if ref.dim() > 2
+          else ref).contiguous()
+    m2 = (mask.reshape(-1, mask.shape[-1]) if mask.dim() > 1
+          else mask).contiguous()
+    d2 = torch.empty(*q3.shape[:2], k, device=q.device)
+    idx = torch.empty(*q3.shape[:2], k, dtype=torch.int32, device=q.device)
+
+    def launch(lib):
+        kernels.launch_knn(q3, center, r3, m2, d2, idx,
+                           one_chunk=ref.shape[-2] == chunk, lib=lib)
+        return d2, idx
+    return launch
+
+
+def icp_split(name, launch, lib, which, reps=5):
+    """One `probe icp <name> split` line: reps runs by the diagnostic
+    build lib (-DFBPR_ICP_PROFILE) through launch (icp_launcher), and the
+    stages of a trip from their clock64 sums on thread 0 of every CTA
+    after a CTA barrier (clock_prof.cuh), a CTA's mean, in us (the cycles
+    over the clock that clock64 and globaltimer give): the 1-NN, C, M, H,
+    S, the grid barriers, grid_sums; the prologue and the epilogue in us a
+    run; the keys computed a trip (this build counts them; 0 where the
+    build does not).  Returns the record."""
+    import ctypes
+
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    out = (ctypes.c_uint64 * 14)()
+    torch.cuda.synchronize()
+    kernels._check_rc("fbpr_icp_profile",
+                      lib.fbpr_icp_profile(ctypes.addressof(out), 1))
+    for _ in range(reps):
+        launch(lib)
+    torch.cuda.synchronize()
+    kernels._check_rc("fbpr_icp_profile",
+                      lib.fbpr_icp_profile(ctypes.addressof(out), 1))
+    ctas, trips, *stage = (int(v) for v in out)
+    cycles, ns, nkeys = stage[len(ICP_STAGES):len(ICP_STAGES) + 3]
+    ghz = cycles / max(ns, 1)
+    trips_run = trips / reps
+    # a CTA's mean over every run (ctas counts the CTAs of all reps runs)
+    us = {n: stage[i] / max(ctas, 1) / ghz / 1e3
+          for i, n in enumerate(ICP_STAGES)}
+    per_trip = {n: us[n] / max(trips_run, 1) for n in ICP_STAGES
+                if n not in ("prologue", "epilogue")}
+    trip_us = sum(per_trip.values())
+    rec = dict(trip_us=trip_us, stages_us=per_trip,
+               prologue_us=us["prologue"], epilogue_us=us["epilogue"],
+               run_us=ns / max(ctas, 1) / 1e3, ghz=ghz,
+               trips=trips_run, keys_trip=nkeys / max(trips, 1),
+               ctas=ctas / reps)
+    print(f"probe icp {name} split ({which}, clock64 on thread 0 of each of "
+          f"{rec['ctas']:.0f} CTAs after a CTA barrier, their mean; "
+          f"{trips_run:.0f} trips a run, clock {ghz:.3f} GHz): a trip "
+          f"{trip_us:.2f} us = " + ", ".join(
+              f"{n} {v:.2f} ({v / max(trip_us, 1e-9):.1%})"
+              for n, v in per_trip.items()) + f"; a run {rec['run_us']:.2f} "
+          f"us (prologue {rec['prologue_us']:.2f}, epilogue "
+          f"{rec['epilogue_us']:.2f}); keys a trip "
+          f"{rec['keys_trip']:.0f}", flush=True)
+    return rec
+
+
+def scene_turns(dev):
+    """Given --knn-icp-ab: the GPU tests' k-NN and ICP scenes
+    (tests/test_torch_kernels_cuda.py's shapes: icp_scenes' k-NN scenes at
+    k 1, 5, 16, a shared map and one map per set, one chunk and four; its
+    ICP cases; the edge scenes through knn at k 1, 5, 16 and icp_align) on
+    the shipped kernels and on the other version's, each output bit for
+    bit.  Returns {"knn": cases, "icp": cases, "bitwise": bool}."""
+    import torch
+
+    import icp_scenes as iscn
+    T = functools.partial(torch.as_tensor, device=dev)
+    knn_other, icp_other = KI_AB["plain"]["knn_stream"], KI_AB["plain"]["icp"]
+    same, n_knn, n_icp = True, 0, 0
+
+    def both(launch, other):
+        a = [t.clone() for t in launch(None)]
+        b = [t.clone() for t in launch(other)]
+        return all(_same_bits(x, y) for x, y in zip(a, b))
+
+    M = 4096
+    for scene in iscn.KNN_SCENES:
+        for chunks in ("one", "four"):
+            chunk = M if chunks == "one" else M // 4
+            for maps in ("shared", "per_set"):
+                sets = [iscn.knn_scene(scene, M, chunk, Q=2000, seed=sd)
+                        for sd in ((0,) if maps == "shared" else (0, 1))]
+                q, ref, mask = ([T(a) for a in sets[0]] if maps == "shared"
+                                else [T(np.stack(a)) for a in zip(*sets)])
+                for k in (1, 5, 16):
+                    same &= both(knn_launcher(q, ref, mask, k, chunk),
+                                 knn_other)
+                    n_knn += 1
+    icp_caps = {"small": (256, 1024, 256), "phase8": (4096, 16384, 2048),
+                "pair": (2048, 2048, 2048), "merge": (4096, 4096, 2048)}
+    cases = [(iscn.icp_scene, s_, "small") for s_ in iscn.ICP_SCENES] + [
+        (iscn.icp_scene, "room", "phase8"), (iscn.icp_scene, "pair", "pair"),
+        (iscn.icp_scene, "merge", "merge")] + [
+        (iscn.edge_scene, s_, None) for s_ in iscn.EDGE_SCENES]
+    for make, scene, caps in cases:
+        shape = {} if caps is None else dict(zip(("N", "M", "chunk"),
+                                                 icp_caps[caps]))
+        src, sm, dst, dm, kw = make(scene, **shape)
+        args = [T(a) for a in (src, sm, dst, dm)]
+        same &= both(icp_launcher(args, kw), icp_other)
+        n_icp += 1
+        if caps is None:
+            for k in (1, 5, 16):
+                same &= both(knn_launcher(args[0], args[2], args[3], k,
+                                          kw["chunk"]), knn_other)
+                n_knn += 1
+    print(f"probe knn/icp scenes against the other version (--knn-icp-ab): "
+          f"{n_knn} knn calls and {n_icp} icp_align runs of the GPU tests' "
+          f"scenes, outputs bit for bit equal {same}", flush=True)
+    if not same:
+        raise AssertionError("knn/icp scenes: the kernels differ from the "
+                             "other version's")
+    return {"knn": n_knn, "icp": n_icp, "bitwise": same}
 
 
 def variant_build(stem, flags, label):
@@ -2535,6 +2736,13 @@ def knn_probe(name, q, ref, mask, k, chunk, fma_lib):
           f"{f_err:.3e}, swaps {f_swaps}", flush=True)
     if not bitwise:
         raise AssertionError(f"knn {name}: two launches differ")
+    if KI_AB:
+        rec["in_turns"] = lm_turns(
+            "knn", name, knn_launcher(q, ref, mask, k, chunk),
+            KI_AB["plain"]["knn_stream"], reps=20, flag="--knn-icp-ab",
+            graph=True)
+        if not rec["in_turns"]["bitwise_other"]:
+            raise AssertionError(f"knn {name}: the other version differs")
     return rec
 
 
@@ -2607,6 +2815,31 @@ def icp_probe(name, args, kw, fma_lib):
             and abs(rec["fitness"] - rec["plain_fitness"]) <= f_tol
             and bitwise):
         raise AssertionError(f"icp {name}: kernel != plain version")
+    launch = icp_launcher(args, kw)
+    if not KI_PROFILE:
+        KI_PROFILE.update(ab_builds(("icp",), profile="-DFBPR_ICP_PROFILE"))
+    rec["split"] = icp_split(name, launch, KI_PROFILE["icp"],
+                             "diagnostic build")
+    # the bound of the keys the cell search computed (the brute force's
+    # pairs are the bound above, kept so that rows compare across PRs)
+    rec["bound_visited_ms"], rec["bound_visited_by"] = bound(
+        13 * (rec["N"] + rec["M"]) + 80,
+        KNN_OPS_PAIR * rec["split"]["keys_trip"] * (its + 1)
+        + ICP_OPS_ROW * rec["N"] * (its + 1))
+    print(f"probe icp {name}: the keys the cell search computed, "
+          f"{rec['split']['keys_trip']:.0f} a trip of "
+          f"{rec['live'][0] * rec['live'][1]} live pairs: bound "
+          f"{rec['bound_visited_ms']:.5f} ms ({rec['bound_visited_by']}, "
+          f"{rec['bound_visited_ms'] / ms:.2%} of the kernel)", flush=True)
+    if KI_AB:
+        rec["in_turns"] = lm_turns("icp", name, launch,
+                                   KI_AB["plain"]["icp"], reps=5,
+                                   flag="--knn-icp-ab")
+        rec["other_split"] = icp_split(
+            name, launch, KI_AB["profile"]["icp"],
+            "the other version's diagnostic build")
+        if not rec["in_turns"]["bitwise_other"]:
+            raise AssertionError(f"icp {name}: the other version differs")
     return rec
 
 
@@ -2616,8 +2849,12 @@ def knn_icp_probes(dev):
     (c)'s first pair's target cloud in itself, k 16, 2048 points), (c) the
     exact solver's surf map (phase 8's first checked registration, k 5);
     the `probe icp` lines at (a) phase 8's loop candidates, (b) phase 10
-    (c)'s first pair, (c) phase 10 (d)'s merge.  Returns ({name: knn
-    record}, {name: icp record})."""
+    (c)'s first pair, (c) phase 10 (d)'s merge; their inputs kept in
+    build/knn_icp_inputs.pt.  Returns ({name: knn record}, {name: icp
+    record})."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
     knn_lib, icp_lib = fma_build("knn_stream"), fma_build("icp")
     (src, _, dst, dst_m), kw = ICP_INPUTS["(a) phase 8 loop candidates"]
     (_, _, pd, pd_m), pkw = ICP_INPUTS["(b) phase 10 (c) pair"]
@@ -2632,6 +2869,12 @@ def knn_icp_probes(dev):
                                             kw["k"], kw["chunk"], knn_lib)
     icp_rec = {name: icp_probe(name, a, kw, icp_lib)
                for name, (a, kw) in ICP_INPUTS.items()}
+    # the inputs, for scripts/knn_icp_turns.py
+    torch.save({kind: {n: ([t.cpu() for t in a], kw)
+                       for n, (a, kw) in inputs.items()}
+                for kind, inputs in (("icp", ICP_INPUTS),
+                                     ("knn", KNN_INPUTS))},
+               os.path.join(kernels.BUILD_DIR, "knn_icp_inputs.pt"))
     return knn_rec, icp_rec
 
 
@@ -4285,6 +4528,20 @@ def slam_phase(dev):
             [t_[1] for t_ in turns])), kernel_iterations=[t_[2] for t_ in turns],
         plain_iterations=[t_[3] for t_ in turns], step_kernel_ms=ker,
         step_plain_ms=pla, max_abs_err=max(t_[4] for t_ in turns))
+    if KI_AB:
+        ICP_TURNS.update(other_ms=float(np.mean([t_[5] for t_ in turns])),
+                         other_run_ms=[t_[5] for t_ in turns],
+                         kernel_run_ms=[t_[0] for t_ in turns],
+                         bitwise_other=all(t_[6] for t_ in turns))
+        print(f"time phase 8 ICP in turns against the other version's kernel "
+              f"(--knn-icp-ab): kernel {ICP_TURNS['kernel_ms']:.3f} ms a run "
+              f"({[round(t_[0], 3) for t_ in turns]}), other "
+              f"{ICP_TURNS['other_ms']:.3f} ms a run "
+              f"({[round(t_[5], 3) for t_ in turns]}); outputs bit for bit "
+              f"equal {ICP_TURNS['bitwise_other']}", flush=True)
+        if not ICP_TURNS["bitwise_other"]:
+            raise AssertionError("phase 8: an ICP run differs from the other "
+                                 "version's kernel")
     print(f"time phase 8 ICP in turns (every ICP run of the run again, on "
           f"the icp kernel and on the parent's loop, icp_align_reference, "
           f"in turns): {len(turns)} runs, kernel "
@@ -5689,6 +5946,12 @@ def main():
                          "pose_graph_lm.cu and imu_chain_lm.cu (and the "
                          "headers they include) to time in turns with the "
                          "shipped ones at the LM probes and phases 8-9")
+    ap.add_argument("--knn-icp-ab", metavar="DIR",
+                    help="a directory holding another version of "
+                         "knn_stream.cu and icp.cu (and the headers they "
+                         "include) to run in turns with the shipped ones, "
+                         "bit for bit, at the knn and ICP probes, the GPU "
+                         "tests' scenes and phase 8's ICP runs")
     args = ap.parse_args()
     dev = require_cuda()
     sys.path.insert(0, os.path.join(REPO, "tests"))    # oracle.py
@@ -5711,6 +5974,10 @@ def main():
     if args.lm_ab:
         LM_AB.update(plain=lm_builds(args.lm_ab, profile=False),
                      profile=lm_builds(args.lm_ab))
+    if args.knn_icp_ab:
+        KI_AB.update(plain=ab_builds(("knn_stream", "icp"), args.knn_icp_ab),
+                     profile=ab_builds(("icp",), args.knn_icp_ab,
+                                       "-DFBPR_ICP_PROFILE"))
 
     # ---- setup: bench.py's scans, guesses and map, from seeds ----
     params = Params(map_corner_cap=16384, map_surf_cap=65536,
@@ -6116,6 +6383,7 @@ def main():
         kt[name] = (rec["ms"], rec["plain_ms"])
         bounds[name] = (rec["bound_ms"], rec["bound_by"])
     rp_knn, rp_icp = knn_icp_probes(dev)
+    scenes_ab = scene_turns(dev) if KI_AB else None
     for name, rec in (("knn_stream", rp_knn["(b) FPFH phase 10 (c)"]),
                       ("icp", rp_icp["(a) phase 8 loop candidates"])):
         kt[name] = (rec["ms"], rec["plain_ms"])
@@ -6289,6 +6557,13 @@ def main():
                   "10b": kitti_launches["knn"],
                   "10c": kitti_launches["knn_pairs"],
                   "10d merge": ms_launches["knn"]},
+              redesigned="the map split over a cluster of up to 16 CTAs a "
+                         "query tile, merged through distributed shared "
+                         "memory; masked slots compacted away as tiles are "
+                         "staged; 2 queries a thread",
+              split=None,
+              in_turns={n: r.get("in_turns") for n, r in rp_knn.items()}
+              | {"GPU test scenes": scenes_ab},
               probes={n: {k: r[k] for k in (
                   "S", "Q", "M", "k", "live", "ms", "call_ms", "plain_ms",
                   "bound_ms", "bound_by", "max_abs_err", "index_swaps",
@@ -6302,10 +6577,21 @@ def main():
                                  "10c": kitti_launches["icp_pairs"],
                                  "10d merge": ms_launches["icp"]},
               phase8_in_turns=ICP_TURNS,
+              redesigned="an exact 1-NN over a cell index built once a run "
+                         "(shells of cells, a proven rounding margin, the "
+                         "last trip's neighbour as the seed), a row a group "
+                         "of lanes in its own CTA, 4 grid barriers a trip",
+              split={n: {k: r[k] for k in ("split", "other_split")
+                         if k in r} for n, r in rp_icp.items()},
+              in_turns={n: r.get("in_turns") for n, r in rp_icp.items()}
+              | {"phase 8": ICP_TURNS.get("other_ms") and {
+                  k: ICP_TURNS[k] for k in ("kernel_ms", "other_ms",
+                                            "bitwise_other")},
+                 "GPU test scenes": scenes_ab},
               probes={n: {k: r[k] for k in (
                   "N", "M", "live", "iterations", "plain_iterations", "ms",
                   "no_iteration_ms", "trip_ms", "plain_ms", "bound_ms",
-                  "bound_by", "max_abs_err",
+                  "bound_by", "bound_visited_ms", "max_abs_err",
                   "plain_card_vs_cpu_err", "fitness", "plain_fitness",
                   "bitwise", "fma_max_abs_err")}
                       for n, r in rp_icp.items()}),

@@ -12,6 +12,7 @@
 //                   d = sqrt(max(diag H, 1e-12)) + pin)
 //   lm_next_lambda  the damping after a step
 //   LmProf          the diagnostic builds' clock64 stage stamps
+//                   (clock_prof.cuh)
 //
 // Every thread of the CTA calls block_sum.  float32 throughout; the
 // operations round one by one (kernels.SOURCE_FLAGS builds without FMA
@@ -21,8 +22,8 @@
 //
 // Built with -DFBPR_LM_PROFILE (chip_smoke.py's diagnostic builds of
 // pose_graph_lm.cu and imu_chain_lm.cu, never the shipped ones), LmProf
-// stamps clock64() on thread 0 at the end of each stage of an LM solve,
-// after a CTA barrier so that the stamp is the slowest thread's, and adds
+// (clock_prof.cuh's StageClock, which the source includes first) stamps
+// clock64() on thread 0 at the end of each stage of an LM solve and adds
 // the sums into g_lm_prof, which the source's *_profile entry point reads:
 // [0] solves, [1] iterations, [2 + s] the cycles of stage s (kLmStages),
 // [10] the kernel's cycles and [11] its globaltimer ns on thread 0.  The
@@ -30,58 +31,14 @@
 
 constexpr int kLmStages = 8;
 
-#ifdef FBPR_LM_PROFILE
-__device__ unsigned long long g_lm_prof[12];
+PROF(__device__ unsigned long long g_lm_prof[2 + kLmStages + 2];)
 
-struct LmProf {
-  long long c0, t, s[kLmStages];
-  unsigned long long n0;
-  __device__ void start() {
-    if (threadIdx.x != 0) return;
-    unsigned long long n;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(n));
-    n0 = n;
-    c0 = t = clock64();
-    for (int i = 0; i < kLmStages; ++i) s[i] = 0;
-  }
-  __device__ void stamp(int stage) {
-    __syncthreads();
-    if (threadIdx.x != 0) return;
-    const long long now = clock64();
-    s[stage] += now - t;
-    t = now;
-  }
+struct LmProf : StageClock<kLmStages> {
   __device__ void finish(int iterations) {
-    __syncthreads();
-    if (threadIdx.x != 0) return;
-    unsigned long long n;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(n));
-    atomicAdd(&g_lm_prof[0], 1ull);
-    atomicAdd(&g_lm_prof[1], (unsigned long long)iterations);
-    for (int i = 0; i < kLmStages; ++i)
-      atomicAdd(&g_lm_prof[2 + i], (unsigned long long)s[i]);
-    atomicAdd(&g_lm_prof[10], (unsigned long long)(clock64() - c0));
-    atomicAdd(&g_lm_prof[11], n - n0);
+    PROF(StageClock::finish(g_lm_prof, 1ull,
+                            static_cast<unsigned long long>(iterations));)
   }
 };
-
-// The sums into out (12 values); reset != 0 zeroes them after.
-// Synchronous.
-inline int lm_profile_read(unsigned long long* out, int reset) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_lm_prof, 12 * sizeof(*out));
-  if (e == cudaSuccess && reset) {
-    const unsigned long long zero[12] = {};
-    e = cudaMemcpyToSymbol(g_lm_prof, zero, sizeof(zero));
-  }
-  return static_cast<int>(e);
-}
-#else
-struct LmProf {
-  __device__ void start() {}
-  __device__ void stamp(int) {}
-  __device__ void finish(int) {}
-};
-#endif
 
 template <int NT>
 __device__ __forceinline__ float block_sum(float v, float* red) {

@@ -78,6 +78,10 @@
 
 namespace {
 
+#ifdef FBPR_LM_PROFILE
+#define FBPR_PROF
+#endif
+#include "clock_prof.cuh"
 #include "pose_graph.cuh"
 #include "dense_lm.cuh"
 #include "imu_chain.cuh"
@@ -557,7 +561,7 @@ extern "C" int fbpr_imu_chain_lm(FBPR_CHAIN_PARAMS, int iterations,
 // values) into out; reset != 0 zeroes them after.  Synchronous.
 extern "C" int fbpr_imu_chain_lm_profile(unsigned long long* out,
                                          int reset) {
-  return lm_profile_read(out, reset);
+  return prof_read(g_lm_prof, out, reset);
 }
 #endif
 

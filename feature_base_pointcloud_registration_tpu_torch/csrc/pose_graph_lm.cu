@@ -101,6 +101,10 @@
 
 namespace {
 
+#ifdef FBPR_LM_PROFILE
+#define FBPR_PROF
+#endif
+#include "clock_prof.cuh"
 #include "pose_graph.cuh"
 #include "dense_lm.cuh"
 
@@ -1068,7 +1072,7 @@ extern "C" int fbpr_pose_graph_lm(const float* poses,
 // values) into out; reset != 0 zeroes them after.  Synchronous.
 extern "C" int fbpr_pose_graph_lm_profile(unsigned long long* out,
                                           int reset) {
-  return lm_profile_read(out, reset);
+  return prof_read(g_lm_prof, out, reset);
 }
 #endif
 

@@ -82,7 +82,8 @@
 // 0 walks sector 0 while the other warps walk theirs) and the tail
 // (waiting for the other warps, the label write); lane 0 of each building
 // warp stamps its compaction and its sorts; the sums go into g_prof, which
-// fbpr_ring_pick_profile reads.
+// fbpr_ring_pick_profile reads (clock_prof.cuh's PROF, global_ns and
+// prof_read).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,23 +91,16 @@
 namespace {
 
 #ifdef FBPR_RING_PICK_PROFILE
+#define FBPR_PROF
+#endif
+#include "clock_prof.cuh"
+
 // Sums over every CTA, clock64 on thread 0: [0] CTAs, [1] load, [2] lists
 // (compaction and sort, or waiting for them), [3] corner walks, [4] surf
 // walks, [5] tail, [6] the kernel's cycles, [7] its globaltimer ns; on lane
 // 0 of each warp that builds a sector's lists: [8] sectors, [9] the
 // compaction's cycles, [10] the sorts'.
-constexpr int kProf = 11;
-__device__ unsigned long long g_prof[kProf];
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define PROF(...) __VA_ARGS__
-#else
-#define PROF(...)
-#endif
+PROF(__device__ unsigned long long g_prof[11];)
 
 constexpr int kWarps = 6;                // one a sector
 constexpr int kThreads = 32 * kWarps;
@@ -597,14 +591,9 @@ extern "C" int fbpr_ring_pick(const float* curv, const int* col,
 }
 
 #ifdef FBPR_RING_PICK_PROFILE
-// The diagnostic build's sums (g_prof, kProf values) into out; reset != 0
+// The diagnostic build's sums (g_prof, 11 values) into out; reset != 0
 // zeroes them after.  Synchronous.
 extern "C" int fbpr_ring_pick_profile(unsigned long long* out, int reset) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_prof, kProf * sizeof(*out));
-  if (e == cudaSuccess && reset) {
-    const unsigned long long zero[kProf] = {};
-    e = cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
-  }
-  return static_cast<int>(e);
+  return prof_read(g_prof, out, reset);
 }
 #endif

@@ -68,7 +68,7 @@
 // the shipped one), thread 0 of every CTA stamps clock64() around each part
 // of an iteration (a barrier is added after the point loop so that its
 // stamp is the slowest thread's) and adds the sums into g_prof, which
-// fbpr_rounds_gn_profile reads.
+// fbpr_rounds_gn_profile reads (clock_prof.cuh's global_ns and prof_read).
 
 #include <cooperative_groups.h>
 
@@ -78,18 +78,15 @@ namespace fbpr {
 namespace {
 
 #ifdef FBPR_ROUNDS_PROFILE
+#define FBPR_PROF
+#endif
+#include "clock_prof.cuh"
+
 // Sums over every CTA: [0] iterations, [1] point loop, [2] in-CTA
 // reduction, [3] cluster combine, [4] tail (step_warp + next_frame) in
 // clock64 cycles, [5] the kernel's cycles and [6] its globaltimer ns on
 // thread 0, [7] CTAs.
-__device__ unsigned long long g_prof[8];
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#endif
+PROF(__device__ unsigned long long g_prof[8];)
 
 namespace cg = cooperative_groups;
 
@@ -490,11 +487,6 @@ extern "C" int fbpr_rounds_gn_max_clusters(int K, int C, int* out) {
 // The diagnostic build's sums (g_prof, 8 values) into out; reset != 0
 // zeroes them after.  Synchronous.
 extern "C" int fbpr_rounds_gn_profile(unsigned long long* out, int reset) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, fbpr::g_prof, 8 * sizeof(*out));
-  if (e == cudaSuccess && reset) {
-    const unsigned long long zero[8] = {};
-    e = cudaMemcpyToSymbol(fbpr::g_prof, zero, sizeof(zero));
-  }
-  return (int)e;
+  return fbpr::prof_read(fbpr::g_prof, out, reset);
 }
 #endif

@@ -147,18 +147,22 @@ _SIGNATURES = {
     # query, center, map, mask, map_stride, mask_stride, S, Q, M, one_chunk,
     # K, d2, idx, stream
     "fbpr_knn": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P],
-    # N, M, out (grid, splits, slice, scratch floats: int64 [4])
+    # N, M, out (grid, lanes a row, cell cap, scratch floats: int64 [4])
     "fbpr_icp_plan": [_I, _I, _P],
     # src, src_mask, dst, dst_mask, N, M, chunk, max_d2, max_iterations,
     # eps, scratch, scratch floats, T, fitness, converged, iterations,
     # delta, stream
     "fbpr_icp": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _D, _P, _L, _P, _P, _P,
                  _P, _P, _P],
+    # out (uint64 [14]), reset: icp.cu's clock64 stage sums, defined only by
+    # its diagnostic build (-DFBPR_ICP_PROFILE)
+    "fbpr_icp_profile": [_P, _I],
 }
 
 # entry points that only a diagnostic build of a source defines
 _DIAGNOSTIC = {"fbpr_rounds_gn_profile", "fbpr_ring_pick_profile",
-               "fbpr_pose_graph_lm_profile", "fbpr_imu_chain_lm_profile"}
+               "fbpr_pose_graph_lm_profile", "fbpr_imu_chain_lm_profile",
+               "fbpr_icp_profile"}
 
 
 def _nvcc() -> str:
@@ -599,9 +603,9 @@ def launch_knn(query, center, ref, mask, d2, idx, *, one_chunk: bool,
 
 def icp_plan(N: int, M: int, device,
              lib: SimpleNamespace | None = None) -> tuple:
-    """(grid, splits, slice, scratch floats) of csrc/icp.cu at N source and
-    M target points on device; raises where it cannot launch
-    cooperatively."""
+    """(grid, lanes a row, cell cap, scratch floats) of csrc/icp.cu at N
+    source and M target points on device (a build's own plan: lib's);
+    raises where it cannot launch cooperatively."""
     lib = lib or library()
     out = (ctypes.c_int64 * 4)()
     with torch.cuda.device(device):

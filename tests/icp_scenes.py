@@ -33,6 +33,24 @@ dst [M, 3], dst_mask [M], icp_align's keywords)):
                 correspondence, so H = 0 and the transform stays I
   one_match     one source point within reach of the target: H = 0 again
                 (one centred point), R = I and t its offset
+
+Edge scenes of the cell search in csrc/icp.cu (`edge_scene(name, N, M,
+chunk)`, the same tuple, at OFFSET; tests/knn_cells.py transcribes the
+search):
+
+  face          the target a 16^3 lattice at 0.4 m whose cells (the
+                kernel's rule: ~8 live points a cell) are 0.75 m, a third
+                of its points moved onto a cell face or one float32 ulp
+                (~4e-6 m) off it, and the source rows likewise
+  tie           a 1 m lattice and source rows at the midpoints of lattice
+                edges, in pairs symmetric about a lattice point, so that
+                the centroid and every key are exact: each row has two
+                nearest points at equal keys, often in two cells (ties go
+                to the lower index)
+  duplicates    the room with runs of five target points at one place
+  far_row       the room with one live source row 300 m outside the box
+  few_live      the room with 3 live target points
+  no_live       the room with none
 """
 
 import numpy as np
@@ -41,6 +59,7 @@ F32 = np.float32
 KNN_BIG = 3.0e38
 KNN_SCENES = ("random", "duplicates", "few_live", "all_masked")
 ICP_SCENES = ("room", "pair", "merge", "far", "one_match")
+EDGE_SCENES = ("face", "tie", "duplicates", "far_row", "few_live", "no_live")
 ICP_KW = {"room": dict(max_corr_dist=100.0, max_iterations=100),
           "pair": dict(max_corr_dist=2.0, max_iterations=50),
           "merge": dict(max_corr_dist=5.0, max_iterations=60),
@@ -127,6 +146,80 @@ def icp_scene(name, N=256, M=1024, chunk=256, seed=0):
     elif name not in ("room", "pair", "merge"):
         raise ValueError(name)
     return src, src_mask, dst, dst_mask, dict(ICP_KW[name], chunk=chunk)
+
+
+def _lattice(n, step, r):
+    """An n^3 lattice at step m from OFFSET, in random order."""
+    g = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1)
+    return (g.reshape(-1, 3)[r.permutation(n ** 3)] * step + OFFSET)
+
+
+def _onto_faces(p, lo, hi, h, r, share):
+    """share of the rows of p [n, 3] (float32) with one coordinate moved
+    onto its nearest inner face lo + k h (lo < face < hi), or one ulp off
+    it; the box [lo, hi] stays as it is."""
+    p = p.copy()
+    for i in np.nonzero(r.uniform(size=len(p)) < share)[0]:
+        ax = r.randint(3)
+        k = np.clip(np.round((p[i, ax] - lo[ax]) / h), 1,
+                    np.round((hi[ax] - lo[ax]) / h) - 1)
+        face = np.float32(lo[ax] + h * k)
+        side = r.randint(3)
+        p[i, ax] = face if side == 0 else np.nextafter(
+            face, np.float32(np.inf if side == 1 else -np.inf))
+    return p
+
+
+def edge_scene(name, N=256, M=4096, chunk=1024, seed=0):
+    if M % chunk:
+        raise ValueError(f"M {M} not a multiple of chunk {chunk}")
+    kw = dict(max_corr_dist=100.0, max_iterations=10, chunk=chunk)
+    r = np.random.RandomState(seed)
+    if name in ("face", "tie"):
+        n, step = (16, 0.4) if name == "face" else (16, 1.0)
+        if M < n ** 3:
+            raise ValueError(f"M {M} below the lattice's {n ** 3} points")
+        dst = np.zeros((M, 3), F32)
+        dst_mask = np.zeros(M, bool)
+        dst[:n ** 3] = _lattice(n, step, r)
+        dst_mask[:n ** 3] = True
+        src = np.zeros((N, 3), F32)
+        src_mask = np.zeros(N, bool)
+        n_src = int(0.8 * N) // 2 * 2
+        src_mask[:n_src] = True
+        lo, hi = dst[:n ** 3].min(0), dst[:n ** 3].max(0)
+        if name == "face":
+            # 8 points a cell: 0.75 m cells over the 6 m lattice
+            dst[:n ** 3] = _onto_faces(dst[:n ** 3], lo, hi, 0.75, r, 1 / 3)
+            src[:n_src] = _onto_faces(
+                (lo + r.uniform(0, 6.0, (n_src, 3))).astype(F32), lo, hi,
+                0.75, r, 2 / 3)
+        else:
+            # midpoints of lattice edges in pairs about the lattice point P
+            P = OFFSET + 8 * step
+            ax = r.randint(3, size=n_src // 2)
+            base = r.randint(1, n - 2, size=(n_src // 2, 3))
+            v = base * step + OFFSET - P
+            v[np.arange(n_src // 2), ax] += 0.5 * step
+            src[:n_src:2] = P + v
+            src[1:n_src:2] = P - v
+            src[n_src:] = P
+        return src, src_mask, dst, dst_mask, kw
+    src, src_mask, dst, dst_mask, _ = icp_scene("room", N, M, chunk, seed)
+    n_dst = int(dst_mask.sum())
+    if name == "duplicates":
+        for k in range(0, n_dst - 5, 50):
+            dst[k + 1:k + 5] = dst[k]
+    elif name == "far_row":
+        src[0] = OFFSET + np.array([300.0, -20.0, 5.0])
+    elif name == "few_live":
+        dst_mask[:] = False
+        dst_mask[[0, n_dst // 2, n_dst - 1]] = True
+    elif name == "no_live":
+        dst_mask[:] = False
+    else:
+        raise ValueError(name)
+    return src, src_mask, dst, dst_mask, kw
 
 
 def fitness_tol(src, src_mask, T):

@@ -102,6 +102,13 @@ the fitness gate equal, fitness within the k-NN's d2 tolerance averaged
 over the matches (`icp_scenes.fitness_tol`), iterations printed (the 1e-6
 epsilon sits on float32 rounding: one route may settle where the other
 swaps two matches to the cap), two launches bitwise, R = I where H = 0.
+The k-NN kernel bit for bit tests/knn_cells.py's brute force of the parent
+kernel's keys (k 1, 5, 16, one chunk and four), and both kernels at
+icp_scenes.EDGE_SCENES (points on cell faces, ties across cells,
+duplicates, a far row, few and no live points): the k-NN bit for bit the
+brute force and held to its plain version, ICP one launch with no sync,
+its fitness at T = I against the brute force's and, with few or no live
+target points, its run against the plain version.
 """
 
 import numpy as np
@@ -2064,3 +2071,96 @@ def test_icp_kernel_refuses_what_it_does_not_take(cuda):
         ticp.icp_align(src.double(), sm, dst.double(), dm, chunk=256)
     with pytest.raises(ValueError):
         ticp.icp_align(src, sm, dst.cpu(), dm.cpu(), chunk=256)
+
+
+# ---- the redesigned k-NN and ICP kernels at the transcription's keys and
+# the cell search's edge scenes (tests/knn_cells.py, icp_scenes.EDGE_SCENES)
+
+import knn_cells as kcl  # noqa: E402
+
+
+def _same_bits(d2, idx, want):
+    return np.array_equal(d2.cpu().numpy().view(np.int32),
+                          want[0].view(np.int32)) \
+        and np.array_equal(idx.cpu().numpy(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", ["one", "four"])
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("scene", iscn.KNN_SCENES)
+def test_knn_kernel_is_the_brute_force_transcription(cuda, scene, k, chunks):
+    """The k-NN kernel bit for bit tests/knn_cells.py's brute force of the
+    parent kernel's keys (no-neighbour slots included), on the centroid
+    the call takes on the card."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        knn as tknn)
+    M = 4096
+    chunk = M if chunks == "one" else M // 4
+    q, ref, mask = iscn.knn_scene(scene, M, chunk, Q=500)
+    tq, tr, tm = (torch.from_numpy(a).to(cuda) for a in (q, ref, mask))
+    d2, idx = tknn.knn(tq, tr, tm, k=k, chunk=chunk)
+    c = tq.mean(-2).cpu().numpy()
+    assert _same_bits(d2, idx, kcl.brute_knn(q, ref, mask, k, chunk == M,
+                                             c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("scene", iscn.EDGE_SCENES)
+def test_knn_kernel_at_edge_scenes(cuda, scene, k):
+    """The edge scenes' source rows against their target: the kernel bit
+    for bit the brute-force transcription, and held to the plain version
+    by icp_scenes.knn_agreement."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        knn as tknn)
+    src, _, dst, dm, kw = iscn.edge_scene(scene)
+    tq, tr, tm = (torch.from_numpy(a).to(cuda) for a in (src, dst, dm))
+    d2, idx = tknn.knn(tq, tr, tm, k=k, chunk=kw["chunk"])
+    c = tq.mean(-2).cpu().numpy()
+    assert _same_bits(d2, idx, kcl.brute_knn(src, dst, dm, k, False, c))
+    d2p, ip = tknn.knn_reference(tq, tr, tm, k=k, chunk=kw["chunk"])
+    d2p1 = tknn.knn_reference(tq, tr, tm, k=k + 1, chunk=kw["chunk"])[0]
+    iscn.knn_agreement(tq, tr, d2, idx, d2p, ip, d2p1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", iscn.EDGE_SCENES)
+def test_icp_kernel_at_edge_scenes(cuda, scene):
+    """icp_align at the cell search's edge scenes: one launch, no host
+    sync, two launches bitwise; with no iteration the fitness at T = I
+    (the mean d2 of the 1-NN over the matches) within the k-NN's d2
+    tolerance of the brute-force transcription's and converged equal;
+    where no near-tie can steer the run (few and no live target points:
+    elsewhere the plain version's cuBLAS keys may break a near-tie the
+    other way, and the 1e-6 epsilon then stops one run and not the other,
+    ROADMAP Queue 3) the run held to the plain version as
+    test_icp_kernel_matches_plain holds it."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        icp as ticp)
+    src, sm, dst, dm, kw = iscn.edge_scene(scene)
+    args = [torch.from_numpy(a).to(cuda) for a in (src, sm, dst, dm)]
+    before = ticp.icp_align.launches
+    got, syncs = _syncs_of(lambda: ticp.icp_align(*args, **kw))
+    assert ticp.icp_align.launches == before + 1 and syncs == 0
+    again = ticp.icp_align(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert torch.isfinite(got.transform).all()
+    first = ticp.icp_align(*args, **dict(kw, max_iterations=0))
+    c = np.float32(src.astype(np.float64).mean(0))
+    d2, _ = kcl.brute_knn(src, dst, dm, 1, False, c)
+    w = sm & (d2[:, 0] < np.float32(kw["max_corr_dist"]) ** 2)
+    want = float((d2[:, 0].astype(np.float64) * w).sum() / max(w.sum(), 1))
+    tol = iscn.fitness_tol(src, sm, np.eye(4)) + 1e-6 * abs(want)
+    print(f"icp {scene}: fitness at T = I {float(first.fitness):.7g} vs "
+          f"{want:.7g} (held to {tol:.2e}), {int(got.iterations)} "
+          f"iterations")
+    assert abs(float(first.fitness) - want) <= tol
+    assert bool(first.converged) == bool(w.sum() >= 3)
+    if scene not in ("few_live", "no_live"):
+        return
+    want = ticp.icp_align_reference(*args, **kw)
+    assert float((got.transform - want.transform).abs().max()) <= 1e-4
+    assert bool(got.converged) == bool(want.converged)
+    tol = iscn.fitness_tol(src, sm, want.transform.cpu())
+    assert abs(float(got.fitness) - float(want.fitness)) <= tol

@@ -302,7 +302,15 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            above 64 live samples 1e-5 and a floor of 1e-6, where the kernel
            is as near the float64 plain version as the plain version,
            within a factor of 2; R, p, v within 1e-5), each beside its
-           plain version and bound, two launches bitwise;
+           plain version and bound, two launches bitwise, its launch on
+           the device alone (in a CUDA graph: the host's ~0.03 ms a ctypes
+           launch left out) and the clock64 split of the diagnostic build
+           (-DFBPR_PREINT_PROFILE: each warp role's busy us, the cov warp's
+           cycles a live sample and its step at two stamps; the
+           propagation's walking warp's cycles a slot); phase 9's recorded
+           preintegrate and propagate_states calls again on their launches
+           alone (`time phase 9 preintegration + propagation`, ms a LIO
+           step);
            `probe knn` lines: the k-NN kernel (knn on the card, one
            knn_stream launch) against its plain version on the card
            (knn_reference) at (a) ICP's phase 8 shape (the accepted loop
@@ -382,6 +390,17 @@ scenes and phase 8's ICP runs on both versions in turns, bit for bit (a
 difference fails the run), with DIR's ICP split beside the shipped one's.
 The knn and ICP probes' inputs are kept in build/knn_icp_inputs.pt for
 scripts/knn_icp_turns.py.
+
+    python3 chip_smoke.py --imu-ab DIR
+
+also builds DIR's preintegration.cu (another version of the IMU
+preintegration and propagation kernels with the same C entry points, and
+the headers it includes) and runs every `probe preintegrate` and `probe
+propagate_states` call in turns with the shipped kernels (in CUDA graphs),
+phase 9's recorded preintegrate and propagate_states calls (ms a LIO step
+on each) and tests/imu_chain_scenes.py's buffers and edge buffers (the GPU
+tests'), bit for bit (a difference fails the run).
+scripts/imu_turns.py runs the buffers alone against other versions.
 
 Any failure raises (exit code 1).  Prints the card's name and power limit
 early, a JSON line of per-kernel results second to last, and as the last
@@ -1165,15 +1184,8 @@ def ab_builds(stems, src_dir=None, profile=None):
     fbpr_*_profile entry points; loaded, their ptxas lines printed."""
     from feature_base_pointcloud_registration_tpu_torch import kernels
     base = Path(src_dir) if src_dir else kernels.CSRC
-    shipped = dict(kernels.SOURCE_FLAGS)
-    if profile:
-        for stem in stems:
-            kernels.SOURCE_FLAGS[stem] = [*shipped[stem], profile]
-    try:
-        sos = kernels._build([base / f"{stem}.cu" for stem in stems])
-    finally:
-        kernels.SOURCE_FLAGS.clear()
-        kernels.SOURCE_FLAGS.update(shipped)
+    sos = kernels._build([base / f"{stem}.cu" for stem in stems],
+                         extra_flags=[profile] if profile else [])
     what = ("other version's " if src_dir else "") + (
         "diagnostic build" if profile else "build")
     for stem, so in zip(stems, sos):
@@ -2195,7 +2207,252 @@ def chain_blocks_probe(name, d):
     return rel
 
 
-def preint_probe(name, args, kw):
+# --imu-ab DIR: another version of preintegration.cu (DIR holds it and the
+# headers it includes; the parent's, say), built by ab_builds ({"plain":
+# lib}); every preintegrate and propagate_states probe, the GPU tests'
+# buffers and phase 9's recorded calls run on it in turns with the shipped
+# kernels, bit for bit (a difference fails the run)
+IMU_AB = {}
+# the shipped preintegration.cu's diagnostic build, built at first use
+IMU_PROFILE = {}
+# the warp roles of preintegration.cu's pipeline, in its -DFBPR_PREINT_PROFILE
+# sums' order
+PREINT_ROLES = ("cov", "dR chain", "dR_dbg chain", "state-free", "sums",
+                "A terms", "y terms")
+
+
+def preint_launcher(args, kw):
+    """launch(lib) -> the twelve PreintState leaves: preintegrate(*args,
+    **kw)'s launch alone on its prepared inputs, by the build lib of
+    preintegration.cu (None: the shipped one), into the same output
+    tensors each call."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tpre)
+    n, dev = args[0].shape[0], args[0].device
+    acc, gyr, dt = tpre._samples(*args[:3])
+    m = tpre._device_mask(args[3], n, dev)
+    ba, bg = tpre._vec3(args[4], dev), tpre._vec3(args[5], dev)
+    var = [float(v) for v in (*args[6:], *kw.values())] + [1e-8]
+
+    def e(*shape):
+        return torch.empty(shape, device=dev)
+
+    out = tpre.PreintState(e(3, 3), e(3), e(3), e(), e(3, 3), e(3, 3),
+                           e(3, 3), e(3, 3), e(3, 3), e(9, 9), e(3), e(3))
+
+    def launch(lib):
+        kernels.launch_preintegrate(acc, gyr, dt, m, ba, bg, out,
+                                    acc_var=var[0], gyr_var=var[1],
+                                    int_var=var[2], lib=lib)
+        return out
+    return launch
+
+
+def propagate_launcher(args, kw):
+    """launch(lib) -> (R, p, v): propagate_states(*args, **kw)'s launch
+    alone on its prepared inputs, by the build lib (None: the shipped
+    one), into the same output tensors each call."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tpre)
+    n, dev = args[3].shape[0], args[3].device
+    acc, gyr, dt = tpre._samples(*args[3:6])
+    m = tpre._device_mask(args[6], n, dev)
+    ba, bg = tpre._vec3(args[1], dev), tpre._vec3(args[2], dev)
+    nav = tpre.NavState(*(torch.as_tensor(t, dtype=torch.float32,
+                                          device=dev).contiguous()
+                          for t in args[0]))
+    gravity = float(kw.get("gravity", args[7] if len(args) > 7 else 9.80511))
+    out = tpre.NavState(torch.empty(n, 3, 3, device=dev),
+                        torch.empty(n, 3, device=dev),
+                        torch.empty(n, 3, device=dev))
+
+    def launch(lib):
+        kernels.launch_propagate_states(nav, ba, bg, acc, gyr, dt, m, out,
+                                        gravity=gravity, lib=lib)
+        return out
+    return launch
+
+
+def imu_profile(launch, lib, reps=5):
+    """The 19 clock64 sums of reps launches of preintegration.cu's
+    diagnostic build lib (-DFBPR_PREINT_PROFILE) through launch."""
+    import ctypes
+
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    out = (ctypes.c_uint64 * 19)()
+    torch.cuda.synchronize()
+    rd = lib.fbpr_preintegrate_profile
+    kernels._check_rc("fbpr_preintegrate_profile",
+                      rd(ctypes.addressof(out), 1))
+    for _ in range(reps):
+        launch(lib)
+    torch.cuda.synchronize()
+    kernels._check_rc("fbpr_preintegrate_profile",
+                      rd(ctypes.addressof(out), 1))
+    return [int(v) for v in out]
+
+
+def propagate_split(name, launch, lib, reps=5):
+    """One `probe propagate_states <name> split` line: the walking warp's
+    clock64 cycles a slot in the diagnostic build.  Returns the record."""
+    calls, slots, cycles = imu_profile(launch, lib, reps)[13:16]
+    rec = dict(walk_cycles_slot=cycles / max(slots, 1),
+               slots=slots / max(calls, 1))
+    print(f"probe propagate_states {name} split (diagnostic build, clock64 "
+          f"on the walking warp): {rec['slots']:.0f} slots, "
+          f"{rec['walk_cycles_slot']:.1f} cycles a slot", flush=True)
+    return rec
+
+
+def preint_split(name, launch, lib, reps=5):
+    """One `probe preintegrate <name> split` line: reps launches of the
+    diagnostic build lib (-DFBPR_PREINT_PROFILE) through launch
+    (preint_launcher) and its clock64 sums: the cycles each warp role's
+    lane 0 spent in its stage's work, in us a call, the cov warp's cycles a
+    live sample, the pipeline steps and the dense cov steps a call.
+    Returns the record."""
+    prof = imu_profile(launch, lib, reps)
+    calls, live, steps, *busy, cycles, ns, dense = prof[:13]
+    step = [v / max(live, 1) for v in prof[16:19]]
+    calls = max(calls, 1)
+    ghz = cycles / max(ns, 1)
+    busy_us = {r: b / calls / ghz / 1e3 for r, b in zip(PREINT_ROLES, busy)}
+    rec = dict(call_us=ns / calls / 1e3, ghz=ghz, busy_us=busy_us,
+               steps=steps / calls, live=live / calls,
+               cov_cycles_live=busy[0] / max(live, 1), dense=dense / calls,
+               cov_step_cycles=dict(zip(("loads and A cov",
+                                         "shuffles and T1 A^T",
+                                         "vote, store, sync"), step)))
+    print(f"probe preintegrate {name} split (diagnostic build, clock64 on "
+          f"lane 0 of each warp, clock {ghz:.3f} GHz): a call "
+          f"{rec['call_us']:.2f} us, {rec['steps']:.0f} pipeline steps, "
+          f"{rec['live']:.0f} live samples; busy " + ", ".join(
+              f"{r} {u:.2f}" for r, u in busy_us.items())
+          + f" us; the cov warp {rec['cov_cycles_live']:.1f} cycles a live "
+          f"sample (a step split at two stamps, each adding a shared store "
+          f"and a __syncwarp: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in rec["cov_step_cycles"].items())
+          + f"); dense cov steps {rec['dense']:.0f}", flush=True)
+    return rec
+
+
+def imu_extras(kind, name, launch, split):
+    """A preintegrate or propagate_states probe's additions through launch:
+    the launch's device ms in a CUDA graph (graph_ms: the host's ~0.03 ms a
+    ctypes launch left out), the diagnostic split (if split) and, given
+    --imu-ab, the other version in turns (in CUDA graphs), bit for bit or
+    it raises."""
+    rec = {"graph_ms": cuda_ms(lambda: launch(None), 20, graph=True)}
+    print(f"probe {kind} {name}: the launch on the device alone (20 in a "
+          f"CUDA graph) {rec['graph_ms']:.4f} ms", flush=True)
+    if split:
+        if not IMU_PROFILE:
+            IMU_PROFILE.update(ab_builds(("preintegration",),
+                                         profile="-DFBPR_PREINT_PROFILE"))
+        rec["split"] = (preint_split if kind == "preintegrate"
+                        else propagate_split)(name, launch,
+                                              IMU_PROFILE["preintegration"])
+    if IMU_AB:
+        rec["in_turns"] = lm_turns(kind, name, launch, IMU_AB["plain"],
+                                   flag="--imu-ab", graph=True)
+        if not rec["in_turns"]["bitwise_other"]:
+            raise AssertionError(f"{kind} {name}: the kernel differs from "
+                                 "the other version's")
+    return rec
+
+
+def imu_scene_turns(dev):
+    """Given --imu-ab: tests/imu_chain_scenes.py's buffers and edge buffers
+    (the GPU tests') on the shipped kernels and the other version's, bit
+    for bit or it raises."""
+    import torch
+
+    import imu_chain_scenes as ics
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tpre)
+    nav = tpre.NavState(
+        torch.from_numpy(ics.rot((0.1, -0.2, 0.7)).astype(np.float32)).to(
+            dev), torch.tensor([1.0, -2.0, 0.5], device=dev),
+        torch.tensor([1.2, 0.1, 0.0], device=dev))
+    n = 0
+    for kind in ics.BUFFERS + ics.EDGE_BUFFERS:
+        acc, gyr, dt, m, ba, bg = ics.buffer(kind, dev)
+        for launch in (preint_launcher((acc, gyr, dt, m, ba, bg, ics.ACC_VAR,
+                                        ics.GYR_VAR), {}),
+                       propagate_launcher((nav, ba, bg, acc, gyr, dt, m),
+                                          dict(gravity=ics.G))):
+            mine = [t.clone() for t in launch(None)]
+            theirs = launch(IMU_AB["plain"])
+            if not all(_same_bits(a, b) for a, b in zip(mine, theirs)):
+                raise AssertionError(f"IMU scene {kind}: the kernels differ "
+                                     "from the other version's")
+            n += 1
+    print(f"probe preintegrate/propagate_states scenes against the other "
+          f"version (--imu-ab): {n} calls on the GPU tests' {n // 2} "
+          f"buffers, outputs bit for bit equal True", flush=True)
+    return n
+
+
+def imu_phase9_turns():
+    """Phase 9's recorded preintegrate and propagate_states calls again on
+    their launches alone: device ms a LIO step of both (all calls once,
+    five times over in a CUDA graph: the host's ctypes launches, ~0.02 ms
+    each, left out) and, given --imu-ab, the other version's in turns
+    (shipped, other, other, shipped), every call bit for bit or it
+    raises.  Returns the record."""
+    import torch
+    rec9 = IMU_INPUTS["phase9_calls"]
+    launches = [preint_launcher(a, kw) for a, kw in rec9["preintegrate"]] \
+        + [propagate_launcher(a, kw) for a, kw in rec9["propagate"]]
+    steps = rec9["steps"]
+    if IMU_AB:
+        for i, launch in enumerate(launches):
+            mine = [t.clone() for t in launch(None)]
+            theirs = launch(IMU_AB["plain"])
+            if not all(_same_bits(a, b) for a, b in zip(mine, theirs)):
+                raise AssertionError(f"phase 9 IMU call {i}: the kernel "
+                                     "differs from the other version's")
+
+    def every(lib):
+        for launch in launches:
+            launch(lib)
+
+    routes = ("shipped", "other", "other", "shipped") if IMU_AB \
+        else ("shipped",)
+    ms = {"shipped": [], "other": []}
+    for route in routes:
+        lib = IMU_AB["plain"] if route == "other" else None
+        ms[route].append(cuda_ms(lambda: every(lib), 5, graph=True) / steps)
+    torch.cuda.synchronize()
+    rec = dict(calls=len(launches), steps=steps,
+               kernel_ms_step=float(np.mean(ms["shipped"])))
+    line = (f"time phase 9 preintegration + propagation: "
+            f"{len(rec9['preintegrate'])} preintegrate and "
+            f"{len(rec9['propagate'])} propagate_states calls again on their "
+            f"launches alone (in a CUDA graph), {rec['kernel_ms_step']:.4f} "
+            f"ms a LIO step ({steps} steps)")
+    if IMU_AB:
+        rec.update(ms=ms["shipped"], other_ms=ms["other"],
+                   other_ms_step=float(np.mean(ms["other"])),
+                   bitwise_other=True)
+        line += (f"; in turns with the other version (--imu-ab): kernel "
+                 f"{ms['shipped'][0]:.4f} / {ms['shipped'][1]:.4f}, other "
+                 f"{ms['other'][0]:.4f} / {ms['other'][1]:.4f} ms a step: "
+                 f"{rec['other_ms_step'] / rec['kernel_ms_step']:.2f}x; "
+                 f"every call bit for bit equal True")
+    print(line, flush=True)
+    return rec
+
+
+def preint_probe(name, args, kw, split=False):
     """One `probe preintegrate` line: preintegrate on the card (the kernel)
     against preintegrate_reference on the card with the same arguments,
     held by tests/imu_chain_scenes.py's preint_agreement: up to 64 live
@@ -2204,15 +2461,15 @@ def preint_probe(name, args, kw):
     its largest entry; above, 1e-5 and a floor of 1e-6, where the kernel is
     as near a float64 run of the plain version as the plain version is,
     within a factor of 2; two launches bitwise.  Kernel ms: the launch
-    alone; the entry point's beside it.  Returns the probe's record."""
+    alone; the entry point's beside it; with split, the diagnostic build's
+    split; given --imu-ab, the other version in turns.  Returns the
+    probe's record."""
     import torch
 
     import imu_chain_scenes as ics
-    from feature_base_pointcloud_registration_tpu_torch import kernels
     from feature_base_pointcloud_registration_tpu_torch.imu import (
         preintegration as tpre)
     n = args[0].shape[0]
-    mask = args[3]
     l0 = tpre.preintegrate.launches
     got = tpre.preintegrate(*args, **kw)
     launches = tpre.preintegrate.launches - l0
@@ -2223,14 +2480,8 @@ def preint_probe(name, args, kw):
     live, errs = rep["live"], rep["errs"]
     # the launch alone on the entry point's prepared inputs, and the entry
     # point (its copies of strided samples, uploads and allocations)
-    dev = args[0].device
-    acc, gyr, dt = tpre._samples(*args[:3])
-    m, ba, bg = (tpre._device_mask(mask, n, dev), tpre._vec3(args[4], dev),
-                 tpre._vec3(args[5], dev))
-    var = [float(v) for v in (*args[6:], *kw.values())] + [1e-8]
-    ms = cuda_ms(lambda: kernels.launch_preintegrate(
-        acc, gyr, dt, m, ba, bg, got, acc_var=var[0], gyr_var=var[1],
-        int_var=var[2]), 20)
+    launch = preint_launcher(args, kw)
+    ms = cuda_ms(lambda: launch(None), 20)
     entry_ms = cuda_ms(lambda: tpre.preintegrate(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: tpre.preintegrate_reference(*args, **kw), 2)
     b_ms, b_by = sample_bound(n, live, PREINT_OPS_SAMPLE, 148 * 4)
@@ -2253,6 +2504,7 @@ def preint_probe(name, args, kw):
     if not (ok and bitwise and launches == 1):
         raise AssertionError(f"preintegrate {name}: {errs}, bitwise "
                              f"{bitwise}, launches {launches}")
+    rec.update(imu_extras("preintegrate", name, launch, split))
     return rec
 
 
@@ -2264,7 +2516,6 @@ def propagate_probe(name, args, kw):
     record."""
     import torch
 
-    from feature_base_pointcloud_registration_tpu_torch import kernels
     from feature_base_pointcloud_registration_tpu_torch.imu import (
         preintegration as tpre)
     n = args[3].shape[0]
@@ -2279,14 +2530,8 @@ def propagate_probe(name, args, kw):
     errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
     ok = all(e <= 1e-5 * max(1.0, float(b.abs().max()))
              for e, b in zip(errs, want))
-    dev = args[3].device
-    acc, gyr, dt = tpre._samples(*args[3:6])
-    m, ba, bg = (tpre._device_mask(mask, n, dev), tpre._vec3(args[1], dev),
-                 tpre._vec3(args[2], dev))
-    nav = tpre.NavState(*(t.contiguous() for t in args[0]))
-    gravity = float(kw.get("gravity", args[7] if len(args) > 7 else 9.80511))
-    ms = cuda_ms(lambda: kernels.launch_propagate_states(
-        nav, ba, bg, acc, gyr, dt, m, got, gravity=gravity), 20)
+    launch = propagate_launcher(args, kw)
+    ms = cuda_ms(lambda: launch(None), 20)
     entry_ms = cuda_ms(lambda: tpre.propagate_states(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: tpre.propagate_states_reference(*args, **kw),
                        2)
@@ -2303,6 +2548,7 @@ def propagate_probe(name, args, kw):
     if not (ok and bitwise and launches == 1):
         raise AssertionError(f"propagate_states {name}: {errs}, bitwise "
                              f"{bitwise}, launches {launches}")
+    rec.update(imu_extras("propagate_states", name, launch, True))
     return rec
 
 
@@ -2313,9 +2559,12 @@ def imu_probes(dev):
     scenes of tests/imu_chain_scenes.py;
     `probe imu_chain_blocks` on (a) and the scenes; `probe preintegrate` and
     `probe propagate_states` at phase 9's interval, a 64-sample capped
-    interval and a 1024-sample buffer with interior masked samples.
+    interval and a 1024-sample buffer with interior masked samples (each
+    preintegration with its diagnostic split); phase 9's recorded
+    preintegrate and propagate_states calls again (imu_phase9_turns); given
+    --imu-ab, the GPU tests' buffers on both versions (imu_scene_turns).
     Returns {"chain": {name: record}, "blocks_max_rel_err": x, "preint":
-    {...}, "propagate": {...}}."""
+    {...}, "propagate": {...}, "phase9": {...}, "scenes": calls or None}."""
     import torch
 
     import imu_chain_scenes as ics
@@ -2338,7 +2587,8 @@ def imu_probes(dev):
             for sc in ics.SCENES]
     preint, prop = {}, {}
     a, kw = IMU_INPUTS["preintegrate"]
-    preint["phase 9 interval"] = preint_probe("phase 9 interval", a, kw)
+    preint["phase 9 interval"] = preint_probe("phase 9 interval", a, kw,
+                                              split=True)
     a, kw = IMU_INPUTS["propagate"]
     prop["phase 9 stream"] = propagate_probe("phase 9 stream", a, kw)
     nav = tpre.NavState(
@@ -2350,11 +2600,14 @@ def imu_probes(dev):
                                       "masked samples")):
         acc, gyr, dt, m, ba, bg = ics.buffer(kind, dev)
         preint[name] = preint_probe(name, (acc, gyr, dt, m, ba, bg,
-                                           ics.ACC_VAR, ics.GYR_VAR), {})
+                                           ics.ACC_VAR, ics.GYR_VAR), {},
+                                    split=True)
         prop[name] = propagate_probe(name, (nav, ba, bg, acc, gyr, dt, m),
                                      dict(gravity=ics.G))
     return {"chain": chain, "blocks_max_rel_err": max(blk),
-            "preint": preint, "propagate": prop}
+            "preint": preint, "propagate": prop,
+            "phase9": imu_phase9_turns(),
+            "scenes": imu_scene_turns(dev) if IMU_AB else None}
 
 # the inputs of ICP runs and k-NN calls of the phases, kept for the
 # `probe icp` / `probe knn` lines ({name: (args, kw)})
@@ -2601,19 +2854,12 @@ def scene_turns(dev):
     return {"knn": n_knn, "icp": n_icp, "bitwise": same}
 
 
-def variant_build(stem, flags, label):
-    """A build of csrc/<stem>.cu with `flags` in place of its
-    kernels.SOURCE_FLAGS entry, loaded; its ptxas lines printed under
-    label."""
+def variant_build(stem, extra_flags, label):
+    """A build of csrc/<stem>.cu with extra_flags on top of the shipped
+    ones (kernels._flags: an -fmad= among them replaces the shipped one),
+    loaded; its ptxas lines printed under label."""
     from feature_base_pointcloud_registration_tpu_torch import kernels
-    src = kernels.CSRC / f"{stem}.cu"
-    shipped = dict(kernels.SOURCE_FLAGS)
-    kernels.SOURCE_FLAGS[stem] = list(flags)
-    try:
-        so = kernels._build([src])[0]
-    finally:
-        kernels.SOURCE_FLAGS.clear()
-        kernels.SOURCE_FLAGS.update(shipped)
+    so = kernels._build([kernels.CSRC / f"{stem}.cu"], extra_flags)[0]
     print_ptxas(label, kernels.BUILD_DIR / (so.stem + ".log"))
     return kernels.load(so)
 
@@ -2621,15 +2867,13 @@ def variant_build(stem, flags, label):
 def fma_build(stem):
     """A build of csrc/<stem>.cu with FMA contraction (the shipped one has
     none: kernels.SOURCE_FLAGS), loaded."""
-    return variant_build(stem, [], label=f"{stem} (FMA build)")
+    return variant_build(stem, ["-fmad=true"], label=f"{stem} (FMA build)")
 
 
 def rounds_profile_build():
     """rounds_gn.cu's diagnostic build: the shipped flags and
     -DFBPR_ROUNDS_PROFILE (clock64 stamps, fbpr_rounds_gn_profile)."""
-    from feature_base_pointcloud_registration_tpu_torch import kernels
-    return variant_build("rounds_gn", [*kernels.SOURCE_FLAGS["rounds_gn"],
-                                       "-DFBPR_ROUNDS_PROFILE"],
+    return variant_build("rounds_gn", ["-DFBPR_ROUNDS_PROFILE"],
                          "rounds_gn (diagnostic build)")
 
 
@@ -4942,6 +5186,9 @@ def lio_phase(dev):
     IMU_INPUTS["(b) phase 9 first correction after a reset"] = after
     IMU_INPUTS["preintegrate"] = timer.calls["preintegrate"][-1][:2]
     IMU_INPUTS["propagate"] = timer.calls["propagate"][-1][:2]
+    IMU_INPUTS["phase9_calls"] = dict(
+        preintegrate=[c[:2] for c in timer.calls["preintegrate"]],
+        propagate=[c[:2] for c in timer.calls["propagate"]], steps=len(ests))
 
     # ---- accuracy against the truth (the map frame is the truth's) ----
     est = np.stack(ests)
@@ -5952,6 +6199,13 @@ def main():
                          "include) to run in turns with the shipped ones, "
                          "bit for bit, at the knn and ICP probes, the GPU "
                          "tests' scenes and phase 8's ICP runs")
+    ap.add_argument("--imu-ab", metavar="DIR",
+                    help="a directory holding another version of "
+                         "preintegration.cu (and the headers it includes) "
+                         "to run in turns with the shipped one, bit for "
+                         "bit, at the preintegrate and propagate_states "
+                         "probes, the GPU tests' buffers and phase 9's "
+                         "calls")
     args = ap.parse_args()
     dev = require_cuda()
     sys.path.insert(0, os.path.join(REPO, "tests"))    # oracle.py
@@ -5978,6 +6232,9 @@ def main():
         KI_AB.update(plain=ab_builds(("knn_stream", "icp"), args.knn_icp_ab),
                      profile=ab_builds(("icp",), args.knn_icp_ab,
                                        "-DFBPR_ICP_PROFILE"))
+    if args.imu_ab:
+        IMU_AB.update(plain=ab_builds(("preintegration",),
+                                      args.imu_ab)["preintegration"])
 
     # ---- setup: bench.py's scans, guesses and map, from seeds ----
     params = Params(map_corner_cap=16384, map_surf_cap=65536,
@@ -6542,9 +6799,23 @@ def main():
               propagate_states={k: rp_imu["propagate"]["phase 9 stream"][k]
                                 for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by")},
+              redesigned="each step split by what it depends on, a "
+                         "pipeline of warps over 32-slot chunks (the live "
+                         "slots compacted by a ballot; the dR and dR_dbg "
+                         "chains; the per-sample terms; cov on one warp on "
+                         "A's structure, the dense step where a skipped "
+                         "zero meets a term that is not finite; the sums); "
+                         "the propagation on one warp, no CTA barrier a "
+                         "slot",
+              phase9=rp_imu["phase9"],
+              scenes_in_turns=rp_imu["scenes"],
+              in_turns={f"{kind} {n}": r.get("in_turns")
+                        for kind in ("preint", "propagate")
+                        for n, r in rp_imu[kind].items()},
               probes={f"{kind} {n}": {k: r[k] for k in (
-                  "N", "live", "ms", "entry_ms", "plain_ms", "bound_ms",
-                  "bound_by", "max_abs_err", "bitwise")}
+                  "N", "live", "ms", "graph_ms", "entry_ms", "plain_ms",
+                  "bound_ms", "bound_by", "max_abs_err", "bitwise")}
+                      | ({"split": r["split"]} if "split" in r else {})
                       for kind in ("preint", "propagate")
                       for n, r in rp_imu[kind].items()}),
         entry("knn_stream", "knn_stream.cu",

@@ -157,12 +157,15 @@ _SIGNATURES = {
     # out (uint64 [14]), reset: icp.cu's clock64 stage sums, defined only by
     # its diagnostic build (-DFBPR_ICP_PROFILE)
     "fbpr_icp_profile": [_P, _I],
+    # out (uint64 [19]), reset: preintegration.cu's clock64 sums by warp
+    # role, defined only by its diagnostic build (-DFBPR_PREINT_PROFILE)
+    "fbpr_preintegrate_profile": [_P, _I],
 }
 
 # entry points that only a diagnostic build of a source defines
 _DIAGNOSTIC = {"fbpr_rounds_gn_profile", "fbpr_ring_pick_profile",
                "fbpr_pose_graph_lm_profile", "fbpr_imu_chain_lm_profile",
-               "fbpr_icp_profile"}
+               "fbpr_icp_profile", "fbpr_preintegrate_profile"}
 
 
 def _nvcc() -> str:
@@ -183,12 +186,23 @@ def _local_includes(src: Path) -> list:
         r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M)]
 
 
-def _build(sources) -> list:
-    """One shared library per source, all nvcc processes started together;
-    returns their paths (existing ones are reused)."""
+def _flags(stem: str, extra_flags=()) -> list:
+    """nvcc's flags for a source: NVCC_FLAGS, its SOURCE_FLAGS entry and
+    extra_flags (a diagnostic build's -D...); an -fmad= among extra_flags
+    takes the place of the source's own (the FMA builds pass -fmad=true)."""
+    own = SOURCE_FLAGS.get(stem, [])
+    if any(f.startswith("-fmad=") for f in extra_flags):
+        own = [f for f in own if not f.startswith("-fmad=")]
+    return [*NVCC_FLAGS, *own, *extra_flags]
+
+
+def _build(sources, extra_flags=()) -> list:
+    """One shared library per source, all nvcc processes started together,
+    each with `_flags(stem, extra_flags)`; returns their paths (existing
+    ones are reused)."""
     jobs, sos = [], []
     for src in sources:
-        flags = [*NVCC_FLAGS, *SOURCE_FLAGS.get(src.stem, [])]
+        flags = _flags(src.stem, extra_flags)
         h = hashlib.sha256(" ".join(flags).encode())
         for path in (src, *_local_includes(src)):
             h.update(path.read_bytes())
@@ -548,11 +562,13 @@ def launch_imu_chain_blocks(d, states, out):
 
 
 def launch_preintegrate(acc, gyr, dt, mask, bias_acc, bias_gyr, out, *,
-                        acc_var: float, gyr_var: float, int_var: float):
+                        acc_var: float, gyr_var: float, int_var: float,
+                        lib: SimpleNamespace | None = None):
     """csrc/preintegration.cu's fbpr_preintegrate on validated CUDA tensors
     (see imu/preintegration.py); mask: bool [N] or None (every sample
-    live); out: the twelve PreintState leaves, written."""
-    lib = library()
+    live); out: the twelve PreintState leaves, written.  lib: another build
+    of the source (chip_smoke.py's --imu-ab), else the shipped one."""
+    lib = lib or library()
     with torch.cuda.device(acc.device):
         rc = lib.fbpr_preintegrate(
             acc.data_ptr(), gyr.data_ptr(), dt.data_ptr(),
@@ -564,11 +580,13 @@ def launch_preintegrate(acc, gyr, dt, mask, bias_acc, bias_gyr, out, *,
 
 
 def launch_propagate_states(nav, bias_acc, bias_gyr, acc, gyr, dt, mask,
-                            out, *, gravity: float):
+                            out, *, gravity: float,
+                            lib: SimpleNamespace | None = None):
     """csrc/preintegration.cu's fbpr_propagate_states on validated CUDA
     tensors (see imu/preintegration.py); nav: (R [3, 3], p [3], v [3]);
-    out: (R [N, 3, 3], p [N, 3], v [N, 3]), written."""
-    lib = library()
+    out: (R [N, 3, 3], p [N, 3], v [N, 3]), written.  lib: another build
+    of the source, else the shipped one."""
+    lib = lib or library()
     with torch.cuda.device(acc.device):
         rc = lib.fbpr_propagate_states(
             *(t.data_ptr() for t in nav), bias_acc.data_ptr(),

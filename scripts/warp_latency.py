@@ -30,6 +30,17 @@ CHAINS = [  # (name, one step of x)
     ("STS, syncwarp, LDS, syncwarp, + fadd",
      "{ s[lane] = x; __syncwarp(); x = s[(lane + 1) & 31] + 1.0f;"
      " __syncwarp(); }"),
+    ("fadd", "x = x + 1e-3f;"),
+    ("3 shfl from one row, their sum",
+     "{ const int b = 3 * ((lane & 31) / 3 % 9);"
+     " x = (__shfl_sync(0xffffffffu, x, b) + __shfl_sync(0xffffffffu, x,"
+     " b + 1)) + __shfl_sync(0xffffffffu, x, b + 2); }"),
+    ("STS.128, syncwarp, 5 LDS.128, their sum",
+     "{ s4[lane] = make_float4(x, x, x, 0.0f); __syncwarp();"
+     " const float4 a = s4[(lane + 1) & 31], b = s4[(lane + 2) & 31],"
+     " c = s4[(lane + 3) & 31], d = s4[(lane + 4) & 31],"
+     " e = s4[(lane + 5) & 31];"
+     " x = (((a.x + b.y) + c.z) + d.x) + e.y; __syncwarp(); }"),
     ("if / else if around a div",
      "{ const int j = i & 31; if (lane == j) x = x + 1.0f;"
      " else if (lane > j) x = y / x + 1.0f; }"),
@@ -39,6 +50,7 @@ SOURCE = """
 template <int M>
 __global__ void chain(float* out, long long* cyc, int n) {
   __shared__ float s[32];
+  __shared__ float4 s4[32];
   const int lane = threadIdx.x & 31;
   float x = 1.5f + lane * 1e-3f, y = 1.25f + lane * 1e-3f;
   const float z = (lane & 1) ? 0.0f : y;

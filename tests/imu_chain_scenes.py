@@ -193,6 +193,11 @@ def scene(name, device="cpu", K=None):
 
 
 BUFFERS = ("phase9", "cap64", "buffer1024", "none_live")
+# the preintegration kernels' edge buffers (tests/preint_chain.py's orders,
+# the GPU tests, chip_smoke.py --imu-ab); the last two are not finite
+EDGE_BUFFERS = ("one_live", "first_last_masked", "dt_zero", "near_pi",
+                "n97", "acc_overflow", "dt_huge")
+NONFINITE_BUFFERS = ("acc_overflow", "dt_huge")
 
 
 def buffer_arrays(kind):
@@ -200,24 +205,49 @@ def buffer_arrays(kind):
     None, bias_acc, bias_gyr [3]): "phase9" one LIO interval (19 samples,
     all live, mask None); "cap64" a 64-sample interval with a masked tail
     and a masked sample inside; "buffer1024" ImuOdometry's default buffer
-    with interior masked samples (~70% live); "none_live" no live sample."""
-    n = {"phase9": 19, "cap64": 64, "buffer1024": 1024}.get(kind, 8)
+    with interior masked samples (~70% live); "none_live" no live sample.
+    The edge buffers: "one_live" 8 slots, slot 3 live; "first_last_masked"
+    40 slots, the first and the last masked; "dt_zero" 24 live slots, dt 0
+    at slots 0, 7 and 8; "near_pi" 24 live, slot 5 turning pi - 1e-3 about
+    an axis; "n97" 97 slots (a multiple of no chunk), ~80% live;
+    "acc_overflow" 24 live, slot 5's accel 1e30 (cov overflows to inf and
+    NaN after it); "dt_huge" 24 live, slot 9's dt 1e20 with w = 0 (its
+    noise input B overflows, Exp and Jr stay exact)."""
+    n = {"phase9": 19, "cap64": 64, "buffer1024": 1024,
+         "first_last_masked": 40, "dt_zero": 24, "near_pi": 24, "n97": 97,
+         "acc_overflow": 24, "dt_huge": 24}.get(kind, 8)
     acc, gyr, dt, _, _ = stream(n, seed=len(kind))
     r = np.random.RandomState(3)
     dt = (dt * (1.0 + 0.1 * r.uniform(-1, 1, n))).astype(np.float32)
-    if kind == "phase9":
-        mask = None
-    elif kind == "cap64":
+    ba = np.array([0.02, -0.01, 0.03], np.float32)
+    bg = np.array([0.004, -0.002, 0.001], np.float32)
+    mask = None
+    if kind == "cap64":
         mask = np.arange(n) < 50
         mask[17] = False
         acc[17], gyr[17], dt[17] = 50.0, -3.0, 0.5   # garbage, masked
     elif kind == "buffer1024":
         mask = r.uniform(size=n) < 0.7
-    else:
+    elif kind == "none_live":
         mask = np.zeros(n, bool)
-    return (acc.astype(np.float32), gyr.astype(np.float32), dt, mask,
-            np.array([0.02, -0.01, 0.03], np.float32),
-            np.array([0.004, -0.002, 0.001], np.float32))
+    elif kind == "one_live":
+        mask = np.arange(n) == 3
+    elif kind == "first_last_masked":
+        mask = np.ones(n, bool)
+        mask[0] = mask[-1] = False
+    elif kind == "dt_zero":
+        dt[[0, 7, 8]] = 0.0
+    elif kind == "near_pi":
+        axis = np.array([1.0, 2.0, 2.0]) / 3.0
+        gyr[5] = bg + axis * (np.pi - 1e-3) / dt[5]
+    elif kind == "n97":
+        mask = r.uniform(size=n) < 0.8
+    elif kind == "acc_overflow":
+        acc[5] = 1e30
+    elif kind == "dt_huge":
+        gyr[9], dt[9] = bg, 1e20
+    return (acc.astype(np.float32), gyr.astype(np.float32), dt, mask, ba,
+            bg)
 
 
 def buffer(kind, device="cpu"):

@@ -85,7 +85,11 @@ as near a float64 run of the plain version as the plain version, within
 a factor of 2) and the propagation (R,
 p, v within 1e-5 of max(1, their largest entry)) on one LIO interval, a
 64-sample interval, a 1024-sample buffer with interior masked samples and
-a buffer with none live, with no host sync and two launches bitwise.
+a buffer with none live, with no host sync and two launches bitwise; both
+on tests/imu_chain_scenes.py's edge buffers (one live sample, a masked
+first and last slot, dt 0, a rotation near pi, 97 slots; an accel that
+overflows cov and a dt that overflows B, held to the plain version's
+non-finite leaves).
 The streamed k-NN kernel (csrc/knn_stream.cu) against its plain version
 on the card (`knn_reference`) on tests/icp_scenes.py's scenes at k 1, 5
 and 16, a shared map and one map per set, one chunk and four: one launch
@@ -1921,6 +1925,62 @@ def test_propagate_states_kernel_matches_plain(cuda, kind):
     print(f"propagate_states {kind}: R, p, v |diff| max {errs}")
     again = tp.propagate_states(nav, ba, bg, acc, gyr, dt, m, gravity=ics.G)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ics.EDGE_BUFFERS)
+def test_preintegration_kernels_on_edge_buffers(cuda, kind):
+    """Both kernels against their plain versions on the edge buffers (one
+    live sample, a masked first and last slot, dt 0, a rotation near pi,
+    97 slots, an accel that overflows cov, a dt that overflows B): one
+    launch each, no host sync, two launches bitwise; the finite buffers by
+    the bounds above, the other two with the same leaves finite and those
+    leaves' finite entries within the same bounds."""
+    from feature_base_pointcloud_registration_tpu_torch.imu import (
+        preintegration as tp)
+    buf = ics.buffer(kind, device=cuda)
+    args = (*buf, ics.ACC_VAR, ics.GYR_VAR)
+    before = tp.preintegrate.launches
+    got, syncs = _syncs_of(lambda: tp.preintegrate(*args))
+    want = tp.preintegrate_reference(*args)
+    assert tp.preintegrate.launches == before + 1 and syncs == 0
+    print(f"preintegrate {kind}: ", end="")
+    if kind in ics.NONFINITE_BUFFERS:
+        for f, a, b in zip(got._fields, got, want):
+            assert torch.equal(torch.isfinite(a), torch.isfinite(b)), f
+            if f != "cov" and bool(torch.isfinite(b).all()):
+                scale = max(1.0, float(b.abs().max()))
+                assert float((a - b).abs().max()) <= 1e-6 * scale, f
+        print({f: bool(torch.isfinite(a).all()) for f, a in
+               zip(got._fields, got)})
+    else:
+        _pre_leaves_as_plain(got, want, args)
+    again = tp.preintegrate(*args)
+    assert all(_bits_equal(a, b) for a, b in zip(again, got))
+    acc, gyr, dt, m, ba, bg = buf
+    nav = tp.NavState(
+        torch.from_numpy(ics.rot((0.1, -0.2, 0.7)).astype(np.float32)).to(
+            cuda), torch.tensor([1.0, -2.0, 0.5], device=cuda),
+        torch.tensor([1.2, 0.1, 0.0], device=cuda))
+    before = tp.propagate_states.launches
+    got, syncs = _syncs_of(lambda: tp.propagate_states(
+        nav, ba, bg, acc, gyr, dt, m, gravity=ics.G))
+    want = tp.propagate_states_reference(nav, ba, bg, acc, gyr, dt, m,
+                                         gravity=ics.G)
+    assert tp.propagate_states.launches == before + 1 and syncs == 0
+    errs = []
+    for a, b in zip(got, want):
+        fin = b[torch.isfinite(b)]
+        scale = max(1.0, float(fin.abs().max())) if fin.numel() else 1.0
+        errs.append(_same_nan_within(a, b, 1e-5 * scale))
+    print(f"propagate_states {kind}: R, p, v |diff| max {errs}")
+    again = tp.propagate_states(nav, ba, bg, acc, gyr, dt, m, gravity=ics.G)
+    assert all(_bits_equal(a, b) for a, b in zip(again, got))
+
+
+def _bits_equal(a, b):
+    """float32 tensors equal bit for bit, NaN included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda

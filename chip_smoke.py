@@ -171,14 +171,19 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            split with the picking on the kernel and on its plain
            version, the window and
            full LM, ICP ms and iterations, host syncs a step (the CUDA
-           sync debug mode), a profiled window LM solve, register_scan
-           beside its bound, the knn selection against a stable sort, the
-           caps the step reported, each table's kind, rows and bytes; ICP
+           sync debug mode), a profiled window LM solve, the knn
+           selection against a stable sort, the caps the step reported,
+           each table's kind, rows and bytes; ICP
            counted (one icp launch a run, no knn launch in the steps) and
            every ICP run of the run again on the kernel and on the
            parent's loop (icp_align_reference on the card) in turns, ms a
-           run and iterations on each; the exact solver's knn launches
-           counted (its first surf-map call kept for the probes); the
+           run and iterations on each; the exact solver counted (one
+           exact_gn launch a solve, no knn launch, 0 host syncs inside a
+           solve by the sync debug mode) and each solve again on the
+           kernel and on its plain loop (exact_gn_reference on the card)
+           in turns, ms a solve, iterations, n_corr and flags equal (the
+           plain loop's first surf-map k-NN call kept for
+           `probe knn` (c), its knn launches counted); the
            pose-graph LM counted: every optimize_pose_graph call on the
            pose_graph_lm kernel (route A: one launch; route B: two an
            iteration), the marginals' factor blocks on its blocks entry;
@@ -321,7 +326,23 @@ round-0 strides 8/4, 2 rounds x 15 GN iterations.
            of the terms the formula cancels, index swaps only at near-ties,
            two launches bitwise, the launch and the call timed beside the
            plain version and the bound, the build with FMA contraction
-           beside; `probe icp` lines: the ICP kernel (icp_align, one
+           beside; `probe exact_gn` lines: the exact solver's kernel
+           (exact_gn, one launch a solve) against its plain loop on the
+           card (exact_gn_reference) at (a) phase 8's three solves, (b)
+           batch_register on the bench batch's first 32 scans (one launch,
+           ate_vs_oracle_m on its first 8 lanes <= 1e-3), (c) the bench's
+           scan 0 on a surf map of 65536 slots, every one live: kernel and
+           plain ms, the bound (map slots x 16 B, 2*3*Q*M operations a
+           lane-iteration) and its share, iterations, n_corr and flags
+           equal (at (a) on every lane; elsewhere the lanes that differ
+           counted and held to the plain loop's card-vs-CPU spread on
+           them or one sub-threshold GN step), pose within EXACT_TOL 1e-4
+           (set from the card's readings; 1e-3 on degenerate lanes), at
+           (b) and (c) or twice the plain loop's own card-vs-CPU spread
+           (its CPU run on (a)'s lanes, (b)'s lanes 0 and 1, (c)'s lane)
+           where larger, the first iteration's neighbours (the kernel's
+           diagnostic output) bit for bit knn's (no index swap, d2 |diff|
+           0), two launches bitwise; `probe icp` lines: the ICP kernel (icp_align, one
            cooperative launch) against its plain version on the card
            (icp_align_reference) and on the CPU at (a) phase 8's accepted
            loop candidates, (b) phase 10 (c)'s first pair, (c) phase 10
@@ -3122,6 +3143,327 @@ def knn_icp_probes(dev):
     return knn_rec, icp_rec
 
 
+# the exact solver's solves on the exact_gn kernel: phase 8's inputs
+# (((pose, features, local map), exact_kw), ...), phase 8's solves in turns
+EXACT_INPUTS = []
+EXACT_TURNS = {}
+# m / rad: exact_gn vs its plain loop, agreeing lanes.  Set from readings
+# (H100 80GB HBM3, 700 W): with the first iteration's 5-NN bitwise the
+# plain loop's, phase 8's solves read up to 1.651e-5, 32 bench lanes
+# 2.901e-5, a 16384-slot dense map (tests/test_torch_kernels_cuda.py)
+# 2.73e-5: the fits' arithmetic differs from the plain loop's, and a
+# correspondence at a gate that goes the other way in one iteration moves
+# a solve by that much (the plain loop's own card-vs-CPU runs by up to
+# 5.3e-6); about three times the largest reading
+EXACT_TOL = 1e-4
+EXACT_DEG_TOL = 1e-3     # the same on degenerate lanes (Jacobi vs eigh frame)
+# (m, rad): one GN step under the convergence thresholds (0.05 cm, 0.05
+# deg), what a lane whose stop moved by an iteration may differ by where the
+# plain loop's own card-vs-CPU spread is smaller
+EXACT_STEP = (5e-4, 0.05 * np.pi / 180)
+N_EXACT_BATCH = 32       # probe exact_gn (b): lanes of the bench batch
+EXACT_DENSE = 65536      # probe exact_gn (c): surf slots, every one live
+
+
+def exact_kw(params):
+    """exact_gn's keywords at a Params' settings (register_scan_with_params'
+    call)."""
+    return dict(iters=params.max_gn_iterations,
+                min_corr=params.min_correspondences,
+                eig_thresh=params.degeneracy_eigen_threshold,
+                edge_min_valid=params.edge_feature_min_valid_num,
+                surf_min_valid=params.surf_feature_min_valid_num,
+                chunk=params.knn_chunk,
+                conv_rot_deg=params.converge_delta_rot_deg,
+                conv_trans_cm=params.converge_delta_trans_cm)
+
+
+def exact_bound(feats, local_map, stat):
+    """(bound_ms, bound_by) of one exact solve that ended at stat [B, 16]:
+    a lane-iteration reads the map's slots (16 B a slot) and does 2 * 3 * Q
+    * M operations (Q live features, M live map points of each kind)."""
+    its = stat[:, 6].double().cpu()
+    q = [f.sum(1).double().cpu() for f in (feats.corner_mask,
+                                            feats.surf_mask)]
+    m = [f.sum(-1).double().cpu() for f in (local_map.corner_mask,
+                                             local_map.surf_mask)]
+    slots = local_map.corner_xyz.shape[-2] + local_map.surf_xyz.shape[-2]
+    return bound(float((its * slots * 16).sum()),
+                 float((its * 6 * (q[0] * m[0] + q[1] * m[1])).sum()))
+
+
+def exact_first_nn(pose, feats, local_map, kw):
+    """exact_scenes.first_nn_agreement of the kernel's first iteration (one
+    launch at iters=1 with its diagnostic output) against ops/knn.py::knn
+    at pose."""
+    import torch
+
+    import exact_scenes
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    B, dev = pose.shape[0], pose.device
+    P = feats.corner_xyz.shape[1] + feats.surf_xyz.shape[1]
+    nn = (torch.full((B, P, 5), -2, dtype=torch.int32, device=dev),
+          torch.zeros(B, P, 5, device=dev))
+    stat = torch.empty(B, 16, device=dev)
+    kernels.launch_exact_gn(pose, feats, local_map, stat, nn=nn,
+                            **dict({k: v for k, v in kw.items()
+                                    if k != "chunk"}, iters=1))
+    return exact_scenes.first_nn_agreement(
+        pose, feats, local_map, nn, stat[:, 9].cpu().numpy() > 0,
+        kw["chunk"])
+
+
+def exact_plain_split(inputs, kw):
+    """The plain loop (exact_gn_reference: the parent's register_scan
+    route, register_core on knn_stream.cu) on one solve's inputs, split by
+    stage on a synchronized host clock (a sync before and after each stage
+    call): the 5-NN (knn5_points, a corner and a surf call an iteration),
+    the fits around it (corner_ and surf_correspondence less their 5-NN),
+    gn_step (its torch.linalg.eigh inside), and the rest (world points, the
+    lanes' freeze, the host's check of `active` an iteration); then the
+    same solve under torch.profiler (profile_call).  Returns dict(solve_ms,
+    iterations, per-iteration ms by stage, profile)."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        exact_gn as tex, knn as tknn, register as treg)
+    pose, feats, local_map = inputs
+    spent = {"knn": 0.0, "fits": 0.0, "gn_step": 0.0}
+
+    def timed(fn, key):
+        def f(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return f
+
+    names = ((treg, "corner_correspondence", "fits"),
+             (treg, "surf_correspondence", "fits"),
+             (treg, "gn_step", "gn_step"), (tknn, "knn5_points", "knn"))
+    real = [getattr(mod, n) for mod, n, _ in names]
+    for (mod, n, key), fn in zip(names, real):
+        setattr(mod, n, timed(fn, key))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stat = tex.exact_gn_reference(pose, feats, local_map, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (mod, n, _), fn in zip(names, real):
+            setattr(mod, n, fn)
+    its = max(int(stat[:, 6].max()), 1)
+    spent["fits"] -= spent["knn"]
+    spent["rest"] = wall - sum(spent.values())
+    wall_p, busy, top = profile_call(
+        lambda: tex.exact_gn_reference(pose, feats, local_map, **kw))
+    return dict(solve_ms=wall, iterations=its,
+                iteration_ms={k: v / its for k, v in spent.items()},
+                profile=dict(wall_ms=wall_p, device_busy_ms=busy,
+                             top=[(n[:60], ms) for n, ms in top[:6]]))
+
+
+def exact_probe(name, inputs, kw, cpu_lanes, strict=False, oracle=None):
+    """One `probe exact_gn` line: the kernel (exact_gn) against its plain
+    loop (exact_gn_reference) on the card and, on the lanes cpu_lanes and
+    every flipped one (up to 4), on the CPU, on the same inputs (pose,
+    features, local map); kernel and plain ms by CUDA events, the bound;
+    the first iteration's neighbours against knn (exact_first_nn: no
+    index swap, d2 |diff| 0); two launches bitwise.  A lane whose iterations, n_corr and flags agree
+    with the plain loop's on the card is held to EXACT_TOL in pose
+    (EXACT_DEG_TOL where degenerate); when not strict, to twice the plain
+    loop's own card-vs-CPU spread (pose on the CPU lanes whose flags agree
+    across devices) where that is larger (as rounds_probe holds rounds_gn:
+    a neighbour at a near-tie or a point at a gate moves a solve by as
+    much on float32 rounding alone).  The spread is printed either way.
+    The other lanes ("flips") are counted, none allowed when strict, and
+    else each held, with its iterations at most one apart, to that spread
+    on it or one GN step under the convergence thresholds (EXACT_STEP),
+    whichever is larger.  oracle: (poses [n, 6]
+    of tests/oracle.py): the kernel's ate_vs_oracle_m over the first n
+    lanes, held to PARITY_BUDGET.  Returns the record, with `failed` set
+    where a hold fails."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch import kernels
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        exact_gn as tex)
+    pose, feats, local_map = inputs
+
+    def kernel():
+        return tex.exact_gn(pose, feats, local_map, **kw)
+
+    def plain():
+        return tex.exact_gn_reference(pose, feats, local_map, **kw)
+
+    sk = kernel()
+    sr = plain()
+    B = sk.shape[0]
+    same = (sk[:, 6:11] == sr[:, 6:11]).all(1)
+    dpose = (sk[:, :6] - sr[:, :6]).abs().max(1).values
+    deg = sr[:, 8] > 0
+    flips = torch.nonzero(~same)[:, 0].tolist()
+    lanes = sorted(set(cpu_lanes) | set(flips[:4]))
+    sub = type(feats)(*(t[lanes].cpu() for t in feats))
+    lmap = type(local_map)(*(   # a one-a-lane map: those lanes'
+        (t[lanes] if t.dim() == 3 - i % 2 else t).cpu()
+        for i, t in enumerate(local_map)))
+    sc = tex.exact_gn_reference(pose[lanes].cpu(), sub, lmap,
+                                **kw).to(sr.device)
+    same_c = (sc[:, 6:11] == sr[lanes, 6:11]).all(1)
+    dpose_c = (sc[:, :6] - sr[lanes, :6]).abs().max(1).values
+
+    def worst(d, m):
+        return float(d[m].max()) if bool(m.any()) else 0.0
+
+    spread = worst(dpose_c, same_c)
+    tol = EXACT_TOL if strict else max(EXACT_TOL, 2.0 * spread)
+    deg_tol = EXACT_DEG_TOL if strict else max(EXACT_DEG_TOL, 2.0 * spread)
+    err, err_deg = worst(dpose, same & ~deg), worst(dpose, same & deg)
+    bitwise = torch.equal(kernel(), sk)
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, 1)
+    b_ms, b_by = exact_bound(feats, local_map, sr)
+    nn = exact_first_nn(pose, feats, local_map, kw)
+    Pc, Ps = feats.corner_xyz.shape[1], feats.surf_xyz.shape[1]
+    index = pose.device.index or 0
+    C = kernels.exact_gn_cluster(
+        B, Pc + Ps, kernels._sm_count(index),
+        lambda c: kernels.exact_gn_max_clusters(index, c))
+    its = sr[:, 6].long()
+    rec = dict(B=B, Pc=Pc, Ps=Ps, Mc=local_map.corner_xyz.shape[-2],
+               Ms=local_map.surf_xyz.shape[-2],
+               live_features=[int(feats.corner_mask.sum()),
+                              int(feats.surf_mask.sum())],
+               live_map=[int(local_map.corner_mask.sum()),
+                         int(local_map.surf_mask.sum())],
+               cluster=C, lane_iterations=int(its.sum()),
+               max_iterations=int(its.max()), degenerate=int(deg.sum()),
+               flips=len(flips), equal_lanes=float(same.float().mean()),
+               max_abs_err=err, degenerate_err=err_deg, held_to=tol,
+               plain_card_vs_cpu_err=spread,
+               plain_card_vs_cpu_lanes=len(lanes),
+               plain_card_vs_cpu_equal=float(same_c.float().mean()),
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               bitwise=bitwise, index_swaps=nn["swaps"],
+               nn_slots=nn["slots"], nn_d2_err=nn["d2_err"])
+    held = []
+    for b in flips:
+        dt = float((sk[b, 3:6] - sr[b, 3:6]).abs().max())
+        dr = float((sk[b, 0:3] - sr[b, 0:3]).abs().max())
+        own = float(dpose_c[lanes.index(b)]) if b in lanes else 0.0
+        ht, hr = max(EXACT_STEP[0], own), max(EXACT_STEP[1], own)
+        held.append(not strict and dt <= ht and dr <= hr
+                    and abs(int(sk[b, 6]) - int(sr[b, 6])) <= 1)
+        print(f"probe exact_gn {name}: FLIP lane {b}: iterations "
+              f"{int(sk[b, 6])} vs {int(sr[b, 6])}, n_corr {int(sk[b, 10])}"
+              f" vs {int(sr[b, 10])}, converged {int(sk[b, 7])} vs "
+              f"{int(sr[b, 7])}, degenerate {int(sk[b, 8])} vs "
+              f"{int(sr[b, 8])}, pose |diff| {dt:.3e} m {dr:.3e} rad; the "
+              f"plain loop card vs CPU on it {own:.3e} (held to {ht:.3e} m "
+              f"{hr:.3e} rad{', none allowed here' if strict else ''})",
+              flush=True)
+    if oracle is not None:
+        n = len(oracle)
+        d = sk[:n, 3:6].cpu().numpy() - oracle[:, 3:]
+        rec["ate_vs_oracle_m"] = float(np.sqrt((d ** 2).sum(-1).mean()))
+        d = sr[:n, 3:6].cpu().numpy() - oracle[:, 3:]
+        rec["plain_ate_vs_oracle_m"] = float(np.sqrt((d ** 2).sum(-1)
+                                                     .mean()))
+    print(f"probe exact_gn {name}: B={B} Pc={Pc} Ps={Ps} Mc={rec['Mc']} "
+          f"Ms={rec['Ms']} live features {rec['live_features']} live map "
+          f"{rec['live_map']} cluster {C}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}, "
+          f"{b_ms / ms:.2%} of it); lane-iterations {rec['lane_iterations']} "
+          f"(max {rec['max_iterations']}); pose |diff| max {err:.3e} on "
+          f"{int((same & ~deg).sum())} agreeing lanes; degenerate lanes "
+          f"{rec['degenerate']}, pose |diff| {err_deg:.3e}; iterations, "
+          f"n_corr and flags equal on {rec['equal_lanes']:.4f} of lanes "
+          f"({len(flips)} flips); the plain loop on the card against it on "
+          f"the CPU on {len(lanes)} lanes: equal on "
+          f"{rec['plain_card_vs_cpu_equal']:.4f}, pose |diff| max "
+          f"{spread:.3e} on agreeing lanes; held to {tol:.3e}; first "
+          f"iteration's neighbours: {nn['slots']} slots, index swaps at "
+          f"near-ties {nn['swaps']}, d2 |diff| max {nn['d2_err']:.3e}, held "
+          f"{nn['ok']}"
+          + (f"; ate_vs_oracle_m {rec['ate_vs_oracle_m']} (the plain loop "
+             f"{rec['plain_ate_vs_oracle_m']})" if oracle is not None
+             else "") + f"; two launches bitwise {bitwise}", flush=True)
+    # the centroid in ATen's order: the first iteration's 5-NN bit for bit
+    if not (err <= tol and err_deg <= deg_tol and all(held) and bitwise
+            and nn["ok"] and nn["swaps"] == 0 and nn["d2_err"] == 0.0):
+        rec["failed"] = (f"exact_gn {name}: pose {err} (held to {tol}), "
+                         f"degenerate {err_deg}, flips held {held}, bitwise "
+                         f"{bitwise}, neighbours {nn}")
+    if oracle is not None and not rec["ate_vs_oracle_m"] <= PARITY_BUDGET:
+        rec["failed"] = (f"exact_gn {name}: ate_vs_oracle_m "
+                         f"{rec['ate_vs_oracle_m']}")
+    return rec
+
+
+def exact_probes(dev, bench):
+    """The `probe exact_gn` lines: (a) phase 8's three exact solves (no
+    flip allowed there; each solve's plain loop also on the CPU), (b)
+    parallel/batch.py::batch_register on the bench
+    batch's first N_EXACT_BATCH scans and its shared map (one exact_gn
+    launch; ate_vs_oracle_m on the first N_ORACLE lanes; the plain loop on
+    the CPU on lanes 0, 1 and the flipped ones), (c) the bench's
+    scan 0 on a surf map of EXACT_DENSE slots, every one live (the room's
+    surf points at 0.25 m, a seeded subset).  Every line prints before a
+    failed hold raises.  Returns {name: record}."""
+    import torch
+
+    from feature_base_pointcloud_registration_tpu_torch.config import Params
+    from feature_base_pointcloud_registration_tpu_torch.io.synthetic import (
+        SyntheticWorld)
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        exact_gn as tex)
+    from feature_base_pointcloud_registration_tpu_torch.parallel.batch import (
+        batch_register)
+    rec = {}
+    for n, (inputs, kw) in enumerate(EXACT_INPUTS):
+        rec[f"(a) phase 8 solve {n}"] = exact_probe(
+            f"(a) phase 8 solve {n}", inputs, kw, [0], strict=True)
+    kw = exact_kw(Params())
+    lanes = slice(0, N_EXACT_BATCH)
+    feats = type(bench.feats)(*(t[lanes] for t in bench.feats))
+    guesses = bench.guesses[lanes]
+    before = tex.exact_gn.launches
+    res = batch_register(feats, bench.fmap, guesses, chunk=kw["chunk"])
+    torch.cuda.synchronize()
+    launches = tex.exact_gn.launches - before
+    name = f"(b) batch_register B={N_EXACT_BATCH}"
+    rec[name] = exact_probe(name, (guesses, feats, bench.fmap), kw, [0, 1],
+                            oracle=bench.oracle_poses)
+    same = torch.equal(res.pose6, tex.exact_gn(guesses, feats, bench.fmap,
+                                               **kw)[:, :6])
+    rec[name].update(launches=launches, entry_point_bitwise=same)
+    print(f"probe exact_gn {name}: {launches} exact_gn launch through "
+          f"batch_register, its poses bitwise the probe's {same}",
+          flush=True)
+    if launches != 1 or not same:
+        raise AssertionError(f"exact_gn (b): {launches} launches, bitwise "
+                             f"{same}")
+    pts = SyntheticWorld().surf_map_points(0.25)
+    pick = np.random.RandomState(0).choice(len(pts), EXACT_DENSE,
+                                           replace=False)
+    dense = type(bench.fmap)(
+        bench.fmap.corner_xyz, bench.fmap.corner_mask,
+        torch.from_numpy(np.ascontiguousarray(pts[np.sort(pick)])).to(dev),
+        torch.ones(EXACT_DENSE, dtype=torch.bool, device=dev))
+    name = f"(c) a fully live {EXACT_DENSE}-slot surf map"
+    rec[name] = exact_probe(
+        name, (bench.guesses[:1], type(bench.feats)(
+            *(t[:1] for t in bench.feats)), dense), kw, [0])
+    failed = [r["failed"] for r in rec.values() if "failed" in r]
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rec
+
+
 def sync_counter(fn, counts):
     """fn wrapped: the host syncs of each call (warnings of the CUDA sync
     debug mode, not its one-time notice that the mode is a prototype)
@@ -4415,7 +4757,7 @@ def slam_phase(dev):
         SyntheticWorld, constant_twist_platform, pose6_to_matrix_np,
         simulate_scan)
     from feature_base_pointcloud_registration_tpu_torch.ops import (
-        fetch as tfetch, knn as tknn)
+        exact_gn as tex, fetch as tfetch, knn as tknn)
     from feature_base_pointcloud_registration_tpu_torch.ops.gn_round import (
         gn_round)
     from feature_base_pointcloud_registration_tpu_torch.ops.knn import (
@@ -4666,54 +5008,120 @@ def slam_phase(dev):
     if not d_cpu <= 1e-4:
         raise AssertionError(f"phase 8: card vs CPU poses differ by {d_cpu}")
 
-    # ---- the exact solver on the first registration steps' local maps
-    # (the k-NN kernel counted; the first check's surf-map call kept) ----
-    exact, reg_ms, reg_bound, knn_calls = [], [], [], []
+    # ---- the exact solver (register_scan_with_params: one exact_gn launch
+    # a solve, its host syncs counted) on the first registration steps'
+    # local maps, against grid_register_step; its inputs kept for `probe
+    # exact_gn` (a) ----
+    exact, reg_syncs = [], []
+    EXACT_INPUTS.clear()
+    ex0, knn0 = tex.exact_gn.launches, tknn.knn.launches
+    counted_solve = sync_counter(register_scan_with_params, reg_syncs)
+    for (a, kw, out), _ in zip(timer.calls["tables + solve"][:SLAM_CHECKED],
+                               range(SLAM_CHECKED)):
+        local_map, feats, guess = a
+        res = counted_solve(params, feats, local_map, guess)
+        EXACT_INPUTS.append(((guess, feats, local_map), exact_kw(params)))
+        d = (res.pose6[0] - out.pose6[0]).abs().cpu().numpy()
+        exact.append((float(d[3:].max()), float(d[:3].max())))
+        q = [int(feats.corner_mask.sum()), int(feats.surf_mask.sum())]
+        m = [int(local_map.corner_mask.sum()), int(local_map.surf_mask.sum())]
+        print(f"phase 8 exact check: register_scan_with_params vs "
+              f"grid_register_step |diff| {d[3:].max():.3e} m "
+              f"{d[:3].max():.3e} rad; iterations "
+              f"{int(res.iterations[0])} vs {int(out.iterations[0])}; n_corr "
+              f"{int(res.n_corr[0])} vs {int(out.n_corr[0])}; live features "
+              f"{q}, map points {m}; host syncs in the solve {reg_syncs[-1]}",
+              flush=True)
+    if not all(t_ <= 3e-3 and r_ <= 3e-3 for t_, r_ in exact):
+        raise AssertionError(f"phase 8: exact vs grid {exact}")
+    launches["exact_gn"] = tex.exact_gn.launches - ex0
+    launches["knn_exact_check"] = tknn.knn.launches - knn0
+    print(f"phase 8 exact check: {launches['exact_gn']} exact_gn launches "
+          f"and {launches['knn_exact_check']} knn launches in {SLAM_CHECKED}"
+          f" solves; host syncs inside a solve {reg_syncs} (torch.cuda sync "
+          f"debug mode)", flush=True)
+    if launches["exact_gn"] != SLAM_CHECKED or launches["knn_exact_check"]:
+        raise AssertionError(f"phase 8: the exact solver made "
+                             f"{launches['exact_gn']} exact_gn and "
+                             f"{launches['knn_exact_check']} knn launches")
+    if any(reg_syncs):
+        raise AssertionError(f"phase 8: host syncs in an exact solve "
+                             f"{reg_syncs}")
+
+    # ---- the kernel and the plain loop (exact_gn_reference on the card:
+    # register_core on knn_stream.cu, a corner and a surf 5-NN an
+    # iteration) on the same inputs, in turns; the plain loop's first
+    # surf-map k-NN call kept for `probe knn` (c) ----
+    knn_calls = []
     real_knn5 = tknn.knn5_points
-    knn0 = tknn.knn.launches
 
     def recorded_knn5(q, ref, ref_mask, chunk=4096):
         if len(knn_calls) < 2:
             knn_calls.append(((q, ref, ref_mask), dict(k=5, chunk=chunk)))
         return real_knn5(q, ref, ref_mask, chunk=chunk)
 
-    for (a, kw, out), _ in zip(timer.calls["tables + solve"][:SLAM_CHECKED],
-                               range(SLAM_CHECKED)):
-        local_map, feats, guess = a
+    def host_ms(fn):
         timer.sync()
         t0 = time.perf_counter()
-        tknn.knn5_points = recorded_knn5
+        out = fn()
+        timer.sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    turns, knn_plain = [], tknn.knn.launches
+    for n, ((pose, feats, local_map), kw) in enumerate(EXACT_INPUTS):
+        def kernel():
+            return tex.exact_gn(pose, feats, local_map, **kw)
+
+        def plain():
+            return tex.exact_gn_reference(pose, feats, local_map, **kw)
+
+        tknn.knn5_points = recorded_knn5 if n == 0 else real_knn5
         try:
-            res = register_scan_with_params(params, feats, local_map, guess)
+            ms_ = [host_ms(f) for f in (kernel, plain, plain, kernel)]
         finally:
             tknn.knn5_points = real_knn5
-        timer.sync()
-        reg_ms.append((time.perf_counter() - t0) * 1e3)
-        d = (res.pose6[0] - out.pose6[0]).abs().cpu().numpy()
-        exact.append((float(d[3:].max()), float(d[:3].max())))
-        its = int(res.iterations[0])
-        q = [int(feats.corner_mask.sum()), int(feats.surf_mask.sum())]
-        m = [int(local_map.corner_mask.sum()), int(local_map.surf_mask.sum())]
-        slots = local_map.corner_xyz.shape[0] + local_map.surf_xyz.shape[0]
-        reg_bound.append(bound(its * slots * 16,
-                               its * 2 * 3 * (q[0] * m[0] + q[1] * m[1])))
-        print(f"phase 8 exact check: register_scan_with_params vs "
-              f"grid_register_step |diff| {d[3:].max():.3e} m "
-              f"{d[:3].max():.3e} rad; iterations {its} vs "
-              f"{int(out.iterations[0])}; n_corr {int(res.n_corr[0])} vs "
-              f"{int(out.n_corr[0])}; live features {q}, map points {m}",
-              flush=True)
-    if not all(t_ <= 3e-3 and r_ <= 3e-3 for t_, r_ in exact):
-        raise AssertionError(f"phase 8: exact vs grid {exact}")
-    launches["knn_exact_check"] = tknn.knn.launches - knn0
+        turns.append(([ms_[0][0], ms_[3][0]], [ms_[1][0], ms_[2][0]],
+                      ms_[0][1], ms_[1][1]))
+    knn_plain = (tknn.knn.launches - knn_plain) // 2
     # corner then surf an iteration: the surf call has the larger map
     KNN_INPUTS["(c) exact solver surf map"] = max(
         knn_calls, key=lambda c: c[0][1].shape[-2])
-    print(f"phase 8 exact check: {launches['knn_exact_check']} knn launches"
-          f" in {SLAM_CHECKED} solves (a corner and a surf 5-NN an "
-          f"iteration)", flush=True)
-    if not launches["knn_exact_check"]:
-        raise AssertionError("phase 8: the exact solver launched no knn")
+    same = [bool(torch.equal(sk[:, 6:11], sr[:, 6:11]))
+            for _, _, sk, sr in turns]
+    dpose = [float((sk[:, :6] - sr[:, :6]).abs().max())
+             for _, _, sk, sr in turns]
+    EXACT_TURNS.update(
+        solves=len(turns), kernel_ms=float(np.mean([t_[0] for t_ in turns])),
+        plain_ms=float(np.mean([t_[1] for t_ in turns])),
+        kernel_run_ms=[t_[0] for t_ in turns],
+        plain_run_ms=[t_[1] for t_ in turns], plain_knn_launches=knn_plain,
+        iterations=[int(t_[3][0, 6]) for t_ in turns], equal_flags=same,
+        max_abs_err=max(dpose))
+    print(f"time phase 8 register_scan in turns (each solve on the exact_gn "
+          f"kernel and on the plain loop, exact_gn_reference on the card, "
+          f"kernel, plain, plain, kernel; synchronized host clock): kernel "
+          f"{EXACT_TURNS['kernel_ms']:.3f} ms a solve "
+          f"({[[round(x, 3) for x in t_[0]] for t_ in turns]}), plain loop "
+          f"{EXACT_TURNS['plain_ms']:.2f} ms a solve "
+          f"({[[round(x, 2) for x in t_[1]] for t_ in turns]}; "
+          f"{knn_plain} knn launches a pass); iterations "
+          f"{EXACT_TURNS['iterations']}; iterations, n_corr and flags equal "
+          f"{same}; pose |diff| {dpose} (held in `probe exact_gn` (a))",
+          flush=True)
+    if not all(same):
+        raise AssertionError(f"phase 8: exact_gn vs the plain loop: flags "
+                             f"equal {same}, pose {dpose}")
+    split = EXACT_TURNS["plain_split"] = exact_plain_split(*EXACT_INPUTS[0])
+    print(f"profile phase 8 plain loop (solve 0 on exact_gn_reference, the "
+          f"parent's register_scan route): {split['solve_ms']:.2f} ms a "
+          f"solve, {split['iterations']} iterations; an iteration "
+          f"(synchronized host clock around each stage): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in split["iteration_ms"].items())
+          + f"; torch.profiler: wall {split['profile']['wall_ms']:.2f} ms, "
+          f"device busy {split['profile']['device_busy_ms']:.2f} ms; by "
+          f"device time: " + "; ".join(
+              f"{n} {ms:.3f}" for n, ms in split["profile"]["top"]),
+          flush=True)
 
     # ---- save -> reload -> relocalize: the middle keyframe's scan, from
     # 0.14 m off, against the saved map, back to that keyframe's pose ----
@@ -4806,10 +5214,6 @@ def slam_phase(dev):
           f", device busy {busy:.2f} ms ({busy / wall_p:.1%}), {len(top)} "
           f"kernel names; by device time: " + "; ".join(
               f"{name[:60]} {ms:.3f}" for name, ms in top[:6]), flush=True)
-    print(f"time phase 8 register_scan: {np.mean(reg_ms):.2f} ms a solve "
-          f"({reg_ms}), bound {[round(b_[0], 4) for b_ in reg_bound]} ms "
-          f"({reg_bound[0][1]}; map slots x 16 B and 2*3*Q*M operations a "
-          f"GN iteration)", flush=True)
     if dev.type == "cuda":
         d = torch.rand(8192, 4096, device=dev) * 100
         ms_key = cuda_ms(lambda: _extract_topk(d, 5), 10)
@@ -6641,8 +7045,12 @@ def main():
         bounds[name] = (rec["bound_ms"], rec["bound_by"])
     rp_knn, rp_icp = knn_icp_probes(dev)
     scenes_ab = scene_turns(dev) if KI_AB else None
+    rp_exact = exact_probes(dev, types.SimpleNamespace(
+        feats=feats3, fmap=fmap, guesses=guesses_t,
+        oracle_poses=oracle_poses))
     for name, rec in (("knn_stream", rp_knn["(b) FPFH phase 10 (c)"]),
-                      ("icp", rp_icp["(a) phase 8 loop candidates"])):
+                      ("icp", rp_icp["(a) phase 8 loop candidates"]),
+                      ("exact_gn", rp_exact["(a) phase 8 solve 0"])):
         kt[name] = (rec["ms"], rec["plain_ms"])
         bounds[name] = (rec["bound_ms"], rec["bound_by"])
     sh_launches, sh_err = sharded_phase(dev, types.SimpleNamespace(
@@ -6825,6 +7233,8 @@ def main():
               launches_by_phase={
                   "8 steps": slam_launches["knn"],
                   "8 exact check": slam_launches["knn_exact_check"],
+                  "8 exact check, the plain loop a pass":
+                      EXACT_TURNS["plain_knn_launches"],
                   "10b": kitti_launches["knn"],
                   "10c": kitti_launches["knn_pairs"],
                   "10d merge": ms_launches["knn"]},
@@ -6866,6 +7276,28 @@ def main():
                   "plain_card_vs_cpu_err", "fitness", "plain_fitness",
                   "bitwise", "fma_max_abs_err")}
                       for n, r in rp_icp.items()}),
+        entry("exact_gn", "exact_gn.cu",
+              xla_loop_line("register.py",
+                            "it, state = lax.while_loop(cond, body"),
+              slam_launches["exact_gn"],
+              max(r["max_abs_err"] for r in rp_exact.values()), "exact_gn",
+              max_abs_err_degenerate=max(r["degenerate_err"]
+                                         for r in rp_exact.values()),
+              launches_by_phase={
+                  "8": slam_launches["exact_gn"],
+                  "probe (b) batch_register": rp_exact[
+                      f"(b) batch_register B={N_EXACT_BATCH}"]["launches"]},
+              phase8_in_turns=EXACT_TURNS,
+              probes={n: {k: r[k] for k in (
+                  "B", "Pc", "Ps", "Mc", "Ms", "live_features", "live_map",
+                  "cluster", "lane_iterations", "flips", "equal_lanes", "ms",
+                  "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                  "degenerate_err", "held_to", "plain_card_vs_cpu_err",
+                  "plain_card_vs_cpu_lanes", "index_swaps", "nn_slots",
+                  "bitwise")}
+                  | {k: r[k] for k in ("ate_vs_oracle_m",
+                                       "plain_ate_vs_oracle_m") if k in r}
+                      for n, r in rp_exact.items()}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,18 @@
-// Per-point Gauss-Newton code shared by gn_round.cu and rounds_gn.cu: one
-// CTA of kThreads threads runs one lane's iterations, its threads striding
-// over the lane's live points.
+// Per-point Gauss-Newton code shared by gn_round.cu, rounds_gn.cu and
+// exact_gn.cu: one CTA of kThreads threads runs one lane's iterations, its
+// threads striding over the lane's live points.
 //
 //   select5      5-of-K selection, ties by the lowest row;
-//   corner_coef  the line fit (Cardano spectrum, line gate, cross-product
-//                eigenvector, e_x fallback) and point-to-line coefficients;
-//   surf_coef    the 3-reflection Householder plane fit, the 0.2 m plane
-//                check, the rank gate and the optional min_plane_spread gate;
-//   add_point    one point's Jacobian row J = [Jr, Jp, Jy, nx, ny, nz,
+//   corner_fit   the line fit on five selected rows (Cardano spectrum, line
+//                gate, cross-product eigenvector, e_x fallback) and
+//                point-to-line coefficients; corner_coef selects, then fits;
+//   surf_fit     the 3-reflection Householder plane fit on five selected
+//                rows, the 0.2 m plane check, the rank gate and the optional
+//                min_plane_spread gate; surf_coef selects, then fits;
+//   add_row      one point's Jacobian row J = [Jr, Jp, Jy, nx, ny, nz,
 //                -resid, mask] added into the 28 sums of G = J J^T the solve
-//                reads (JtJ upper 6x6, Jtb, n_corr);
+//                reads (JtJ upper 6x6, Jtb, n_corr); add_point loads a
+//                point and its candidates, fits and adds its row;
 //   reduce_scatter28  the fixed-order warp reduction of those sums;
 //   compact_live the live-point list in shared memory;
 //   next_frame   R, its three angle derivatives and t for the next
@@ -22,13 +25,15 @@
 //                 coefficients multiplied by the mask;
 //   kXla = true   the XLA body of `register_rounds_core`
 //                 (ops/correspondence.py::corner_correspondence_cand and
-//                 surf_correspondence_cand, csrc/rounds_gn.cu): a candidate
-//                 whose fetched d2 is >= 1e37 (or NaN) is invalid and ranks
-//                 at 3e38, the selection marks taken rows +inf so that five
-//                 distinct rows are taken even among invalid ones, the
-//                 pivots are floored at 1e-20 without a clip, a NaN plane
-//                 residual fails the plane check, and a rejected point's
-//                 coefficients are zeroed by selection (whatever they hold).
+//                 surf_correspondence_cand, csrc/rounds_gn.cu; exact_gn.cu
+//                 calls its fits on the exact 5-NN, all five taken): a
+//                 candidate whose fetched d2 is >= 1e37 (or NaN) is invalid
+//                 and ranks at 3e38, the selection marks taken rows +inf so
+//                 that five distinct rows are taken even among invalid
+//                 ones, the pivots are floored at 1e-20 without a clip, a
+//                 NaN plane residual fails the plane check, and a rejected
+//                 point's coefficients are zeroed by selection (whatever
+//                 they hold).
 
 #pragma once
 
@@ -145,16 +150,15 @@ __device__ __forceinline__ Coef masked(float s, float a, float b, float c,
   }
 }
 
+// The line fit on the rows `sel` of the K candidates (five of them), whose
+// largest d2 is d5max, and the point-to-line coefficients.
 template <int K, bool kXla>
-__device__ __forceinline__ Coef corner_coef(const float (&cx_)[K],
-                                            const float (&cy_)[K],
-                                            const float (&cz_)[K],
-                                            unsigned valid, float fm,
-                                            float xw, float yw, float zw) {
-  float d2[K];
-  cand_d2<K, kXla>(d2, cx_, cy_, cz_, valid, xw, yw, zw);
-  float d5max;
-  const unsigned sel = select5<K, kXla>(d2, d5max);
+__device__ __forceinline__ Coef corner_fit(const float (&cx_)[K],
+                                           const float (&cy_)[K],
+                                           const float (&cz_)[K],
+                                           unsigned sel, float d5max,
+                                           float fm, float xw, float yw,
+                                           float zw) {
   const float gate_nn = fm * (d5max < 1.0f ? 1.0f : 0.0f);
 
   float sx = 0.f, sy = 0.f, sz = 0.f;
@@ -235,6 +239,19 @@ __device__ __forceinline__ Coef corner_coef(const float (&cx_)[K],
   return masked<kXla>(s, la, lb, lc, ld2, mask);
 }
 
+template <int K, bool kXla>
+__device__ __forceinline__ Coef corner_coef(const float (&cx_)[K],
+                                            const float (&cy_)[K],
+                                            const float (&cz_)[K],
+                                            unsigned valid, float fm,
+                                            float xw, float yw, float zw) {
+  float d2[K];
+  cand_d2<K, kXla>(d2, cx_, cy_, cz_, valid, xw, yw, zw);
+  float d5max;
+  const unsigned sel = select5<K, kXla>(d2, d5max);
+  return corner_fit<K, kXla>(cx_, cy_, cz_, sel, d5max, fm, xw, yw, zw);
+}
+
 __device__ __forceinline__ float safe_pivot(float d) {
   return fabsf(d) > 1e-6f ? d : (d >= 0.0f ? 1e-6f : -1e-6f);
 }
@@ -247,17 +264,15 @@ __device__ __forceinline__ float plane_pivot(float d) {
     return safe_pivot(d);
 }
 
+// The plane fit on the rows `sel` of the K candidates (five of them), whose
+// largest d2 is d5max, and the point-to-plane coefficients.
 template <int K, bool kXla>
-__device__ __forceinline__ Coef surf_coef(const float (&sx_)[K],
-                                          const float (&sy_)[K],
-                                          const float (&sz_)[K],
-                                          unsigned valid, float fm, float xw,
-                                          float yw, float zw,
-                                          float min_plane_spread) {
-  float d2[K];
-  cand_d2<K, kXla>(d2, sx_, sy_, sz_, valid, xw, yw, zw);
-  float d5max;
-  const unsigned sel = select5<K, kXla>(d2, d5max);
+__device__ __forceinline__ Coef surf_fit(const float (&sx_)[K],
+                                         const float (&sy_)[K],
+                                         const float (&sz_)[K], unsigned sel,
+                                         float d5max, float fm, float xw,
+                                         float yw, float zw,
+                                         float min_plane_spread) {
   const float gate_nn = fm * (d5max < 1.0f ? 1.0f : 0.0f);
 
   // Householder least squares: argmin ||A n + sel|| over all K rows, with
@@ -374,6 +389,48 @@ __device__ __forceinline__ Coef surf_coef(const float (&sx_)[K],
   return masked<kXla>(s, pa, pb, pc, pd2, mask);
 }
 
+template <int K, bool kXla>
+__device__ __forceinline__ Coef surf_coef(const float (&sx_)[K],
+                                          const float (&sy_)[K],
+                                          const float (&sz_)[K],
+                                          unsigned valid, float fm, float xw,
+                                          float yw, float zw,
+                                          float min_plane_spread) {
+  float d2[K];
+  cand_d2<K, kXla>(d2, sx_, sy_, sz_, valid, xw, yw, zw);
+  float d5max;
+  const unsigned sel = select5<K, kXla>(d2, d5max);
+  return surf_fit<K, kXla>(sx_, sy_, sz_, sel, d5max, fm, xw, yw, zw,
+                           min_plane_spread);
+}
+
+// The Jacobian row J = [Jr, Jp, Jy, nx, ny, nz, -resid] of a point with
+// coefficients c at lidar point f, added into the 28 sums (the last one
+// mask^2, n_corr); `fr` is the frame in shared memory.
+__device__ __forceinline__ void add_row(float (&acc)[32], const Coef& c,
+                                        float fx, float fy, float fz,
+                                        const volatile float* fr) {
+  float J[7];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const volatile float* d = fr + kDr + 9 * a;
+    const float gx = d[0] * fx + d[1] * fy + d[2] * fz;
+    const float gy = d[3] * fx + d[4] * fy + d[5] * fz;
+    const float gz = d[6] * fx + d[7] * fy + d[8] * fz;
+    J[a] = c.ca * gx + c.cb * gy + c.cc * gz;
+  }
+  J[3] = c.ca;
+  J[4] = c.cb;
+  J[5] = c.cc;
+  J[6] = -c.resid;
+  int m = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = i; j < 7; ++j) acc[m++] += J[i] * J[j];
+  acc[m] += c.mask * c.mask;
+}
+
 // One point's 28 products J J^T added to acc: JtJ upper 6x6 (21), Jtb (6),
 // n_corr (1); acc[28..31] stay 0 (the reduce-scatter's padding).  All of
 // the point's loads are issued before any use (the mask too), so a thread
@@ -411,25 +468,7 @@ __device__ __forceinline__ void add_point(float (&acc)[32], const float* F,
                            min_plane_spread);
   else
     c = corner_coef<K, kXla>(cx, cy, cz, valid, fm, xw, yw, zw);
-  float J[7];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const volatile float* d = fr + kDr + 9 * a;
-    const float gx = d[0] * fx + d[1] * fy + d[2] * fz;
-    const float gy = d[3] * fx + d[4] * fy + d[5] * fz;
-    const float gz = d[6] * fx + d[7] * fy + d[8] * fz;
-    J[a] = c.ca * gx + c.cb * gy + c.cc * gz;
-  }
-  J[3] = c.ca;
-  J[4] = c.cb;
-  J[5] = c.cc;
-  J[6] = -c.resid;
-  int m = 0;
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int j = i; j < 7; ++j) acc[m++] += J[i] * J[j];
-  acc[m] += c.mask * c.mask;
+  add_row(acc, c, fx, fy, fz, fr);
 }
 
 // Reduce-scatter of a thread's 32 sums inside its warp: after the step of

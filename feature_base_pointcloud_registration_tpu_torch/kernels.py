@@ -11,7 +11,8 @@ The build runs at first use, into `build/` beside the package (the file name
 carries a hash of the flags, the source and the `csrc/` headers it
 includes, so an edited source or header rebuilds).  `SOURCE_FLAGS` adds a
 source's own flags (rounds_gn.cu, pose_graph_lm.cu, imu_chain_lm.cu,
-preintegration.cu, knn_stream.cu, icp.cu: no FMA contraction).
+preintegration.cu, knn_stream.cu, icp.cu, exact_gn.cu: no FMA
+contraction).
 Importing this module builds nothing: the CPU tests import every module.
 
 Each C entry point launches on the stream it is given (PyTorch's current
@@ -20,7 +21,7 @@ helpers below raise when it is not 0.  Validation of shapes, dtypes and
 devices is the callers' (`ops/fetch.py`, `ops/gn_round.py`,
 `ops/rounds_gn.py`, `ops/features.py`, `graph/pose_graph.py`,
 `graph/imu_graph.py`, `imu/preintegration.py`, `ops/knn.py`,
-`ops/icp.py`).
+`ops/icp.py`, `ops/exact_gn.py`).
 """
 
 from __future__ import annotations
@@ -58,6 +59,12 @@ ROUNDS_MAX_CLUSTER = 16   # csrc/rounds_gn.cu kMaxCluster: CTAs a lane
 # K=16 lane of 320 to 10240 live points on an H100) ran fastest at 160
 # points a CTA at every size up to 2560 points, and at 16 CTAs above
 ROUNDS_MIN_SHARE = 160
+# feature slots (Pc + Ps) a CTA of csrc/exact_gn.cu keeps at least when a
+# lane is spread over a cluster (a lane's work is its live features' scans
+# of the map, so a lane takes every CTA the card can give it down to a
+# share of 64 slots).  A guess, not measured: at chip_smoke.py's shapes the
+# wave (B * C <= SMs) or the 16-CTA cap binds first
+EXACT_MIN_SHARE = 64
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Flags of one source on top of NVCC_FLAGS.  rounds_gn.cu,
@@ -70,11 +77,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # do).  knn_stream.cu and icp.cu repeat the plain k-NN's norms and d2, and
 # the plain Kabsch's sums, each a separate PyTorch operation
 # (chip_smoke.py's `probe knn` / `probe icp` lines print their FMA builds
-# beside them).
+# beside them); exact_gn.cu repeats both the k-NN's and the loop body's.
 SOURCE_FLAGS = {"rounds_gn": ["-fmad=false"], "pose_graph_lm": ["-fmad=false"],
                 "imu_chain_lm": ["-fmad=false"],
                 "preintegration": ["-fmad=false"],
-                "knn_stream": ["-fmad=false"], "icp": ["-fmad=false"]}
+                "knn_stream": ["-fmad=false"], "icp": ["-fmad=false"],
+                "exact_gn": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -160,6 +168,16 @@ _SIGNATURES = {
     # out (uint64 [19]), reset: preintegration.cu's clock64 sums by warp
     # role, defined only by its diagnostic build (-DFBPR_PREINT_PROFILE)
     "fbpr_preintegrate_profile": [_P, _I],
+    # pose, cxyz, cmask, sxyz, smask, cmap, cmmask, cmap_stride, smap,
+    # smmask, smap_stride, B, Pc, Ps, Mc, Ms, iters, min_corr, eig_thresh,
+    # conv_rot_deg, conv_trans_cm, edge_min_valid, surf_min_valid, scratch,
+    # stat, nn_idx, nn_d2, cluster, the corner and the surf centroid's (S,
+    # H, factor) (exact_gn_mean_order), stream
+    "fbpr_exact_gn": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _I, _I, _I,
+                      _I, _I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P, _I,
+                      _I, _I, _F, _I, _I, _F, _P],
+    # cluster, out (int32): resident clusters of that size
+    "fbpr_exact_gn_max_clusters": [_I, _P],
 }
 
 # entry points that only a diagnostic build of a source defines
@@ -331,13 +349,13 @@ def launch_gn_round(stat, matP, featc, feats, candc, cands, *, K: int,
 
 
 def check_cluster(cluster: int):
-    """Raises unless cluster is a size csrc/rounds_gn.cu launches: a power
-    of two up to ROUNDS_MAX_CLUSTER."""
+    """Raises unless cluster is a size csrc/rounds_gn.cu and
+    csrc/exact_gn.cu launch: a power of two up to ROUNDS_MAX_CLUSTER."""
     if (isinstance(cluster, bool) or not isinstance(cluster, int)
             or not 1 <= cluster <= ROUNDS_MAX_CLUSTER
             or cluster & (cluster - 1)):
-        raise ValueError(f"cluster={cluster!r}: rounds_gn takes a power of "
-                         f"two from 1 to {ROUNDS_MAX_CLUSTER}")
+        raise ValueError(f"cluster={cluster!r}: a kernel's CTAs a lane are "
+                         f"a power of two from 1 to {ROUNDS_MAX_CLUSTER}")
 
 
 def rounds_gn_cluster(B: int, P: int, n_sm: int, K: int,
@@ -414,6 +432,124 @@ def launch_rounds_gn(stat, matP, featc, feats, candc, cands, cd2, sd2, *,
             eig_thresh, conv_rot_deg, conv_trans_cm, min_plane_spread,
             cluster, _stream(stat))
     _check_rc("fbpr_rounds_gn", rc)
+
+
+def exact_gn_cluster(B: int, P: int, n_sm: int, max_clusters=None) -> int:
+    """CTAs a lane of csrc/exact_gn.cu, from shapes alone: the largest power
+    of two C up to ROUNDS_MAX_CLUSTER such that the B * C CTAs fit one wave
+    of n_sm SMs (one CTA an SM: the kernel's __launch_bounds__), each CTA
+    keeps at least EXACT_MIN_SHARE of the lane's P = Pc + Ps feature
+    slots, and, given max_clusters(C), B of them can be resident at once.
+    B = 1 at the SLAM step's feature caps gets 16; B = 32, 4 where 32
+    clusters of 4 can be resident."""
+    C = ROUNDS_MAX_CLUSTER
+    while C > 1 and (B * C > n_sm or P < C * EXACT_MIN_SHARE
+                     or (max_clusters is not None and max_clusters(C) < B)):
+        C //= 2
+    return C
+
+
+EXACT_MAX_GROUPS = 512   # csrc/exact_gn.cu kMaxGroups
+
+
+def _last_pow2(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
+
+
+def exact_gn_mean_order(B: int, P: int, n_sm: int, sm_threads: int):
+    """(S, H, factor): the order in which ATen's CUDA reduction sums
+    `q.mean(-2)` of a contiguous float32 q [B, P, 3] (ops/knn.py's query
+    centroid), as Reduce.cuh's setReduceConfig lays it out for MeanOps on
+    a card of n_sm SMs of sm_threads threads: partial s of S sums points
+    s, s + S, ...; groups of H partials fold as trees (csrc/exact_gn.cu's
+    centroid()); factor is float32(3B) / float32(3BP), MeanOps' factor.
+    Raises ValueError past EXACT_MAX_GROUPS groups (more than 2^21 feature
+    slots a lane)."""
+    outputs, most = 3 * B, 512         # float's MAX_NUM_THREADS
+    d0 = _last_pow2(outputs) if outputs < most else most
+    d1 = _last_pow2(P) if P < most else most
+    width = min(d0, 32)
+    height = min(d1, most // width)
+    width = min(d0, most // height)
+    S = H = 1                          # each thread sums all P points
+    if P >= min(height * 16, 256):     # split across the block's rows
+        S = H = height
+        per_thread = -(-P // H)
+        grid = -(-outputs // width)
+        target = n_sm * (sm_threads // (width * height))
+        if per_thread >= 256 and grid <= target:   # and across CTAs
+            ctas = max(min(-(-target // grid), -(-per_thread // 16)),
+                       -(-per_thread // 256))
+            S = H * ctas
+    if S // H > EXACT_MAX_GROUPS:
+        raise ValueError(f"exact_gn: {P} feature slots a lane at B={B} "
+                         f"take {S // H} centroid groups (at most "
+                         f"{EXACT_MAX_GROUPS})")
+    f32 = torch.tensor([outputs, outputs * P], dtype=torch.float32)
+    return S, H, float(f32[0] / f32[1])
+
+
+@functools.lru_cache(maxsize=None)
+def exact_gn_max_clusters(index: int, cluster: int) -> int:
+    """Clusters of `cluster` CTAs of the shipped exact_gn.cu that can be
+    resident at once on CUDA device `index`."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = library().fbpr_exact_gn_max_clusters(cluster, ctypes.byref(out))
+    _check_rc("fbpr_exact_gn_max_clusters", rc)
+    return out.value
+
+
+def launch_exact_gn(pose, features, local_map, stat, *, iters: int,
+                    min_corr: int, eig_thresh: float, edge_min_valid: int,
+                    surf_min_valid: int, conv_rot_deg: float,
+                    conv_trans_cm: float, cluster: int | None = None,
+                    nn=None, lib: SimpleNamespace | None = None):
+    """csrc/exact_gn.cu on validated contiguous CUDA tensors (see
+    ops/exact_gn.py): pose [B, 6], features (ScanFeatures [B, ...]),
+    local_map (FeatureMap, [M, 3] shared or [B, M, 3] one a lane); writes
+    stat [B, 16].  cluster: CTAs a lane, by default exact_gn_cluster's; a
+    size the card cannot co-schedule raises.  nn: (idx int32, d2 float32),
+    each [B, Pc + Ps, 5], to receive the first iteration's neighbours (a
+    diagnostic), else None.  lib: another build of the entry point."""
+    lib = lib or library()
+    B, Pc, _ = features.corner_xyz.shape
+    Ps = features.surf_xyz.shape[1]
+    Mc = local_map.corner_xyz.shape[-2]
+    Ms = local_map.surf_xyz.shape[-2]
+    index = pose.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    if cluster is None:
+        cluster = exact_gn_cluster(
+            B, Pc + Ps, _sm_count(index),
+            lambda C: exact_gn_max_clusters(index, C))
+    check_cluster(cluster)
+    if cluster > 1 and exact_gn_max_clusters(index, cluster) < 1:
+        raise RuntimeError(f"exact_gn: a cluster of {cluster} CTAs cannot "
+                           f"be resident on this card")
+    props = torch.cuda.get_device_properties(index)
+    order = [exact_gn_mean_order(B, P, props.multi_processor_count,
+                                 props.max_threads_per_multi_processor)
+             for P in (Pc, Ps)]
+    scratch = torch.empty(B * (Pc + Ps + Mc + Ms), dtype=torch.int32,
+                          device=pose.device)
+    nn_idx, nn_d2 = nn if nn is not None else (None, None)
+    with torch.cuda.device(pose.device):
+        rc = lib.fbpr_exact_gn(
+            pose.data_ptr(), features.corner_xyz.data_ptr(),
+            features.corner_mask.data_ptr(), features.surf_xyz.data_ptr(),
+            features.surf_mask.data_ptr(), local_map.corner_xyz.data_ptr(),
+            local_map.corner_mask.data_ptr(),
+            Mc if local_map.corner_xyz.dim() == 3 else 0,
+            local_map.surf_xyz.data_ptr(), local_map.surf_mask.data_ptr(),
+            Ms if local_map.surf_xyz.dim() == 3 else 0, B, Pc, Ps, Mc, Ms,
+            iters, min_corr, eig_thresh, conv_rot_deg, conv_trans_cm,
+            edge_min_valid, surf_min_valid, scratch.data_ptr(),
+            stat.data_ptr(), nn_idx.data_ptr() if nn is not None else None,
+            nn_d2.data_ptr() if nn is not None else None, cluster,
+            *order[0], *order[1], _stream(pose))
+    _check_rc("fbpr_exact_gn", rc)
 
 
 def launch_ring_pick(curv, col, picked, sp, ep, sector_ok, label, *,

@@ -11,8 +11,11 @@ main path lives in `parallel/batch.py`; the rounds solver is the body of
 `batch_register_blocks`, `batch_register_pallas` and
 `batch_register_rounds` there, and of `grid_register_step` here.
 `register_scan` is the exactness check: every GN iteration streams the
-whole map through `ops/knn.py` (scan2MapOptimization with the reference's
-KD-tree search, ref: src/mapOptmization.h:1403-1442).  The candidate
+whole map through the exact 5-NN (scan2MapOptimization with the
+reference's KD-tree search, ref: src/mapOptmization.h:1403-1442), the
+whole solve one `ops/exact_gn.py::exact_gn` call (the kernel
+`csrc/exact_gn.cu` on CUDA tensors; `register_core` on `ops/knn.py` on
+CPU tensors).  The candidate
 prefetch solvers (`register_scan_fast` on the streamed k-NN,
 `register_scan_fast_grid` on the packed grid) fetch K candidates once and
 again whenever a lane's pose has moved more than `refetch_dist` from where
@@ -32,8 +35,9 @@ from .correspondence import (corner_correspondence,
                              surf_correspondence_cand)
 from .hashgrid import (default_grid_spec, grid_origin,
                        grid_overflow_fraction, make_packed_grid_knn)
+from .exact_gn import exact_gn
 from .gn_round import feature_planes, initial_state
-from .knn import _extract_topk, _rows, knn, make_local_knn
+from .knn import _extract_topk, _rows, knn
 from .rounds_gn import rounds_gn
 from .solver import GNState, gn_step
 
@@ -143,24 +147,33 @@ def register_scan(features, local_map, init_pose6, *,
                   converge_rot_deg: float = 0.05,
                   converge_trans_cm: float = 0.05) -> RegisterResult:
     """Scan-to-map solve on the exact streamed 5-NN (scan2MapOptimization
-    equivalent), on the device of its inputs.
+    equivalent), on the device of its inputs: one `exact_gn` call (one
+    kernel launch on CUDA tensors, `register_core` on CPU tensors).
 
     features: downsampled corner/surf sets in the lidar frame [B, ...];
     local_map: padded FeatureMap in the world frame, one for all lanes
     ([M, 3]) or one per lane ([B, M, 3]); M a multiple of `chunk`;
     init_pose6 [B, 6] (roll, pitch, yaw, x, y, z)."""
-    return register_core(
-        features,
-        make_local_knn(local_map.corner_xyz, local_map.corner_mask, chunk),
-        make_local_knn(local_map.surf_xyz, local_map.surf_mask, chunk),
-        init_pose6,
-        max_iterations=max_iterations,
-        min_correspondences=min_correspondences,
-        eigen_threshold=eigen_threshold,
-        edge_min_valid=edge_min_valid,
-        surf_min_valid=surf_min_valid,
-        converge_rot_deg=converge_rot_deg,
-        converge_trans_cm=converge_trans_cm,
+    stat = exact_gn(
+        torch.as_tensor(init_pose6, dtype=torch.float32,
+                        device=features.corner_xyz.device),
+        features, local_map, iters=max_iterations,
+        min_corr=min_correspondences, eig_thresh=eigen_threshold,
+        edge_min_valid=edge_min_valid, surf_min_valid=surf_min_valid,
+        chunk=chunk, conv_rot_deg=converge_rot_deg,
+        conv_trans_cm=converge_trans_cm)
+    return unpack(stat)
+
+
+def unpack(stat) -> RegisterResult:
+    """stat [B, 16] (`ops/exact_gn.py`'s layout) as a RegisterResult."""
+    return RegisterResult(
+        pose6=stat[:, 0:6].contiguous(),
+        converged=stat[:, 7] > 0.0,
+        iterations=stat[:, 6].to(torch.int32),
+        n_corr=stat[:, 10].to(torch.int32),
+        is_degenerate=stat[:, 8] > 0.0,
+        valid=stat[:, 9] > 0.0,
     )
 
 
@@ -531,14 +544,7 @@ def register_rounds_core(
             conv_rot_deg=converge_rot_deg, conv_trans_cm=converge_trans_cm,
             min_plane_spread=min_plane_spread)
 
-    return RegisterResult(
-        pose6=stat[:, 0:6].contiguous(),
-        converged=stat[:, 7] > 0.0,
-        iterations=stat[:, 6].to(torch.int32),
-        n_corr=stat[:, 10].to(torch.int32),
-        is_degenerate=stat[:, 8] > 0.0,
-        valid=stat[:, 9] > 0.0,
-    )
+    return unpack(stat)
 
 
 def grid_register_step(local_map, features, pose6, *, half_extent,

@@ -112,7 +112,15 @@ icp_scenes.EDGE_SCENES (points on cell faces, ties across cells,
 duplicates, a far row, few and no live points): the k-NN bit for bit the
 brute force and held to its plain version, ICP one launch with no sync,
 its fitness at T = I against the brute force's and, with few or no live
-target points, its run against the plain version.
+target points, its run against the plain version.  The exact solver's
+kernel (csrc/exact_gn.cu) against its plain loop (`exact_gn_reference`)
+on the card, on tests/exact_scenes.py's lanes (shared, per-lane and
+3-live maps, every cluster size, a fully live 16384-slot surf map) and the
+register_scan scene: one launch and no host sync a solve, two launches
+bitwise, iterations, n_corr and flags equal wherever the plain loop's card
+and CPU runs agree on them, pose within 1e-4 (1e-3 on a degenerate lane)
+or twice the plain loop's own card-vs-CPU spread; its first iteration's
+neighbours bit for bit `knn`'s.
 """
 
 import numpy as np
@@ -953,6 +961,12 @@ def test_knn_on_gpu_matches_cpu(cuda, k):
 
 @pytest.mark.cuda
 def test_register_scan_on_gpu_matches_cpu(cuda):
+    """VLP-16 fast features against the room's 8192 / 65536-slot map
+    (chunk 4096): register_scan on the card (one exact_gn launch) within
+    1e-4 of the CPU, and the kernel against the plain loop on the card
+    (_exact_agrees)."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        exact_gn as tex)
     from feature_base_pointcloud_registration_tpu_torch.ops.register import (
         register_scan)
     params = Params(strict_feature_pick=False)
@@ -967,13 +981,17 @@ def test_register_scan_on_gpu_matches_cpu(cuda):
             device=dev)._replace(valid=torch.from_numpy(s["valid"]).to(dev))
         _, feats = tfront.process_scan(
             params, cloud_info.RawScan(*(a[None] for a in raw)))
-        res = register_scan(feats, FeatureMap(
-            *(torch.from_numpy(a).to(dev) for a in arrays)),
-            torch.from_numpy((gt + np.array(
-                [0.015, -0.01, 0.04, 0.3, -0.25, 0.1], np.float32))[None]
-            ).to(dev), chunk=4096)
+        fmap = FeatureMap(*(torch.from_numpy(a).to(dev) for a in arrays))
+        pose = torch.from_numpy((gt + np.array(
+            [0.015, -0.01, 0.04, 0.3, -0.25, 0.1], np.float32))[None]
+        ).to(dev)
+        before = tex.exact_gn.launches
+        res = register_scan(feats, fmap, pose, chunk=4096)
+        assert tex.exact_gn.launches == before + (dev == cuda)
         assert bool(res.valid[0]) and bool(res.converged[0])
         poses.append(res.pose6[0].cpu().numpy())
+        if dev == cuda:
+            _exact_agrees(*_exact_pair(cuda, feats, fmap, pose, chunk=4096))
     np.testing.assert_allclose(poses[0], poses[1], rtol=0, atol=1e-4)
     assert np.abs(poses[1][3:] - gt[3:]).max() < 0.03
 
@@ -2224,3 +2242,124 @@ def test_icp_kernel_at_edge_scenes(cuda, scene):
     assert bool(got.converged) == bool(want.converged)
     tol = iscn.fitness_tol(src, sm, want.transform.cpu())
     assert abs(float(got.fitness) - float(want.fitness)) <= tol
+
+
+# -------------------------------------------- the exact solver's GN loop
+
+import exact_scenes as es  # noqa: E402
+
+
+def _exact_pair(cuda, feats, fmap, pose, iters=30, cluster=None,
+                chunk=es.CHUNK):
+    """The exact_gn kernel (one launch, its host syncs counted) and the
+    plain loop (`exact_gn_reference`) on the card and on the CPU, on the
+    same inputs."""
+    from feature_base_pointcloud_registration_tpu_torch.ops import (
+        exact_gn as tex)
+    kw = dict(iters=iters, chunk=chunk)
+    want = tex.exact_gn_reference(pose, feats, fmap, **kw)
+    cpu = tex.exact_gn_reference(pose.cpu(), type(feats)(*(
+        t.cpu() for t in feats)), type(fmap)(*(t.cpu() for t in fmap)),
+        **kw)
+    tex.exact_gn(pose, feats, fmap, cluster=cluster, **kw)   # warm-up
+    torch.cuda.synchronize()
+    before = tex.exact_gn.launches
+    got, syncs = _syncs_of(lambda: tex.exact_gn(pose, feats, fmap,
+                                                cluster=cluster, **kw))
+    assert tex.exact_gn.launches == before + 1 and syncs == 0
+    again = tex.exact_gn(pose, feats, fmap, cluster=cluster, **kw)
+    assert torch.equal(again, got)
+    return got.cpu(), want.cpu(), cpu
+
+
+def _exact_agrees(got, want, cpu, pose_tol=1e-4, deg_tol=1e-3):
+    """The kernel against the plain loop on the card: iterations, n_corr,
+    converged, is_degenerate and the gate equal on every lane where the
+    plain loop's card and CPU runs agree on them (a correspondence at a
+    gate or a neighbour at a near-tie can go either way on float32
+    rounding; the plain loop's own runs show where); pose within pose_tol
+    (chip_smoke.py's EXACT_TOL, set from the card's readings: the fits'
+    arithmetic is not the plain loop's, and a correspondence at a gate
+    going the other way moved lane 0 of the 16384-slot dense map by
+    2.73e-5 on an H100; deg_tol on a degenerate lane, whose projector
+    comes from the Jacobi's frame where the plain loop has eigh's), or
+    within twice the plain loop's own card-vs-CPU spread where that is
+    larger (as chip_smoke.py's rounds probes hold rounds_gn)."""
+    assert torch.equal(got[:, 11:], torch.zeros_like(got[:, 11:]))
+    plain_same = (want[:, 6:11] == cpu[:, 6:11]).all(1)
+    same = (got[:, 6:11] == want[:, 6:11]).all(1)
+    assert bool((same | ~plain_same).all()), (got[:, 6:11], want[:, 6:11],
+                                              cpu[:, 6:11])
+    spread = float((want[:, :6] - cpu[:, :6]).abs().max(1).values[
+        same & plain_same].max()) if bool((same & plain_same).any()) else 0.0
+    d = (got[:, :6] - want[:, :6]).abs().max(1).values
+    tol = torch.where(want[:, 8] > 0, max(deg_tol, 2 * spread),
+                      max(pose_tol, 2 * spread))
+    print(f"exact_gn vs plain loop: pose |diff| {d.tolist()}, the plain "
+          f"loop card vs CPU {spread:.3e}, iterations {want[:, 6].tolist()},"
+          f" n_corr {want[:, 10].tolist()}, lanes equal {same.tolist()}")
+    assert bool((d[same] <= tol[same]).all()), d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maps", ["shared", "per_lane", "few_live"])
+def test_exact_gn_kernel_matches_plain_loop(cuda, maps):
+    """tests/exact_scenes.py's five lanes (two plain, a gated-off lane,
+    one with too few correspondences, one with interleaved dead features)
+    as one batch on a shared map, on one map a lane (slots rolled), and
+    on a map with 3 live corner points (every corner feature meets
+    no-neighbour slots): one launch, no host sync, two launches bitwise,
+    against the plain loop on the card."""
+    sc = es.scene()
+    if maps == "few_live":
+        sc = es.few_live_map(sc)
+    got, want, cpu = _exact_pair(cuda, *es.batch(
+        sc, range(5), cuda, per_lane_maps=maps == "per_lane"))
+    _exact_agrees(got, want, cpu)
+    assert want[:, 9].tolist() == [1, 1, 0, 1, 1]
+    assert want[2, 6] == 0 and torch.equal(got[2, :6], want[2, :6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_exact_gn_kernel_at_every_cluster_size(cuda, cluster):
+    _exact_agrees(*_exact_pair(cuda, *es.batch(es.scene(), range(5), cuda),
+                               cluster=cluster))
+
+
+@pytest.mark.cuda
+def test_exact_gn_kernel_on_a_map_larger_than_shared_memory(cuda):
+    """Lanes 0 and 1 on a fully live 16384-slot surf map (256 KB of
+    staged points: the map streams through the tile)."""
+    sc = es.scene()
+    sx, sm = es.dense_surf_map(16384)
+    got, want, cpu = _exact_pair(cuda, *es.batch(
+        dict(sc, smap=sx, smask=sm), [0, 1], cuda))
+    _exact_agrees(got, want, cpu)
+    assert (want[:, 10] > 300).all()
+
+
+@pytest.mark.cuda
+def test_exact_gn_first_neighbours_are_the_knn(cuda):
+    """The kernel's first-iteration neighbours (its diagnostic output)
+    against ops/knn.py::knn at the guesses (exact_scenes.first_nn_agreement:
+    exact ties, four repeated surf points, to the lower index; no-neighbour
+    slots exactly where knn's d2 is 3e38, on the map with 3 live corner
+    points), bit for bit: the kernel sums the centroid in the order of
+    ATen's CUDA mean, so every d2 is knn's and no index swaps."""
+    for sc in (es.scene(), es.few_live_map(es.scene())):
+        feats, fmap, pose = es.batch(sc, range(5), cuda)
+        B, P = pose.shape[0], es.PC + es.PS
+        nn = (torch.full((B, P, 5), -2, dtype=torch.int32, device=cuda),
+              torch.zeros(B, P, 5, device=cuda))
+        stat = torch.empty(B, 16, device=cuda)
+        kernels.launch_exact_gn(
+            pose, feats, fmap, stat, iters=1, min_corr=50, eig_thresh=100.0,
+            edge_min_valid=10, surf_min_valid=100, conv_rot_deg=0.05,
+            conv_trans_cm=0.05, nn=nn)
+        got = es.first_nn_agreement(pose, feats, fmap, nn,
+                                    stat[:, 9].cpu().numpy() > 0, es.CHUNK)
+        print(f"exact_gn first neighbours: {got}")
+        assert got["ok"] and got["slots"] > 5000
+        # the centroid in ATen's order: every d2 bit for bit knn's
+        assert got["swaps"] == 0 and got["d2_err"] == 0.0
